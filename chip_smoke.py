@@ -20,7 +20,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 7. oracle: the same model dequantized into a dense bf16 model that runs plain
    PyTorch; the generated tokens teacher-forced through both paths (max logit
    difference per step, bounded), PPL of both on synthetic windows, greedy
-   agreement.
+   agreement;
+8. train kernels: K7 (transposed INT4 GEMM of the backward) and K2 at the
+   training shapes (M = 4 x 512 rows) against their plain versions, timed
+   beside their bounds and a ``torch.matmul`` yardstick;
+9. train grad: the autograd linear's ``dx`` and ``dow`` on the full upgate
+   stage against autograd through the plain version in f32;
+10. train oracle: loss and weak-column gradients of one 4 x 512 batch through
+   the kernel path and through the dense bf16 model, layers 0, 15 and 31;
+11. train: the WCT main path -- 6 ``make_train_step`` steps at full depth with
+   run_finetune's defaults -- with launch counts checked per step, step
+   times, tokens/s, peak memory and the device's idle share;
+12. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
+   wct_final --eval --benchmark`` on a 4-layer model of full width, written
+   with ``save_packed``; the tuned model is served through K1-K4.
 
 Before the last line it prints the kernel table as one JSON object and the
 ``nvidia-smi`` line; the last line is {"ok": true, "device": {...}}.
@@ -29,16 +42,22 @@ Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 PROMPT, NEW_TOKENS = 64, 256
 CACHE = PROMPT + NEW_TOKENS
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6  # run_finetune's defaults
+ORACLE_LAYERS = (0, 15, 31)
+LOSS_RTOL = 1e-2  # of the dense loss; see phase_train_oracle()
 PEAK_HBM = 3.35e12  # bytes/s, H100 SXM data sheet
 PEAK_BF16 = 989e12  # dense bf16 tensor FLOP/s, H100 SXM data sheet
 KERNEL_RTOL = 1e-2  # of max |plain|; see check()
@@ -475,6 +494,299 @@ def phase_oracle(cfg, params, prompt, tokens):
     return dict(max_logit_diff=worst, logit_scale=scale, ppl_kernel=ppl_k, ppl_dense=ppl_d)
 
 
+def _sft_batches(cfg, seed: int = 42):
+    """run_finetune's data: synthetic SFT examples, batches of 4 x 512."""
+    from qeft_tpu_torch.data.sft import batches, synthetic_sft_examples
+
+    examples = synthetic_sft_examples(256, cfg.vocab_size, seed)
+    for b in batches(examples, TRAIN_BATCH, TRAIN_SEQ, seed, epochs=100):
+        yield (torch.as_tensor(b["input_ids"], device="cuda"),
+               torch.as_tensor(b["labels"], device="cuda"))
+
+
+def phase_train_kernels(cfg, params, bw, rows):
+    """K7 and K2 at the training shapes: M = 4 x 512 token rows."""
+    from qeft_tpu_torch.ops import qmm
+    from qeft_tpu_torch.ops.qlinear import matmul_f32
+    from qeft_tpu_torch.testing import dense_linear
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    m = TRAIN_BATCH * TRAIN_SEQ
+    layers, n_layers = params["layers"], cfg.num_layers
+    k7 = rows["qgemm_t"] = Row("qgemm_t", "qeft_tpu_torch/csrc/qmm.cu",
+                               "qeft_tpu/ops/pallas_qmm.py:691", True)
+    k2 = Row("qgemm", "", "", True)  # K2 at the training shape, merged into its row below
+    log(f"[train-kernels] K7 qgemm_t and K2 qgemm vs plain, M={m}, layer rotating over 32")
+    for name in ("qkv", "o", "upgate", "down"):
+        p = layers[name]
+        k, n, r = p.in_features, p.out_features, p.n_outlier
+        gy = randn(m, n)
+        tail = matmul_f32(gy, p.oweight[3].t())  # the weak-column product of the backward
+        err = check(f"K7 {name} {n}->{k}", qmm.qgemm_t(gy, p.layer(3), tail),
+                    qmm.qgemm_t_plain(f32(gy), f32(p.layer(3)), tail))
+        ms = time_ms(lambda i: qmm.qgemm_t(gy, p.layer(i % n_layers), tail))
+        plain = time_ms(lambda i: qmm.qgemm_t_plain(gy, p.layer(i % n_layers), tail),
+                        inner=2, reps=3)
+        w = dense_linear(_one_layer(p, 0))[0]
+        lib = time_ms(lambda i: torch.matmul(gy, w.t()))
+        wbytes = k * n // 2 + 4 * (k // p.group_size) * n
+        nbytes = wbytes + 2 * m * (n + k) + 4 * m * r
+        b = k7.add(err, ms, plain, lib, nbytes, 2 * m * k * n, bw)
+        log(f"    K7 kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, torch.matmul on the "
+            f"dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]})")
+
+        x = randn(m, k)
+        err = check(f"K2 {name} {k}->{n}", qmm.qgemm(x, p.layer(3)),
+                    qmm.qgemm_plain(f32(x), f32(p.layer(3))))
+        ms = time_ms(lambda i: qmm.qgemm(x, p.layer(i % n_layers)))
+        plain = time_ms(lambda i: qmm.qgemm_plain(x, p.layer(i % n_layers)), inner=2, reps=3)
+        lib = time_ms(lambda i: torch.matmul(x, w))
+        del w
+        nbytes = wbytes + 2 * r * n + 2 * m * (k + n)
+        b = k2.add(err, ms, plain, lib, nbytes, 2 * m * (k + r) * n, bw)
+        log(f"    K2 kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, torch.matmul on the "
+            f"dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]})")
+    k7.d["per"] = f"one training layer's backward: qkv + o + upgate + down at M={m}"
+    row = rows["qgemm"].d
+    row["max_abs_err"] = max(row["max_abs_err"], k2.d["max_abs_err"])
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        row[f"train_{key}"] = k2.d[key]
+    row["train_per"] = f"one training layer's forward: qkv + o + upgate + down at M={m}"
+    log(f"[train-kernels] per layer: K7 {k7.d['ms']:.3f} ms (bound {k7.d['bound_ms']:.3f}), "
+        f"K2 {k2.d['ms']:.3f} ms (bound {k2.d['bound_ms']:.3f})")
+
+
+def phase_train_grad(cfg, params):
+    """The autograd linear on the full upgate stage: dx (K7 + addend) and
+    the f32 dow against autograd through the plain version in f32."""
+    from qeft_tpu_torch.ops import qmm
+    from qeft_tpu_torch.ops.qlinear import qlinear_apply
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    p = params["layers"]["upgate"].layer(5)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    x = torch.randn(m, p.in_features, generator=gen, device="cuda").to(torch.bfloat16)
+    gy = torch.randn(m, p.out_features, generator=gen, device="cuda").to(torch.bfloat16)
+    ow = p.oweight.float().requires_grad_()
+    xk = x.clone().requires_grad_()
+    qlinear_apply(xk, dataclasses.replace(p, oweight=ow)).backward(gy)
+    x32 = x.float().requires_grad_()
+    ow32 = ow.detach().clone().requires_grad_()
+    qmm.qgemm_plain(x32, dataclasses.replace(f32(p), oweight=ow32)).backward(gy.float())
+    log(f"[train-grad] autograd linear, upgate layer 5, M={m}, vs autograd of the plain version")
+    check("dx", xk.grad, x32.grad)
+    check("dow (f32)", ow.grad, ow32.grad)
+    if ow.grad.dtype != torch.float32:
+        raise AssertionError("the oweight gradient is not f32")
+
+
+def phase_train_oracle(cfg, params):
+    """One batch through the kernel path and through the dense bf16 model
+    (plain PyTorch, same training forward): losses within LOSS_RTOL (both
+    bf16 through 32 layers; a wrong kernel moves the loss by O(1)), and the
+    dense weight's gradient on its last r rows -- which is the oweight
+    gradient -- within ORACLE_RTOL of its scale (as the serving oracle's
+    bound: bf16 rounding through 32 layers of backward, where a wrong K7
+    moves gradients by their own scale)."""
+    from qeft_tpu_torch.finetune import causal_lm_loss, llama_forward_train, split_wct, wct_loss
+    from qeft_tpu_torch.testing import dense_model
+
+    ids, labels = next(_sft_batches(cfg))
+    oweights, frozen = split_wct(params)
+    loss_k = wct_loss(oweights, frozen, ids, labels, cfg, remat=True)
+    loss_k.backward()
+    dense = dense_model(params)
+    for name in ("qkv", "o", "upgate", "down"):
+        leaves = list(dense["layers"][name].unbind(0))
+        for l in ORACLE_LAYERS:
+            leaves[l] = leaves[l].detach().requires_grad_()
+        dense["layers"][name] = leaves
+    loss_d = causal_lm_loss(llama_forward_train(dense, ids, cfg, remat=True), labels)
+    loss_d.backward()
+    lk, ld = loss_k.item(), loss_d.item()
+    log(f"[train-oracle] batch {TRAIN_BATCH}x{TRAIN_SEQ}: loss kernel path {lk:.6f}, dense "
+        f"{ld:.6f}, |diff| {abs(lk - ld):.3g} (bound {LOSS_RTOL * ld:.3g})")
+    ok = abs(lk - ld) <= LOSS_RTOL * ld
+    out = {}
+    for name in ("qkv", "o", "upgate", "down"):
+        r = params["layers"][name].n_outlier
+        for l in ORACLE_LAYERS:
+            gd = dense["layers"][name][l].grad[-r:].float()
+            gk = oweights[name][l].grad
+            err, scale = (gk - gd).abs().max().item(), gd.abs().max().item()
+            good = bool(torch.isfinite(gk).all()) and scale > 0 and err <= ORACLE_RTOL * scale
+            ok &= good
+            out[f"{name}{l}"] = err / scale
+            log(f"  dow {name} layer {l}: max |diff| {err:.4g}, dense scale {scale:.4g} "
+                f"({err / scale:.2%}) {'ok' if good else 'FAIL'}")
+    del dense, oweights, frozen
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the training kernel path disagrees with the dense model")
+    return dict(loss_kernel=lk, loss_dense=ld, grad_rel_err=out)
+
+
+def train_step_flops(cfg, params) -> int:
+    """Operations of one train step as the port runs it: each packed linear
+    forward twice (remat) over K + r rows, K7 over K rows except layer 0's
+    qkv, the two weak-column products; the plain attention's four products
+    forward, recomputed and twice backward; lm_head forward and its dx."""
+    m, s = TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ
+    per_layer = 0
+    for name in ("qkv", "o", "upgate", "down"):
+        p = params["layers"][name]
+        k, n, r = p.in_features, p.out_features, p.n_outlier
+        per_layer += 2 * (2 * m * (k + r) * n) + 2 * m * k * n + 2 * (2 * m * r * n)
+    per_layer += 4 * (4 * TRAIN_BATCH * cfg.num_heads * s * s * cfg.head_dim)
+    qkv = params["layers"]["qkv"]
+    head = 2 * (2 * m * cfg.hidden_size * cfg.vocab_size)
+    return (cfg.num_layers * per_layer - 2 * m * qkv.in_features * qkv.out_features + head)
+
+
+def phase_train(cfg, params):
+    """The WCT main path: TRAIN_STEPS steps of make_train_step at full depth
+    with run_finetune's defaults (lr 2e-4, cosine over 100 steps, warmup
+    0.03, clip 0.3, remat), launch counts checked per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qeft_tpu_torch.finetune import (
+        TrainConfig, leaves, make_optimizer, make_train_step, split_wct,
+    )
+    from qeft_tpu_torch.ops import cuda_lib
+
+    oweights, frozen = split_wct(params)
+    frozen_copy = {k: (v.map(torch.clone) if hasattr(v, "map") else v.clone())
+                   for k, v in frozen["layers"].items()}
+    start = [t.detach().clone() for t in leaves(oweights)]
+    tc = TrainConfig(learning_rate=2e-4, total_steps=100, warmup_ratio=0.03,
+                     max_grad_norm=0.3, lr_schedule="cosine", remat=True)
+    opt = make_optimizer(tc, oweights)
+    step = make_train_step(cfg, opt, remat=True)
+    data = _sft_batches(cfg)
+    n_layers, tokens = cfg.num_layers, TRAIN_BATCH * TRAIN_SEQ
+    per_step = {"qgemm": 2 * 4 * n_layers, "qgemm_t": 4 * n_layers - 1}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    losses, host_ms, dev_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        ids, labels = next(data)
+        before = dict(cuda_lib.launches)
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        tick = time.perf_counter()
+        start_ev.record()
+        loss = step(oweights, frozen, ids, labels)
+        end_ev.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - tick) * 1e3)
+        dev_ms.append(start_ev.elapsed_time(end_ev))
+        losses.append(loss.item())
+        diff = {k: cuda_lib.launches[k] - before.get(k, 0) for k in cuda_lib.launches}
+        diff = {k: v for k, v in diff.items() if v}
+        supervised = int((labels[:, 1:] != -100).sum())
+        log(f"[train] step {i + 1}: loss {losses[-1]:.6f}, {host_ms[-1]:.1f} ms host clock, "
+            f"{dev_ms[-1]:.1f} ms CUDA events, {tokens / host_ms[-1] * 1e3:.0f} tokens/s "
+            f"({supervised} supervised), launches {diff}")
+        if diff != per_step:
+            raise AssertionError(f"step {i + 1} launched {diff}, expected {per_step}")
+    counts = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    log(f"[train] launches {counts}; expected {want}; peak device memory {peak:.3f} GB")
+    if counts != want:
+        raise AssertionError("the training path did not launch each kernel as expected")
+    med_host, med_dev = statistics.median(host_ms[1:]), statistics.median(dev_ms[1:])
+    flops = train_step_flops(cfg, params)
+    log(f"[train] steps 2-{TRAIN_STEPS}: median {med_host:.1f} ms host clock, {med_dev:.1f} ms "
+        f"CUDA events -> {tokens / med_host * 1e3:.0f} tokens/s; {flops / 1e12:.2f} TFLOP a step, "
+        f"bound {flops / PEAK_BF16 * 1e3:.1f} ms (operations)")
+    if not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError("a training loss is not finite")
+    moved = max((a.detach() - b).abs().max().item() for a, b in zip(leaves(oweights), start))
+    for k, v in frozen["layers"].items():
+        same = ([torch.equal(getattr(v, f), getattr(frozen_copy[k], f))
+                 for f in ("qweight", "scales", "scaled_zeros")] if hasattr(v, "map")
+                else [torch.equal(v, frozen_copy[k])])
+        if not all(same):
+            raise AssertionError(f"frozen buffer {k} changed")
+    log(f"[train] oweights moved by up to {moved:.4g}; frozen buffers unchanged")
+    if not moved > 0:
+        raise AssertionError("the oweights did not move")
+    del frozen_copy, start
+
+    ids, labels = next(data)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(oweights, frozen, ids, labels)
+        torch.cuda.synchronize()
+    kernels = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    kernels = sorted((k for k in kernels if k[1] > 0), key=lambda k: -k[1])
+    busy = sum(ms for _, ms in kernels)
+    res = dict(losses=losses, host_ms=med_host, dev_ms=med_dev, tokens_s=tokens / med_host * 1e3,
+               peak_gb=peak, counts=counts)
+    if busy == 0:
+        log("[train] device time not measured (the profiler recorded no CUDA kernel)")
+        return res
+    log(f"[train] profiled step: device busy {busy:.1f} ms against the median unprofiled step "
+        f"{med_host:.1f} ms (host clock) -> idle share {max(0.0, 1 - busy / med_host):.1%}; "
+        f"top kernels:")
+    for name, ms in kernels[:10]:
+        log(f"    {ms:9.3f} ms  {ms / busy:6.1%}  {name[:90]}")
+    res.update(busy_ms=busy, idle=max(0.0, 1 - busy / med_host))
+    return res
+
+
+def phase_cli(cfg):
+    """run_finetune and main on a 4-layer model of full width: save at
+    step 2, resume (as if cut after that save) to step 4, then serve the
+    tuned checkpoint through K1-K4."""
+    from qeft_tpu_torch import main as cli
+    from qeft_tpu_torch import run_finetune
+    from qeft_tpu_torch.checkpoint import save_packed
+    from qeft_tpu_torch.ops import cuda_lib
+    from qeft_tpu_torch.testing import build_packed_model
+
+    small = dataclasses.replace(cfg, num_layers=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        tick = time.perf_counter()
+        base = os.path.join(tmp, "llama2_7b_4layers_packed")
+        save_packed(base, build_packed_model(small, seed=5, g=128, r=128, device="cuda"), small)
+        log(f"[cli] save_packed of a 4-layer full-width model: "
+            f"{os.path.getsize(base + '.npz')} bytes in {time.perf_counter() - tick:.1f} s")
+        out = os.path.join(tmp, "wct")
+        argv = ["--load", base, "--output_dir", out, "--log_steps", "1"]
+        run_finetune.main(argv + ["--max_steps", "3", "--save_steps", "2"])
+        names = sorted(os.listdir(out))
+        log(f"[cli] run_finetune to step 3 wrote {names}")
+        for need in ("wct_step2.npz", "opt_step2.pt", "wct_final.npz", "metrics.json", "completed"):
+            if need not in names:
+                raise AssertionError(f"run_finetune did not write {need}")
+        os.remove(os.path.join(out, "completed"))
+        metrics = run_finetune.main(argv + ["--max_steps", "4", "--save_steps", "2"])
+        steps = [m["step"] for m in metrics if "loss" in m]
+        log(f"[cli] resumed run logged steps {steps}")
+        if steps != [1, 2, 3, 4]:
+            raise AssertionError("the resumed run did not continue from step 2 to step 4")
+        cuda_lib.reset_launches()
+        res = cli.main(["--load", os.path.join(out, "wct_final"), "--eval", "--eval_windows", "1",
+                        "--seqlen", "512", "--benchmark", "32"])
+        counts = dict(cuda_lib.launches)
+        log(f"[cli] main on the tuned checkpoint: {res}; launches {counts}")
+        for k in ("qgemv_stacked_fused", "qgemm", "flash_window_attention", "decode_attention"):
+            if not counts.get(k):
+                raise AssertionError(f"serving the tuned model launched no {k}")
+        if not res["ppl_synthetic"] == res["ppl_synthetic"]:
+            raise AssertionError("PPL of the tuned model is not finite")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -489,6 +801,13 @@ def main() -> int:
         row.d["launches"] = counts.get(key, 0)
     phase_profile(cfg, params, prompt)
     phase_oracle(cfg, params, prompt, tokens)
+    phase_train_kernels(cfg, params, bw, rows)
+    phase_train_grad(cfg, params)
+    train = phase_train(cfg, params)
+    rows["qgemm"].d["launches_train"] = train["counts"].get("qgemm", 0)
+    rows["qgemm_t"].d["launches"] = train["counts"].get("qgemm_t", 0)
+    phase_cli(cfg)
+    phase_train_oracle(cfg, params)
     log(f"[done] {time.perf_counter() - tick:.1f} s")
     print(json.dumps({"kernels": [r.d for r in rows.values()]}))
     print(smi)

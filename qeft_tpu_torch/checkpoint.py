@@ -1,16 +1,20 @@
-"""Reading packed checkpoints.
+"""Packed and WCT checkpoints, read and written.
 
 The format is the JAX package's (``qeft_tpu/checkpoint.py``): one ``.npz`` of
 path-addressed leaves (``layers::qkv::qweight``; a linear's fields end in its
 ``__group_size`` sentinel) and a JSON manifest with the format tag, the
 model family and its config.  numpy cannot store bfloat16, so those leaves
 are stored as uint16 under a key ending in ``@bf16``; they are viewed back
-as ``torch.bfloat16`` bit for bit.
+as ``torch.bfloat16`` bit for bit.  A WCT checkpoint holds only the tuned
+weak-column slabs (``oweight::<linear>``) and the base checkpoint's path;
+the two packages read each other's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -93,17 +97,143 @@ def _paths(path: str) -> Tuple[str, str]:
     return stem + ".npz", stem + ".json"
 
 
+def _manifest(path: str, fmt: str = None) -> Dict:
+    with open(_paths(path)[1]) as f:
+        manifest = json.load(f)
+    if fmt is not None and manifest["format"] != fmt:
+        raise ValueError(f"{path} is a {manifest['format']!r} checkpoint, not {fmt}")
+    return manifest
+
+
 def load_packed(path: str, device=None):
     """-> (packed params on ``device``, config, family).  ``device`` defaults
     to the GPU and raises without one."""
     device = resolve_device(device)
-    npz, mpath = _paths(path)
-    with open(mpath) as f:
-        manifest = json.load(f)
-    if manifest["format"] != "packed":
-        raise ValueError(f"{path} is a {manifest['format']!r} checkpoint, not packed")
-    with np.load(npz) as z:
+    manifest = _manifest(path, "packed")
+    with np.load(_paths(path)[0]) as z:
         params = from_flat({k: z[k] for k in z.files})
     family = manifest.get("family", "llama")
     params = tree_map(lambda t: t.to(device), params)
     return params, cfg_from_dict(manifest["config"], family), family
+
+
+# ---------------------------------------------------------------------------
+# writing, and the WCT overlay
+
+
+def _encode(t: torch.Tensor) -> Tuple[str, np.ndarray]:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return _BF16_TAG, t.view(torch.int16).numpy().view(np.uint16)
+    return "", t.numpy()
+
+
+def to_flat(params: Dict) -> Dict[str, np.ndarray]:
+    """Inverse of `from_flat`: the key format of ``qeft_tpu.checkpoint._flatten``."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, QLinearParams):
+            for field in _QFIELDS[:-1]:
+                t = getattr(node, field)
+                if t is not None:
+                    walk(prefix + _SEP + field, t)
+            flat[prefix + _SEP + "__group_size"] = np.asarray(node.group_size)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(prefix + _SEP + k if prefix else k, v)
+        elif node is not None:
+            tag, a = _encode(node)
+            flat[prefix + tag] = a
+
+    walk("", params)
+    return flat
+
+
+def _save(path: str, flat: Dict[str, np.ndarray], manifest: Dict) -> None:
+    npz, mpath = _paths(path)
+    os.makedirs(os.path.dirname(os.path.abspath(npz)), exist_ok=True)
+    np.savez(npz, **flat)
+    with open(mpath, "w") as f:
+        json.dump(manifest, f, indent=1)
+
+
+def cfg_to_dict(cfg) -> Dict:
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = str(cfg.dtype).replace("torch.", "")
+    return d
+
+
+def save_packed(path: str, params: Dict, cfg, family: str = "llama") -> None:
+    """A packed checkpoint in the JAX package's format (fused stages are
+    written under their fused names, as ``qeft_tpu`` writes a fused tree)."""
+    _save(path, to_flat(params),
+          {"format": "packed", "family": family, "config": cfg_to_dict(cfg)})
+
+
+def _linear_names(path: str) -> set:
+    """Names of the layer linears that carry an oweight in a checkpoint."""
+    with np.load(_paths(path)[0]) as z:
+        return {k.split(_SEP)[1] for k in z.files
+                if k.startswith("layers" + _SEP) and k.split(_SEP)[-1].startswith("oweight")}
+
+
+def save_wct(path: str, oweights: Dict, base_path: str) -> None:
+    """Oweight-only overlay on the packed checkpoint ``base_path``, in the
+    JAX package's format: one f32 ``[L, r, N]`` slab per linear, under the
+    linear names the base checkpoint holds.  ``oweights`` maps a stage to
+    its per-layer leaves (or to a stacked tensor); a fused stage whose name
+    the base does not hold is cut into its members."""
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.pipeline import member_widths, split_fused
+
+    manifest = _manifest(base_path, "packed")
+    family = manifest.get("family", "llama")
+    stacked = {name: (torch.stack([t.detach() for t in w]) if isinstance(w, (list, tuple))
+                      else w.detach()).to(torch.float32)
+               for name, w in oweights.items()}
+    meta = get_model_meta(family)
+    cfg = cfg_from_dict(manifest["config"], family)
+    per_name = split_fused(stacked, meta, member_widths(cfg, meta), keep=_linear_names(base_path))
+    _save(path, {f"oweight{_SEP}{name}": _encode(t)[1] for name, t in per_name.items()},
+          {"format": "wct", "base_path": os.path.abspath(base_path)})
+
+
+def read_wct(path: str) -> Tuple[Dict[str, torch.Tensor], str]:
+    """-> (per-linear f32 slabs on the CPU, as written, and the base path)."""
+    base = _manifest(path, "wct")["base_path"]
+    with np.load(_paths(path)[0]) as z:
+        slabs = dict(_to_tensor(k, z[k]) for k in z.files)
+    return {k.split(_SEP, 1)[1]: v for k, v in slabs.items()}, base
+
+
+def load_wct(path: str, device=None):
+    """Base packed model with the tuned slabs laid over it, each cast to its
+    linear's scales dtype (as ``qeft_tpu.checkpoint.load_wct`` does), then
+    stage-fused.  -> (params, config, family)."""
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.pipeline import fuse_packed_stages
+
+    slabs, base = read_wct(path)
+    params, cfg, family = load_packed(base, device)
+    layers = dict(params["layers"])
+    for name, w in slabs.items():
+        lin = layers[name]
+        layers[name] = dataclasses.replace(
+            lin, oweight=w.to(device=lin.scales.device, dtype=lin.scales.dtype))
+    params = fuse_packed_stages({**params, "layers": layers}, get_model_meta(family))
+    return params, cfg, family
+
+
+def load_model(path: str, device=None):
+    """Dispatch on the manifest's format: ``packed`` or ``wct``.
+    -> (params, config, family); pass them through ``fuse_packed_stages``."""
+    fmt = _manifest(path)["format"]
+    if fmt == "packed":
+        return load_packed(path, device)
+    if fmt == "wct":
+        return load_wct(path, device)
+    if fmt == "fake":
+        raise NotImplementedError(
+            f"{path}: fake-quantized checkpoints are not read by the port yet")
+    raise ValueError(f"unknown checkpoint format {fmt}")

@@ -44,6 +44,27 @@
 //   pass sums them in split order (deterministic) with the residual.  The
 //   weak columns follow, in the last split, as extra K steps that read
 //   oweight directly.  No TMA/wgmma yet.
+//
+// qgemm_t (K7) replaces pallas_qmm.py::qgemm_t (_qmm_t_kernel): the training
+//   backward dx = g @ W_deq^T from the packed codes, over ALL K rows (the
+//   last r included: the forward's K2 runs over them too), plus an optional
+//   f32 [M, r] addend (the weak-column product g @ oweight^T, computed
+//   outside) on the last r columns before the one rounding to bf16.
+//   Bound: at M = 2048 the bf16 tensor-core rate (2*M*K*N operations against
+//   K*N/2 code bytes and 2*M*(N + K) activation bytes).
+//   Design: one block per (64-row M tile, one quantization group of K
+//   columns); a loop over N in chunks of 64 takes the place of the TPU's
+//   sequential reduction axis, so nothing is carried between blocks.  Each
+//   chunk dequantizes the group's g/8 word rows x 8 planes (mul then add, as
+//   K2 and the plain version round) into a [g][64] shared tile -- word row
+//   jj, nibble p is K column p*(g/8) + jj of the group, so the block writes
+//   its g output columns in original K order and no inverse permutation is
+//   needed -- and 4 warps of 16 rows run bf16 WMMA against the [64 x 64] g
+//   tile, the W tile read column-major.  The next chunk's words and g tile
+//   are loaded into registers during the current chunk's MMAs, as in K2.  At
+//   M = 2048 this is 1,024 to 2,752 blocks; at small M the same grid runs
+//   K/g blocks with the rows past M masked (few blocks: slow, not wrong).
+//   No TMA/wgmma yet.
 
 #include <mma.h>
 
@@ -484,6 +505,148 @@ __global__ void qgemm_reduce_kernel(const float* __restrict__ ws, const bf16* __
   }
 }
 
+// ----------------------------------------------------------------- K7
+
+constexpr int kT_BM = 64, kT_BN = 64, kT_THREADS = 128;  // M tile, N chunk, 4 warps
+constexpr int kT_LD = kT_BN + 8;                          // bf16 per shared g / W row
+constexpr int kT_A_PER = kT_BM * kT_BN / 8 / kT_THREADS;  // 16-byte g chunks a thread
+constexpr int kT_B_PER = (kG_MAXG / 8) * kT_BN / kT_THREADS;  // words a thread
+
+__host__ __device__ inline size_t qgemm_t_smem(int g) {
+  const size_t ab = (size_t)(kT_BM + g) * kT_LD * 2;
+  const size_t c = (size_t)kT_BM * (g + 4) * 4;
+  return ab > c ? ab : c;
+}
+
+// one N chunk's operands, held in registers between its load and its store
+struct ChunkRegs {
+  uint4 a[kT_A_PER];
+  uint32_t b[kT_B_PER];
+  float s, z;
+};
+
+__device__ __forceinline__ void load_chunk(ChunkRegs& r, const bf16* __restrict__ gy,
+                                           const int32_t* __restrict__ qw,
+                                           const bf16* __restrict__ sc,
+                                           const bf16* __restrict__ sz, int gi, int n0, int m0,
+                                           int M, int N, int n_groups, int hh, int tid) {
+#pragma unroll
+  for (int i = 0; i < kT_A_PER; ++i) {  // g[m0:m0+64, n0:n0+64], zero past M and N
+    const int idx = tid + i * kT_THREADS;
+    const int m = idx >> 3, ch = idx & 7;
+    r.a[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (m0 + m < M && n0 + ch * 8 < N)
+      r.a[i] = __ldg(reinterpret_cast<const uint4*>(gy + (size_t)(m0 + m) * N + n0) + ch);
+  }
+  const int n = n0 + (tid & (kT_BN - 1));
+  const bool col_ok = n < N;
+#pragma unroll
+  for (int i = 0; i < kT_B_PER; ++i) {
+    const int jj = tid / kT_BN + i * (kT_THREADS / kT_BN);
+    r.b[i] = (col_ok && jj < hh) ? (uint32_t)__ldg(qw + (size_t)(jj * n_groups + gi) * N + n)
+                                 : 0u;
+  }
+  r.s = col_ok ? bf2f(sc[(size_t)gi * N + n]) : 0.f;
+  r.z = col_ok ? bf2f(sz[(size_t)gi * N + n]) : 0.f;
+}
+
+// g as it is; W dequantized as [k][n]: word row jj, nibble p is K column p*hh + jj
+__device__ __forceinline__ void store_chunk(const ChunkRegs& r, bf16* As, bf16* Bs, int hh,
+                                            int tid) {
+#pragma unroll
+  for (int i = 0; i < kT_A_PER; ++i) {
+    const int idx = tid + i * kT_THREADS;
+    *reinterpret_cast<uint4*>(As + (idx >> 3) * kT_LD + (idx & 7) * 8) = r.a[i];
+  }
+  const int c = tid & (kT_BN - 1);
+#pragma unroll
+  for (int i = 0; i < kT_B_PER; ++i) {
+    const int jj = tid / kT_BN + i * (kT_THREADS / kT_BN);
+    if (jj >= hh) break;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      // mul then add, not an FMA: the same rounding as K2 and the plain version
+      const float wv = __fadd_rn(__fmul_rn(nibble(r.b[i], p), r.s), r.z);
+      Bs[(p * hh + jj) * kT_LD + c] = f2bf(wv);
+    }
+  }
+}
+
+// FK = g / 16 accumulator fragments a warp: its 16 rows by the group's g columns
+template <int FK>
+__global__ void __launch_bounds__(kT_THREADS)
+qgemm_t_kernel(const bf16* __restrict__ gy, const int32_t* __restrict__ qw,
+               const bf16* __restrict__ sc, const bf16* __restrict__ sz,
+               const float* __restrict__ tail, bf16* __restrict__ out, int M, int K, int N,
+               int R) {
+  constexpr int g = FK * 16, hh = g / 8, ldc = g + 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);    // [BM][BN + 8], the g tile
+  bf16* Bs = As + kT_BM * kT_LD;               // [g][BN + 8], W^T column-major
+  float* Cs = reinterpret_cast<float*>(smem);  // [BM][g + 4], after the N loop
+
+  const int n_groups = K / g;
+  const int gi = blockIdx.x, m0 = blockIdx.y * kT_BM;
+  const int tid = threadIdx.x, warp = tid >> 5;
+
+  AccFrag acc[FK];
+#pragma unroll
+  for (int j = 0; j < FK; ++j) wmma::fill_fragment(acc[j], 0.f);
+
+  const int n_chunks = (N + kT_BN - 1) / kT_BN;
+  ChunkRegs r;
+  load_chunk(r, gy, qw, sc, sz, gi, 0, m0, M, N, n_groups, hh, tid);
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    __syncthreads();  // the previous chunk's fragments are loaded
+    store_chunk(r, As, Bs, hh, tid);
+    __syncthreads();
+    if (ci + 1 < n_chunks)
+      load_chunk(r, gy, qw, sc, sz, gi, (ci + 1) * kT_BN, m0, M, N, n_groups, hh, tid);
+#pragma unroll
+    for (int kk = 0; kk < kT_BN; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, As + warp * 16 * kT_LD + kk, kT_LD);
+#pragma unroll
+      for (int j = 0; j < FK; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::load_matrix_sync(b, Bs + j * 16 * kT_LD + kk, kT_LD);
+        wmma::mma_sync(acc[j], a, b, acc[j]);
+      }
+    }
+  }
+
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < FK; ++j)
+    wmma::store_matrix_sync(Cs + warp * 16 * ldc + j * 16, acc[j], ldc, wmma::mem_row_major);
+  __syncthreads();
+  const int k_tail = K - R;
+  for (int i = tid; i < kT_BM * g; i += kT_THREADS) {
+    const int m = i / g, kc = i - m * g;
+    const int gm = m0 + m, k = gi * g + kc;
+    if (gm < M) {
+      float y = Cs[m * ldc + kc];
+      if (tail != nullptr && k >= k_tail) y += tail[(size_t)gm * R + (k - k_tail)];
+      out[(size_t)gm * K + k] = f2bf(y);
+    }
+  }
+}
+
+template <int FK>
+cudaError_t launch_qgemm_t(const bf16* gy, const int32_t* qw, const bf16* sc, const bf16* sz,
+                           const float* tail, bf16* out, int M, int K, int N, int R,
+                           cudaStream_t stream) {
+  const size_t smem = qgemm_t_smem(FK * 16);
+  if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
+    cudaError_t e = cudaFuncSetAttribute(qgemm_t_kernel<FK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid(K / (FK * 16), (M + kT_BM - 1) / kT_BM);
+  qgemm_t_kernel<FK><<<grid, kT_THREADS, smem, stream>>>(gy, qw, sc, sz, tail, out, M, K, N, R);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* qweight,
@@ -542,4 +705,30 @@ extern "C" int qgemm(const void* x, const void* qweight, const void* scales, con
   qgemm_reduce_kernel<<<blocks, 256, 0, st>>>(w, static_cast<const bf16*>(res),
                                              static_cast<bf16*>(out), mn, splits);
   return (int)cudaGetLastError();
+}
+
+// tail: f32 [M, R] added to the last R columns of dx before rounding, or NULL
+extern "C" int qgemm_t(const void* g, const void* qweight, const void* scales, const void* szeros,
+                       const void* tail, void* out, int M, int K, int N, int group, int R,
+                       void* stream) {
+  if (M < 1 || (M + kT_BM - 1) / kT_BM > 65535 || K <= 0 || N <= 0 || N % 8 || group <= 0 ||
+      group > kG_MAXG || group % 16 || K % group || R < 0 || R > K ||
+      (tail != nullptr && R == 0))
+    return (int)cudaErrorInvalidValue;
+  const bf16* gy = static_cast<const bf16*>(g);
+  const int32_t* qw = static_cast<const int32_t*>(qweight);
+  const bf16* sc = static_cast<const bf16*>(scales);
+  const bf16* sz = static_cast<const bf16*>(szeros);
+  const float* tl = static_cast<const float*>(tail);
+  bf16* y = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (group / 16) {
+#define QEFT_CASE(FK) \
+  case FK:            \
+    return (int)launch_qgemm_t<FK>(gy, qw, sc, sz, tl, y, M, K, N, tl ? R : 0, st);
+    QEFT_CASE(1) QEFT_CASE(2) QEFT_CASE(3) QEFT_CASE(4)
+    QEFT_CASE(5) QEFT_CASE(6) QEFT_CASE(7) QEFT_CASE(8)
+#undef QEFT_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,9 @@
-"""CLI: load a packed checkpoint, evaluate PPL and benchmark greedy decoding.
+"""CLI: load a packed or WCT checkpoint, evaluate PPL and benchmark greedy
+decoding.
 
-The ``--load ... --eval --benchmark`` surface of ``qeft_tpu/main.py``:
+The ``--load ... --eval --benchmark`` surface of ``qeft_tpu/main.py``; a WCT
+checkpoint (``run_finetune``'s ``wct_final``) loads as its base model with
+the tuned weak-column slabs laid over it:
 
     python -m qeft_tpu_torch.main --load ckpt/llama2_7b_packed --eval \\
         --eval_windows 4 --seqlen 2048 --benchmark 256
@@ -20,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from qeft_tpu_torch.checkpoint import load_packed
+from qeft_tpu_torch.checkpoint import load_model
 from qeft_tpu_torch.data import get_loaders
 from qeft_tpu_torch.device import resolve_device
 from qeft_tpu_torch.eval import eval_ppl
@@ -87,7 +90,7 @@ def benchmark(params, cfg, api, n: int, device: torch.device, dataset: str,
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--load", required=True, help="packed checkpoint (.npz + .json)")
+    parser.add_argument("--load", required=True, help="packed or WCT checkpoint (.npz + .json)")
     parser.add_argument("--device", default=None, help="default: cuda (required)")
     parser.add_argument("--dataset", default="synthetic")
     parser.add_argument("--seed", type=int, default=0)
@@ -99,7 +102,7 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
-    params, cfg, family = load_packed(args.load, device=device)
+    params, cfg, family = load_model(args.load, device=device)
     params = fuse_packed_stages(params, get_model_meta(family))
     api = get_model_api(family)
     if device.type == "cuda":

@@ -15,6 +15,11 @@ Two kinds of parameter tree run through the same functions:
 - dense trees (stacked ``[L, K, N]`` tensors, ``testing.dense_model``) are
   the reference model of the oracle and run plain PyTorch throughout,
   attention included, on any device.
+
+Serving runs `llama_block`; training runs `llama_block_train`, a separate
+differentiable block (norms and residuals outside the linears, plain
+attention) so that the serving path and its kernel launches stay as they
+are.
 """
 
 from __future__ import annotations
@@ -26,15 +31,20 @@ import torch
 import torch.nn.functional as F
 
 from qeft_tpu_torch.ops.attention import decode_attention, decode_attention_plain
-from qeft_tpu_torch.ops.flash import flash_window_attention, flash_window_attention_plain
+from qeft_tpu_torch.ops.flash import (
+    flash_window_attention,
+    flash_window_attention_plain,
+    masked_attention,
+)
 from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.permute import apply_o_reorder
-from qeft_tpu_torch.ops.qlinear import qlinear_fused_stage
+from qeft_tpu_torch.ops.qlinear import qlinear_apply, qlinear_fused_stage
 from qeft_tpu_torch.ops.qmm import rms_norm
 
 __all__ = [
     "LlamaConfig", "LLAMA_PRESETS", "rms_norm", "rope_tables", "apply_rope",
     "init_kv_cache", "llama_forward", "llama_prefill", "llama_decode_step",
+    "causal_mask", "llama_block_train",
 ]
 
 
@@ -217,6 +227,51 @@ def llama_block(layers: Dict, l: int, x: torch.Tensor, cfg: LlamaConfig,
     ug = _stage(layers, "upgate", l, x, cfg, lnw=layers["post_ln"][l])
     up, gate = _split_upgate(ug, cfg)
     return _stage(layers, "down", l, _act(gate, cfg.act) * up, cfg, residual=x)
+
+
+def causal_mask(s: int, device=None) -> torch.Tensor:
+    """[1, 1, S, S] bool, True where query i may attend key j (j <= i)."""
+    return torch.ones(s, s, dtype=torch.bool, device=device).tril()[None, None]
+
+
+def _train_linear(layers: Dict, name: str, l: int, x: torch.Tensor) -> torch.Tensor:
+    lin = layers[name]
+    if isinstance(lin, QLinearParams):
+        return qlinear_apply(x, lin.layer(l))
+    return torch.matmul(x, lin[l].to(x.dtype))
+
+
+def llama_block_train(layers: Dict, l: int, x: torch.Tensor, cfg: LlamaConfig,
+                      cos: torch.Tensor, sin: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Differentiable decoder block ``l`` over a whole window (no cache):
+    the unfused branch of ``qeft_tpu/models/llama.py::llama_block``.
+
+    The norms and residual adds run outside the linears, every packed stage
+    goes through the autograd linear (`ops.qlinear.qlinear_apply`, K2 forward
+    and K7 backward on the GPU), and attention is the plain masked softmax
+    with f32 scores (`masked_attention`): the training forward takes no
+    attention kernel, as in the JAX package.  A packed stage's ``oweight``
+    may be a list of per-layer trainable leaves (``finetune.merge_wct``);
+    dense stages (``[L, K, N]`` tensors or lists of ``[K, N]``) run
+    ``torch.matmul``."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    eps, one = cfg.rms_norm_eps, cfg.rms_one_offset
+
+    h = rms_norm(x, layers["input_ln"][l], eps, one)
+    qkv = _train_linear(layers, "qkv", l, h)
+    q = apply_rope(qkv[..., : hq * dh].reshape(b, s, hq, dh), cos, sin)
+    k = apply_rope(qkv[..., hq * dh: (hq + hkv) * dh].reshape(b, s, hkv, dh), cos, sin)
+    v = qkv[..., (hq + hkv) * dh:].reshape(b, s, hkv, dh)
+    ctx = masked_attention(q, k.transpose(1, 2), v.transpose(1, 2), mask)
+
+    o_reorder = layers.get("o_reorder")
+    o_in = apply_o_reorder(ctx, None if o_reorder is None else o_reorder[l])
+    x = x + _train_linear(layers, "o", l, o_in)
+    h2 = rms_norm(x, layers["post_ln"][l], eps, one)
+    up, gate = _split_upgate(_train_linear(layers, "upgate", l, h2), cfg)
+    return x + _train_linear(layers, "down", l, _act(gate, cfg.act) * up)
 
 
 def _num_layers(params: Dict) -> int:

@@ -52,6 +52,11 @@ _ENTRY_POINTS = {
         _I, _I, _I, _I, _I, _I,  # M K N group_size R splits
         _P,  # stream
     ]),
+    "qgemm_t": ("qmm.cu", [
+        _P, _P, _P, _P, _P, _P,  # g qweight scales szeros tail out
+        _I, _I, _I, _I, _I,  # M K N group_size R
+        _P,  # stream
+    ]),
     "flash_window_attention": ("flash.cu", [
         _P, _P, _P, _P, _P,  # q k v pos_array out
         _I, _I, _I, _I, _I, _I, _I,  # B S H Hkv Sk D pos0

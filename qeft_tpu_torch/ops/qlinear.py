@@ -1,9 +1,22 @@
-"""Dispatch of the packed linear between the decode matvec and the GEMM.
+"""The packed linear: the serving dispatch between the decode matvec and the
+GEMM, and the autograd linear that training differentiates through.
 
-Counterpart of ``qeft_tpu/ops/qlinear.py`` (``qlinear_apply`` and
-``qlinear_fused_stage``), inference only.  The JAX package switches kernels
-at ``< 8`` tokens in one place and ``<= 8`` in another; here one threshold,
-`qmm.DECODE_MAX_TOKENS`, decides for every call.
+Counterpart of ``qeft_tpu/ops/qlinear.py``: `qlinear_fused_stage` of its
+``qlinear_fused_stage`` (inference), `qlinear_apply` / `QLinearFunction` of
+its ``qlinear_apply`` and custom-vjp core ``_qlinear_core`` / ``_core_fwd`` /
+``_core_bwd``.  The JAX package switches kernels at ``< 8`` tokens in one
+place and ``<= 8`` in another; here one threshold, `qmm.DECODE_MAX_TOKENS`,
+decides for every call.
+
+The backward of `QLinearFunction` (the reference's ``QuantMatMulQEFT``, with
+the true transpose)::
+
+    dx  = g @ W_deq^T  +  pad_last_r(g @ oweight^T)   K7, the weak-column
+                                                      product as its f32 addend
+    dow = x[..., -r:]^T @ g                           f32, the only trainable
+
+The two weak-column products are `matmul_f32`: bf16 operands, f32 sums and an
+f32 result, as JAX's ``preferred_element_type=f32``.
 """
 
 from __future__ import annotations
@@ -16,6 +29,7 @@ from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.qmm import (
     DECODE_MAX_TOKENS,
     qgemm,
+    qgemm_t,
     qgemv_stacked_fused,
     rms_norm,
 )
@@ -38,3 +52,60 @@ def qlinear_fused_stage(x: torch.Tensor, p: QLinearParams, layer: int,
     if lnw is not None:
         x = rms_norm(x, lnw, eps, one_offset)
     return qgemm(x, p.layer(layer), residual=residual)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) summed and returned in f32.  On the GPU half-precision
+    operands stay as they are (``torch.mm(..., out_dtype=float32)``); f32
+    operands, and every CPU call, multiply in f32."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and b.dtype == a.dtype:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+def _forward(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
+    if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
+        return qgemv_stacked_fused(x, p.map(lambda t: t.unsqueeze(0)), 0)
+    return qgemm(x, p)
+
+
+class QLinearFunction(torch.autograd.Function):
+    """``x @ W_deq + x[..., K-r:] @ oweight`` of one layer's packed linear,
+    differentiable in ``x`` and ``oweight``.  The forward runs K1 (at most
+    `DECODE_MAX_TOKENS` rows, no norm, no residual) or K2 with the oweight
+    cast to x's dtype; the backward runs K7 for ``dx`` only when it is
+    wanted, and returns ``dow`` in oweight's dtype (f32 when training)."""
+
+    @staticmethod
+    def forward(ctx, x, qweight, scales, scaled_zeros, oweight, group_size):
+        ow = None if oweight is None else oweight.to(x.dtype)
+        p = QLinearParams(qweight, scales, scaled_zeros, oweight=ow, group_size=group_size)
+        ctx.group_size = group_size
+        ctx.save_for_backward(x, qweight, scales, scaled_zeros, oweight)
+        return _forward(x, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, qweight, scales, scaled_zeros, oweight = ctx.saved_tensors
+        n, k = g.shape[-1], x.shape[-1]
+        g2 = g.reshape(-1, n)
+        ow = None if oweight is None else oweight.to(g.dtype)
+        dx = dow = None
+        if ctx.needs_input_grad[0]:
+            p = QLinearParams(qweight, scales, scaled_zeros, group_size=ctx.group_size)
+            tail = None if ow is None else matmul_f32(g2, ow.t())
+            dx = qgemm_t(g2, p, tail).reshape(x.shape)
+        if oweight is not None and ctx.needs_input_grad[4]:
+            r = oweight.shape[-2]
+            xr = x.reshape(-1, k)[:, k - r:].to(g.dtype)
+            dow = matmul_f32(xr.t(), g2).to(oweight.dtype)
+        return dx, None, None, None, dow, None
+
+
+def qlinear_apply(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
+    """The autograd linear on one layer's (unstacked) packed linear, whose
+    ``oweight`` may be a trainable leaf.  ``x`` [..., K] -> [..., N]."""
+    if p.bias is not None or p.reorder_ids is not None:
+        raise NotImplementedError("the training linear takes no bias or reorder_ids")
+    return QLinearFunction.apply(x, p.qweight, p.scales, p.scaled_zeros, p.oweight,
+                                 p.group_size)

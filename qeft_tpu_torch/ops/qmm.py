@@ -1,4 +1,5 @@
-"""Packed INT4 matrix products: the decode matvec (K1) and prefill GEMM (K2).
+"""Packed INT4 matrix products: the decode matvec (K1), the prefill GEMM (K2)
+and the training backward's transposed GEMM (K7).
 
 Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
 
@@ -9,6 +10,10 @@ Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
   ``layer`` straight out of the stacked ``[L, ...]`` buffers.
 - `qgemm` replaces ``pallas_qmm.py::qgemm``: the W4A16 GEMM for more rows,
   with the weak-column slab and an optional residual in its epilogue.
+- `qgemm_t` replaces ``pallas_qmm.py::qgemm_t``: ``dx = g @ W_deq^T`` from
+  the packed codes over all K rows, written in original K order, with an
+  optional f32 addend on the last r columns (the weak-column product) summed
+  before the one rounding.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
@@ -63,6 +68,18 @@ def qgemv_stacked_fused_plain(x, p: QLinearParams, layer: int, lnw=None,
     if lnw is not None:
         x = rms_norm(x, lnw, eps, one_offset)
     return qgemm_plain(x, p.layer(layer), residual)
+
+
+def qgemm_t_plain(g: torch.Tensor, p: QLinearParams,
+                  tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``g @ W_deq^T`` with the weight dequantized in g's dtype, the products
+    summed in f32, the f32 ``tail`` [..., r] added to the last r columns, and
+    one rounding to g's dtype.  ``g`` [..., N] -> [..., K]."""
+    w = dequantize_weight(p, g.dtype).to(torch.float32)
+    y = torch.matmul(g.to(torch.float32), w.t())
+    if tail is not None:
+        y[..., y.shape[-1] - tail.shape[-1]:] += tail
+    return y.to(g.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -159,3 +176,32 @@ def qgemm(x: torch.Tensor, p: QLinearParams,
         cuda_lib.ptr(out), cuda_lib.ptr(ws), m, k, n, p.group_size, p.n_outlier, splits,
     )
     return out.reshape(*lead, n)
+
+
+def qgemm_t(g: torch.Tensor, p: QLinearParams,
+            tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``g @ W_deq^T`` of one layer's packed linear (its ``oweight`` is not
+    read), plus the f32 ``tail`` [..., r] on the last r columns before the
+    rounding.  ``g`` [..., N] -> [..., K]."""
+    if not g.is_cuda:
+        return qgemm_t_plain(g, p, tail)
+    _check_packed(p, stacked=False)
+    k8, n = p.qweight.shape
+    k = k8 * 8
+    lead = g.shape[:-1]
+    m = g.numel() // n
+    g2 = _check_act(g.reshape(m, n), "g", (m, n))
+    r = 0
+    if tail is not None:
+        r = tail.shape[-1]
+        if tail.dtype != torch.float32 or not tail.is_cuda or tuple(tail.shape[:-1]) != tuple(lead):
+            raise ValueError(f"tail must be a float32 CUDA tensor of shape {(*lead, r)}")
+        tail = cuda_lib.aligned(tail.reshape(m, r))
+    out = torch.empty(m, k, dtype=torch.bfloat16, device=g.device)
+    cuda_lib.launch(
+        "qgemm_t",
+        cuda_lib.ptr(g2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
+        cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(tail), cuda_lib.ptr(out),
+        m, k, n, p.group_size, r,
+    )
+    return out.reshape(*lead, k)

@@ -1,13 +1,15 @@
-"""Load-time stage fusion of a packed model.
+"""Load-time stage fusion of a packed model, and its inverse for one field.
 
 Counterpart of ``qeft_tpu/pipeline.py::fuse_packed_stages`` without the
 TPU-only steps: no zero-padding of the upgate halves and no banded
-o-permutation operands.
+o-permutation operands.  `split_fused` cuts a fused stage's tensor (the
+trained weak-column slabs) back into its members, so that WCT checkpoints
+carry the linear names of the base checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -32,11 +34,51 @@ def _fuse_stage(layers: Dict, names: Sequence[str], fused_name: str) -> None:
     )
 
 
+def fused_stages(meta: ModelMeta) -> Dict[str, Tuple[str, ...]]:
+    """Fused stage name -> its members, in concatenation order."""
+    return {"qkv": meta.qkv, "upgate": meta.ffn1}
+
+
 def fuse_packed_stages(params: Dict, meta: ModelMeta) -> Dict:
-    """q/k/v -> ``qkv`` and up/gate -> ``upgate`` on a stacked packed model."""
+    """q/k/v -> ``qkv`` and up/gate -> ``upgate`` on a stacked packed model;
+    a model already fused passes through unchanged."""
     layers = dict(params["layers"])
-    if all(n in layers for n in meta.qkv):
-        _fuse_stage(layers, meta.qkv, "qkv")
-    if all(n in layers for n in meta.ffn1):
-        _fuse_stage(layers, meta.ffn1, "upgate")
+    for fused, names in fused_stages(meta).items():
+        if all(n in layers for n in names):
+            _fuse_stage(layers, names, fused)
     return {**params, "layers": layers}
+
+
+def member_widths(cfg, meta: ModelMeta) -> Dict[str, int]:
+    """Output width N of each member of a fused stage."""
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    return dict(zip(meta.qkv + meta.ffn1, (q, kv, kv, cfg.intermediate_size,
+                                           cfg.intermediate_size)))
+
+
+def split_fused(tensors: Dict[str, torch.Tensor], meta: ModelMeta, widths: Dict[str, int],
+                keep: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """Inverse of the N-concatenation of `_fuse_stage` for one field: every
+    fused stage of ``tensors`` not named in ``keep`` is cut along its last
+    axis into its members (``widths`` from `member_widths`)."""
+    out = {}
+    for name, t in tensors.items():
+        names = fused_stages(meta).get(name)
+        if names is None or name in keep:
+            out[name] = t
+            continue
+        if t.shape[-1] != sum(widths[n] for n in names):
+            raise ValueError(f"{name} is {t.shape[-1]} wide, its members "
+                             f"{names} sum to {sum(widths[n] for n in names)}")
+        out.update(zip(names, torch.split(t, [widths[n] for n in names], dim=-1)))
+    return out
+
+
+def fuse_tensors(tensors: Dict[str, torch.Tensor], meta: ModelMeta) -> Dict[str, torch.Tensor]:
+    """Per-member tensors of one field concatenated into their fused stages
+    along N, as `_fuse_stage` concatenates each field."""
+    out = dict(tensors)
+    for fused, names in fused_stages(meta).items():
+        if all(n in out for n in names):
+            out[fused] = torch.cat([out.pop(n) for n in names], dim=-1)
+    return out

@@ -2,7 +2,8 @@
 versions on the card, at small shapes that reach every branch: 1..8 decode
 rows, 86 quantization groups, no weak columns, the gemma norm, GEMM rows past
 one tile, GQA, window offsets and per-sequence positions, split decode
-chunks.  They need an NVIDIA GPU and ``nvcc`` and skip elsewhere:
+chunks; the transposed GEMM (K7) at 1 to 2048 rows, with and without the
+weak-column addend, and the autograd linear's gradients.  They need an NVIDIA GPU and ``nvcc`` and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -16,8 +17,11 @@ each), while a wrong index or a lost term moves outputs by the scale itself.
 import pytest
 import torch
 
+import dataclasses
+
 from qeft_tpu_torch.ops import attention, cuda_lib, flash, qmm
 from qeft_tpu_torch.ops.packing import QLinearParams
+from qeft_tpu_torch.ops.qlinear import qlinear_apply
 
 pytestmark = pytest.mark.cuda
 
@@ -129,12 +133,51 @@ def test_decode_attention(gen, pos, h, hkv, d):
     _close(got, attention.decode_attention_plain(_f32(q), _f32(k), _f32(v), pos))
 
 
+@pytest.mark.parametrize("m", [1, 9, 64, 100, 2048])
+@pytest.mark.parametrize("g", [64, 128])
+@pytest.mark.parametrize("r", [0, 8, 128])
+def test_qgemm_t(gen, m, g, r):
+    k, n = 1024, 200  # 16 or 8 groups; N not a multiple of the 64-column chunk
+    p = _packed(gen, 1, k, n, g, 0).layer(0)
+    gy = _randn(gen, m, n)
+    tail = torch.randn(m, r, generator=gen, device="cuda") if r else None
+    before = cuda_lib.launches["qgemm_t"]
+    got = qmm.qgemm_t(gy, p, tail)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["qgemm_t"] == before + 1
+    _close(got, qmm.qgemm_t_plain(_f32(gy), _f32(p), tail))
+
+
+@pytest.mark.parametrize("m", [4, 300])
+def test_autograd_linear_gradients(gen, m):
+    """``dx`` (K7 plus the weak-column addend) and the f32 ``dow`` against
+    autograd through the plain version in f32; m = 4 runs K1 forward."""
+    p = _packed(gen, 1, 512, 96, 128, 16).layer(0)
+    x = _randn(gen, m, 512)
+    ow = (torch.randn(16, 96, generator=gen, device="cuda") * 0.02).requires_grad_()
+    gy = _randn(gen, m, 96)
+    xk = x.clone().requires_grad_()
+    y = qlinear_apply(xk, dataclasses.replace(p, oweight=ow))
+    y.backward(gy)
+    x32 = x.float().requires_grad_()
+    ow32 = ow.detach().clone().requires_grad_()
+    y32 = qmm.qgemm_plain(x32, dataclasses.replace(_f32(p), oweight=ow32))
+    y32.backward(gy.float())
+    _close(y, y32.detach())
+    _close(xk.grad, x32.grad)
+    assert ow.grad.dtype == torch.float32
+    err = (ow.grad - ow32.grad).abs().max().item()
+    assert err <= RTOL * ow32.grad.abs().max().item(), err
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     p = _packed(gen, 2, 256, 64, 64, 8)
     with pytest.raises(ValueError):  # f32 activations: no silent fallback
         qmm.qgemv_stacked_fused(torch.zeros(1, 256, device="cuda"), p, 0)
     with pytest.raises(ValueError):
         qmm.qgemv_stacked_fused(_randn(gen, 9, 256), p, 0)
+    with pytest.raises(RuntimeError):  # group size 8: the kernel takes multiples of 16
+        qmm.qgemm_t(_randn(gen, 4, 64), _packed(gen, 1, 256, 64, 8, 0).layer(0))
     with pytest.raises(IndexError):
         attention.decode_attention(_randn(gen, 1, 4, 64), _randn(gen, 1, 4, 8, 64),
                                    _randn(gen, 1, 4, 8, 64), 8)

@@ -12,7 +12,9 @@ import torch
 
 import qeft_tpu_torch
 from qeft_tpu_torch import main as torch_main
-from qeft_tpu_torch.checkpoint import load_packed
+from qeft_tpu_torch import run_finetune
+from qeft_tpu_torch.checkpoint import load_model, load_packed, load_wct, save_packed
+from qeft_tpu_torch.eval_mc import evaluate_mc, synthetic_mc_examples
 from qeft_tpu_torch.eval import eval_ppl
 from qeft_tpu_torch.generate import generate
 from qeft_tpu_torch.models.llama import LLAMA_PRESETS
@@ -78,3 +80,29 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_p
     assert eval_ppl(params, stream, cfg, seqlen=16, max_windows=1, device="cpu") > 0
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_main.main(["--load", str(tmp_path / "absent"), "--eval"])
+
+
+def test_training_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LLAMA_PRESETS["tiny"]
+    params = build_packed_model(cfg, g=64, r=8, dtype=torch.float32, device="cpu")
+    base = str(tmp_path / "base")
+    save_packed(base, params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_finetune.main(["--load", base, "--output_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+    for load in (load_packed, load_model):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load(base)
+    run_finetune.main(["--load", base, "--output_dir", str(tmp_path / "run"), "--device",
+                       "cpu", "--max_steps", "2", "--batch_size", "1", "--source_max_len",
+                       "16", "--nsamples", "4"])
+    wct = str(tmp_path / "run" / "wct_final")
+    for load in (load_wct, load_model):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load(wct)
+    tuned, cfg2, family = load_model(wct, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_mc(tuned, synthetic_mc_examples(2, cfg.vocab_size), cfg2, family)
+    assert evaluate_mc(tuned, synthetic_mc_examples(2, cfg.vocab_size), cfg2, family,
+                       device="cpu")["n"] == 2

@@ -47,3 +47,22 @@ def f32(a):
     if isinstance(a, torch.Tensor):
         return a.detach().to(torch.float32).numpy()
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def oweights_to_port(jax_oweights, family="llama"):
+    """A JAX ``oweights`` dict (per linear name, ``[L, r, N]``) -> the port's
+    trainable form: fused stages, per-layer f32 leaves."""
+    from qeft_tpu_torch.pipeline import fuse_tensors
+
+    per_name = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in jax_oweights.items()}
+    fused = fuse_tensors(per_name, get_model_meta(family))
+    return {k: [t.clone().requires_grad_() for t in v.unbind(0)] for k, v in fused.items()}
+
+
+def oweights_from_port(oweights, cfg, family="llama"):
+    """The port's per-layer leaves -> numpy ``[L, r, N]`` per linear name."""
+    from qeft_tpu_torch.pipeline import member_widths, split_fused
+
+    meta = get_model_meta(family)
+    stacked = {k: torch.stack([t.detach() for t in v]) for k, v in oweights.items()}
+    return {k: v.numpy() for k, v in split_fused(stacked, meta, member_widths(cfg, meta)).items()}
