@@ -33,15 +33,35 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    times, tokens/s, peak memory and the device's idle share;
 12. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
    wct_final --eval --benchmark`` on a 4-layer model of full width, written
-   with ``save_packed``; the tuned model is served through K1-K4.
+   with ``save_packed``; the tuned model is served through K1-K4;
+13. serving kernels: K4q (int8 decode attention), K8 (stacked-cache decode
+   attention, bf16 and int8, slots >= pos poisoned) and K6 (the plain
+   decode matvec at M = 1, 4, 8) against their plain versions, timed;
+14. int8 generate: 64 + 256 greedy over an int8 cache (K4q 32 x 255 times),
+   teacher-forced through the bf16-cache path;
+15. stacked generate: the same with QEFT_ATTN_STACKED=1 over bf16 and int8
+   caches (K8 32 x 255 times, K4 and K4q never);
+16. engine: ``measure_engine_throughput`` with its defaults (8 slots, 16
+   requests of 64 + 128, burst 16) over bf16 and int8 caches, then one
+   counted serve -- launches per tick, every request checked against the
+   single-sequence path;
+17. spec: ``SpecEngine`` with an 8-layer self-draft (gamma 4) over the same
+   requests and ``speculative_generate_batched`` at B = 4, checked against
+   the target's greedy choice under teacher forcing;
+18. serving cli: ``run_benchmark --method engine`` and ``--method
+   spec-batch --draft_layers 8``.
 
-Before the last line it prints the kernel table as one JSON object and the
-``nvidia-smi`` line; the last line is {"ok": true, "device": {...}}.
+Each main path runs with the launch counts set to 0 just before it and read
+just after; a kernel's ``launches`` in the JSON table sums its paths (by
+path under ``launches_by_path``).  Before the last line it prints the
+kernel table as one JSON object and the ``nvidia-smi`` line; the last line
+is {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,6 +71,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 PROMPT, NEW_TOKENS = 64, 256
@@ -62,6 +83,10 @@ PEAK_HBM = 3.35e12  # bytes/s, H100 SXM data sheet
 PEAK_BF16 = 989e12  # dense bf16 tensor FLOP/s, H100 SXM data sheet
 KERNEL_RTOL = 1e-2  # of max |plain|; see check()
 ORACLE_RTOL = 0.1  # of max |dense logit|; see phase_oracle()
+# measure_engine_throughput's defaults; the self-draft of run_benchmark's example
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_CTX, ENGINE_GEN = 8, 16, 64, 128
+SPEC_DRAFT_LAYERS = 8
+PATH_LAUNCHES: dict = {}  # launch counts of each main path, by path
 
 
 def log(msg: str) -> None:
@@ -84,6 +109,16 @@ def time_ms(fn, inner: int = 10, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def kernel_times(prof, per: int = 1):
+    """(name, device ms) of each CUDA kernel a torch.profiler run recorded,
+    divided by ``per``, longest first, and their sum."""
+    kernels = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / per)
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    kernels = sorted((k for k in kernels if k[1] > 0), key=lambda k: -k[1])
+    return kernels, sum(ms for _, ms in kernels)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -340,7 +375,6 @@ def phase_main(cfg, params, nbytes):
     from qeft_tpu_torch import main as cli
     from qeft_tpu_torch.generate import generate
     from qeft_tpu_torch.models.api import get_model_api
-    from qeft_tpu_torch.ops import cuda_lib
 
     api = get_model_api("llama")
     gen = torch.Generator(device="cuda")
@@ -358,13 +392,12 @@ def phase_main(cfg, params, nbytes):
     prefill_ms = (time.perf_counter() - tick) * 1e3
 
     cache = new_cache()
-    torch.cuda.synchronize()
-    cuda_lib.reset_launches()
-    tick = time.perf_counter()
-    tokens, _ = generate(params, prompt, cache, cfg, NEW_TOKENS, api=api, device="cuda")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - tick
-    counts = dict(cuda_lib.launches)
+    with counted("generate") as c:
+        tick = time.perf_counter()
+        tokens, _ = generate(params, prompt, cache, cfg, NEW_TOKENS, api=api, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - tick
+    counts = c.counts
     steps = NEW_TOKENS - 1
     want = {"qgemv_stacked_fused": 4 * cfg.num_layers * steps, "decode_attention": cfg.num_layers * steps,
             "qgemm": 4 * cfg.num_layers, "flash_window_attention": cfg.num_layers}
@@ -382,7 +415,7 @@ def phase_main(cfg, params, nbytes):
     if tokens.shape != (1, NEW_TOKENS) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
         raise AssertionError("generated tokens out of range")
     bench = cli.benchmark(params, cfg, api, NEW_TOKENS, torch.device("cuda"), "synthetic", 0)
-    return prompt, tokens, counts, dict(tok_s=NEW_TOKENS / dt, ms_token=dt / NEW_TOKENS * 1e3,
+    return prompt, tokens, dict(tok_s=NEW_TOKENS / dt, ms_token=dt / NEW_TOKENS * 1e3,
                                         prefill_ms=prefill_ms, **bench)
 
 
@@ -418,11 +451,7 @@ def phase_profile(cfg, params, prompt):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             work(cache)
             torch.cuda.synchronize()
-        kernels = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / per)
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-        kernels = sorted((k for k in kernels if k[1] > 0), key=lambda k: -k[1])
-        busy = sum(ms for _, ms in kernels)
+        kernels, busy = kernel_times(prof, per)
         if busy == 0:
             log(f"[profile] {label}: wall {wall_ms:.3f} ms; device time not measured "
                 "(the profiler recorded no CUDA kernel)")
@@ -436,10 +465,11 @@ def phase_profile(cfg, params, prompt):
 
 
 @torch.inference_mode()
-def _teacher_forced(params, cfg, api, prompt, tokens):
+def _teacher_forced(params, cfg, api, prompt, tokens, quantized=False):
     """Logits that predicted each generated token: prefill, then one decode
     step per generated token but the last."""
-    cache = api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda")
+    cache = api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda",
+                           quantized=quantized)
     logits, cache = api.prefill(params, prompt, cache, cfg)
     out = [logits[:, -1].float()]
     for i in range(NEW_TOKENS - 1):
@@ -697,6 +727,7 @@ def phase_train(cfg, params):
         if diff != per_step:
             raise AssertionError(f"step {i + 1} launched {diff}, expected {per_step}")
     counts = dict(cuda_lib.launches)
+    PATH_LAUNCHES["train"] = counts
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     log(f"[train] launches {counts}; expected {want}; peak device memory {peak:.3f} GB")
@@ -725,10 +756,7 @@ def phase_train(cfg, params):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(oweights, frozen, ids, labels)
         torch.cuda.synchronize()
-    kernels = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3) for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    kernels = sorted((k for k in kernels if k[1] > 0), key=lambda k: -k[1])
-    busy = sum(ms for _, ms in kernels)
+    kernels, busy = kernel_times(prof)
     res = dict(losses=losses, host_ms=med_host, dev_ms=med_dev, tokens_s=tokens / med_host * 1e3,
                peak_gb=peak, counts=counts)
     if busy == 0:
@@ -787,6 +815,496 @@ def phase_cli(cfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# serving beyond single-sequence bf16 decoding
+
+
+class counted:
+    """The launch counts of one main path: every count set to 0 just before
+    it runs and read just after, kept in PATH_LAUNCHES under ``name``."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.counts = {}
+
+    def __enter__(self):
+        from qeft_tpu_torch.ops import cuda_lib
+
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        from qeft_tpu_torch.ops import cuda_lib
+
+        torch.cuda.synchronize()
+        self.counts = dict(cuda_lib.launches)
+        if exc[0] is None:
+            PATH_LAUNCHES[self.name] = self.counts
+        return False
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Environment variables set for the block (the port's gates read them
+    at call time), restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _dequant(codes, scales):
+    return (codes.float() * scales[..., None]).to(torch.bfloat16)
+
+
+def phase_serving_kernels(cfg, params, bw, rows):
+    """K4q, K8 and K6 against their plain versions evaluated in f32, at the
+    shapes the serving paths give them, timed beside their bounds and one
+    PyTorch yardstick each (SDPA over the dequantized valid prefix; a
+    ``torch.matmul`` on a pre-dequantized weight)."""
+    from qeft_tpu_torch.ops import attention, qmm
+    from qeft_tpu_torch.testing import dense_linear
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def int8_cache(*shape):
+        codes = torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
+        return codes, torch.rand(shape[:-1], generator=gen, device="cuda") * 0.03 + 0.005
+
+    hq, hkv, dh, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    main_pos = CACHE - 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k4q = rows["decode_attention_int8"] = Row(
+        "decode_attention_int8", "qeft_tpu_torch/csrc/decode_attention.cu",
+        "qeft_tpu/ops/pallas_attention.py:86", True)
+    log("[serving-kernels] K4q decode_attention_int8 vs plain (int8 codes, f32 scales)")
+    for slots, h, kvh in ((CACHE, hq, hkv), (4096, hq, hkv), (CACHE, 32, 8), (4096, 32, 8)):
+        q = randn(1, h, dh)
+        (kc, ks), (vc, vs) = int8_cache(1, kvh, slots, dh), int8_cache(1, kvh, slots, dh)
+        for pos in sorted({0, 255, 256, slots // 2, main_pos if slots == CACHE else slots - 1}):
+            err = check(f"K4q {slots} slots heads {h}/{kvh} pos {pos}",
+                        attention.decode_attention(q, kc, vc, pos, k_scale=ks, v_scale=vs),
+                        attention.decode_attention_plain(f32(q), kc, vc, pos, ks, vs))
+            k4q.d["max_abs_err"] = max(k4q.d["max_abs_err"], err)
+        if kvh != hkv:
+            continue
+        pos = main_pos if slots == CACHE else slots - 1
+        ms = time_ms(lambda i: attention.decode_attention(q, kc, vc, pos, k_scale=ks, v_scale=vs))
+        plain = time_ms(lambda i: attention.decode_attention_plain(q, kc, vc, pos, ks, vs))
+        kh, vh = (_dequant(c[:, :, : pos + 1], s[:, :, : pos + 1]).repeat_interleave(h // kvh, 1)
+                  for c, s in ((kc, ks), (vc, vs)))
+        lib = time_ms(lambda i: sdpa(q[:, :, None], kh, vh))
+        nbytes = 2 * (2 * h * dh) + 2 * kvh * (pos + 1) * (dh + 4)
+        flops = 4 * h * (pos + 1) * dh
+        if slots == CACHE:
+            b = k4q.add(0.0, ms, plain, lib, nbytes, flops, bw)
+        else:
+            b = bound_ms(nbytes, flops)
+            k4q.d.update(ms_4096=ms, plain_ms_4096=plain, library_ms_4096=lib, bound_ms_4096=b[0])
+        log(f"    {slots} slots pos {pos}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, "
+            f"SDPA over the dequantized valid prefix {lib * 1e3:.2f} us, bound {b[0] * 1e3:.2f} us "
+            f"({b[1]}: {nbytes} B)")
+    k4q.d["per"] = f"one decode layer at pos {main_pos}, {CACHE} slots (ms_4096: pos 4095 of 4096)"
+
+    k8 = rows["decode_attention_stacked"] = Row(
+        "decode_attention_stacked", "qeft_tpu_torch/csrc/decode_attention.cu",
+        "qeft_tpu/ops/pallas_attention.py:202", True)
+    log(f"[serving-kernels] K8 decode_attention_stacked vs plain, the stacked {n_layers}-layer "
+        f"cache of {CACHE} slots, slots >= pos poisoned, layer rotating")
+    for quantized in (False, True):
+        shape = (n_layers, 1, hkv, CACHE, dh)
+        q, kn, vn = randn(1, hq, dh), randn(1, hkv, dh), randn(1, hkv, dh)
+        if quantized:
+            (kc, ks), (vc, vs) = int8_cache(*shape), int8_cache(*shape)
+            scales = dict(k_scale=ks, v_scale=vs)
+        else:
+            kc, vc = randn(*shape), randn(*shape)
+            scales = {}
+        label = "int8" if quantized else "bf16"
+        for pos in (0, 1, 256, main_pos):
+            kp, vp = kc.clone(), vc.clone()
+            sp = {k: v.clone() for k, v in scales.items()}
+            poison = 127 if quantized else 1e4
+            kp[:, :, :, pos:] = poison
+            vp[:, :, :, pos:] = poison
+            for v in sp.values():
+                v[:, :, :, pos:] = 1e3
+            for layer in (0, n_layers - 1):
+                want = attention.decode_attention_stacked_plain(
+                    f32(q), kp if quantized else f32(kp), vp if quantized else f32(vp), layer,
+                    pos, f32(kn), f32(vn), **sp)
+                err = check(f"K8 {label} layer {layer} pos {pos}",
+                            attention.decode_attention_stacked(q, kp, vp, layer, pos, kn, vn, **sp),
+                            want)
+                k8.d["max_abs_err"] = max(k8.d["max_abs_err"], err)
+            del kp, vp, sp
+        pos = main_pos
+        ms = time_ms(lambda i: attention.decode_attention_stacked(q, kc, vc, i % n_layers, pos,
+                                                                  kn, vn, **scales))
+        plain = time_ms(lambda i: attention.decode_attention_stacked_plain(
+            q, kc, vc, i % n_layers, pos, kn, vn, **scales))
+        if quantized:
+            kh, vh = _dequant(kc[0, :, :, :pos], ks[0, :, :, :pos]), _dequant(vc[0, :, :, :pos],
+                                                                             vs[0, :, :, :pos])
+        else:
+            kh, vh = kc[0, :, :, :pos], vc[0, :, :, :pos]
+        kh, vh = (torch.cat([t, t_new[:, :, None]], 2).repeat_interleave(hq // hkv, 1)
+                  for t, t_new in ((kh, kn), (vh, vn)))
+        lib = time_ms(lambda i: sdpa(q[:, :, None], kh, vh))
+        per_slot = dh + 4 if quantized else 2 * dh
+        nbytes = 2 * (2 * hq * dh) + 2 * hkv * pos * per_slot + 2 * (2 * hkv * dh)
+        flops = 4 * hq * (pos + 1) * dh
+        if quantized:
+            b = bound_ms(nbytes, flops)
+            k8.d.update(int8_ms=ms, int8_plain_ms=plain, int8_library_ms=lib, int8_bound_ms=b[0])
+        else:
+            b = k8.add(0.0, ms, plain, lib, nbytes, flops, bw)
+        log(f"    {label}, pos {pos}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, SDPA "
+            f"over the dequantized prefix and the new token {lib * 1e3:.2f} us, bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+        del kc, vc, scales
+    k8.d["per"] = (f"one decode layer at pos {main_pos}, {CACHE} slots, bf16 cache (int8_*: the "
+                   "int8 cache)")
+
+    k6 = rows["qgemv_stacked"] = Row("qgemv_stacked", "qeft_tpu_torch/csrc/qmm.cu",
+                                     "qeft_tpu/ops/pallas_qmm.py:258", True)
+    layers = params["layers"]
+    log(f"[serving-kernels] K6 qgemv_stacked vs plain, M in (1, 4, {ENGINE_SLOTS}), layer "
+        "rotating over 32 (cold weights)")
+    for name in ("qkv", "o", "upgate", "down"):
+        p = layers[name]
+        k, n, r = p.in_features, p.out_features, p.n_outlier
+        w = dense_linear(_one_layer(p, 0))[0]
+        for m in (1, 4, ENGINE_SLOTS):
+            x = randn(m, k)
+            err = check(f"K6 {name} {k}->{n} M={m}", qmm.qgemv_stacked(x, p, 3),
+                        qmm.qgemv_stacked_plain(f32(x), f32(p), 3))
+            k6.d["max_abs_err"] = max(k6.d["max_abs_err"], err)
+        ms = time_ms(lambda i: qmm.qgemv_stacked(x, p, i % n_layers))
+        plain = time_ms(lambda i: qmm.qgemv_stacked_plain(x, p, i % n_layers), inner=2, reps=3)
+        lib = time_ms(lambda i: torch.matmul(x, w))
+        del w
+        nbytes = (k * n // 2 + 4 * (k // p.group_size) * n + 2 * r * n
+                  + 2 * ENGINE_SLOTS * (k + n))
+        b = k6.add(0.0, ms, plain, lib, nbytes, 2 * ENGINE_SLOTS * (k + r) * n, bw)
+        log(f"    M={ENGINE_SLOTS}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+            f"torch.matmul on the dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us "
+            f"({b[1]})")
+    k6.d["per"] = f"one engine decode layer: qkv + o + upgate + down at M={ENGINE_SLOTS}"
+
+
+def _counted_generate(cfg, params, prompt, name, quantized=False):
+    """``generate`` over a fresh cache after a short warm-up, as main path
+    ``name``; returns (tokens, launches, seconds)."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+
+    api = get_model_api("llama")
+
+    def new_cache():
+        return api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda",
+                              quantized=quantized)
+
+    generate(params, prompt, new_cache(), cfg, 8, api=api, device="cuda")
+    cache = new_cache()
+    with counted(name) as c:
+        tick = time.perf_counter()
+        tokens, _ = generate(params, prompt, cache, cfg, NEW_TOKENS, api=api, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - tick
+    if tokens.shape != (1, NEW_TOKENS) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{name}: generated tokens out of range")
+    return tokens, c.counts, dt
+
+
+def _against_bf16_path(cfg, params, prompt, tokens, label, quantized):
+    """The generated tokens teacher-forced through the path that made them
+    and through the bf16-cache path (K1-K4); max logit difference within
+    ORACLE_RTOL of the bf16 path's logit scale."""
+    from qeft_tpu_torch.models.api import get_model_api
+
+    api = get_model_api("llama")
+    got = _teacher_forced(params, cfg, api, prompt, tokens, quantized=quantized)
+    with environ(QEFT_ATTN_STACKED="0"):
+        ref = _teacher_forced(params, cfg, api, prompt, tokens)
+    diff = (got - ref).abs().amax(dim=-1)
+    scale = ref.abs().amax().item()
+    worst = diff.max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).sum().item()
+    log(f"[{label}] teacher-forced against the bf16-cache path: max |logit diff| {worst:.4g}, "
+        f"median {diff.median().item():.4g}, logit scale {scale:.4g}, bound "
+        f"{ORACLE_RTOL * scale:.4g}; argmax agreement {agree}/{NEW_TOKENS}")
+    if not (torch.isfinite(got).all() and worst <= ORACLE_RTOL * scale):
+        raise AssertionError(f"{label}: disagrees with the bf16-cache path")
+    return dict(max_logit_diff=worst, logit_scale=scale, argmax_agree=agree)
+
+
+def phase_int8_generate(cfg, params, prompt):
+    """``generate`` over an int8 cache: K4q at every decode step."""
+    tokens, counts, dt = _counted_generate(cfg, params, prompt, "int8 generate", quantized=True)
+    steps, n = NEW_TOKENS - 1, cfg.num_layers
+    want = {"qgemv_stacked_fused": 4 * n * steps, "decode_attention_int8": n * steps,
+            "qgemm": 4 * n, "flash_window_attention": n}
+    log(f"[int8] generate over a {CACHE}-slot int8 cache: {NEW_TOKENS / dt:.2f} tok/s, "
+        f"{dt / NEW_TOKENS * 1e3:.3f} ms/token (host clock); launches {counts}; expected {want}")
+    if counts != want:
+        raise AssertionError("the int8 path did not launch each kernel as expected")
+    res = _against_bf16_path(cfg, params, prompt, tokens, "int8", quantized=True)
+    return dict(tok_s=NEW_TOKENS / dt, **res)
+
+
+def phase_stacked_generate(cfg, params, prompt):
+    """``generate`` with QEFT_ATTN_STACKED=1 over bf16 and int8 caches: K8
+    at every decode step, K4 and K4q never."""
+    out = {}
+    steps, n = NEW_TOKENS - 1, cfg.num_layers
+    want = {"qgemv_stacked_fused": 4 * n * steps, "decode_attention_stacked": n * steps,
+            "qgemm": 4 * n, "flash_window_attention": n}
+    for quantized in (False, True):
+        label = f"stacked {'int8' if quantized else 'bf16'}"
+        with environ(QEFT_ATTN_STACKED="1"):
+            tokens, counts, dt = _counted_generate(cfg, params, prompt, f"{label} generate",
+                                                   quantized=quantized)
+            log(f"[{label}] generate: {NEW_TOKENS / dt:.2f} tok/s, "
+                f"{dt / NEW_TOKENS * 1e3:.3f} ms/token (host clock); launches {counts}; "
+                f"expected {want}")
+            if counts != want:
+                raise AssertionError(f"{label}: did not launch each kernel as expected")
+            res = _against_bf16_path(cfg, params, prompt, tokens, label, quantized)
+        out[label] = dict(tok_s=NEW_TOKENS / dt, **res)
+    return out
+
+
+def _engine_prompts(cfg):
+    """measure_engine_throughput's requests at its defaults (seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=ENGINE_CTX) for _ in range(ENGINE_REQUESTS)]
+
+
+@torch.inference_mode()
+def _check_served(cfg, params, prompts, outputs, label, quantized, exact=False):
+    """Each request's tokens teacher-forced through the single-sequence path
+    (prefill, then decode steps at one shared position; all requests have
+    the same lengths, so they run as one batch): at every step the served
+    token's logit is within ORACLE_RTOL of the logit scale of the best
+    logit, and with ``exact`` it is the best (greedy speculative decoding
+    must emit the target's own greedy tokens).  Then single-sequence greedy
+    ``generate`` of the same prompts: agreement printed."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+
+    api = get_model_api("llama")
+    b, gen = len(prompts), len(outputs[0])
+    prompt = torch.as_tensor(np.stack(prompts), device="cuda")
+    served = torch.as_tensor(outputs, device="cuda")
+    cache = api.init_cache(cfg, b, ENGINE_CTX + gen, dtype=torch.bfloat16, device="cuda",
+                           quantized=quantized)
+    logits, cache = api.prefill(params, prompt, cache, cfg)
+    regret, agree, scale = [], 0, 0.0
+    for i in range(gen):
+        if i:
+            logits, cache = api.decode_step(params, served[:, i - 1: i], cache,
+                                            ENGINE_CTX + i - 1, cfg)
+        lf = (logits[:, -1] if logits.dim() == 3 else logits).float()
+        regret.append(lf.amax(-1) - lf.gather(1, served[:, i: i + 1])[:, 0])
+        agree += int((lf.argmax(-1) == served[:, i]).sum())
+        scale = max(scale, lf.abs().amax().item())
+    worst = torch.stack(regret).max().item()
+    ref, _ = generate(params, prompt, api.init_cache(cfg, b, ENGINE_CTX + gen, dtype=torch.bfloat16,
+                                                     device="cuda", quantized=quantized),
+                      cfg, gen, api=api, device="cuda")
+    same = (ref == served)
+    prefix = same.long().cumprod(1).sum(1)
+    log(f"[{label}] {b} requests teacher-forced through the single-sequence path: served token "
+        f"is the argmax at {agree}/{b * gen} steps; worst shortfall of its logit below the best "
+        f"{worst:.4g} (logit scale {scale:.4g}, bound {ORACLE_RTOL * scale:.4g}); greedy "
+        f"generate agrees on {int(same.sum())}/{b * gen} tokens, common prefixes "
+        f"{prefix.tolist()}")
+    if worst > ORACLE_RTOL * scale or (exact and agree != b * gen):
+        raise AssertionError(f"{label}: a served token is not the single-sequence path's choice")
+    return dict(tf_argmax_agree=agree, tf_steps=b * gen, worst_shortfall=worst, logit_scale=scale,
+                generate_agree=int(same.sum()))
+
+
+def phase_engine(cfg, params):
+    """Continuous batching: ``measure_engine_throughput`` with its defaults
+    (8 slots, 16 requests of 64-token prompts, 128 new tokens each, burst
+    16), bf16 and int8 caches; then one counted serve of the same requests
+    with launches per tick, each request checked against the
+    single-sequence path."""
+    from qeft_tpu_torch.serving import Engine, Request, measure_engine_throughput
+
+    out = {}
+    n = cfg.num_layers
+    for label, env in (("engine bf16", {}), ("engine int8", {"QEFT_KV_DTYPE": "int8"})):
+        with environ(**env):
+            with counted(f"{label} measure") as c:
+                tick = time.perf_counter()
+                tps = measure_engine_throughput(params, cfg, device="cuda")
+                wall = time.perf_counter() - tick
+            log(f"[{label}] measure_engine_throughput (defaults): {tps:.2f} served tokens/s "
+                f"(best of 2 serves after a warm-up; {wall:.1f} s in all); launches {c.counts}")
+            for k in ("qgemv_stacked", "qgemm", "flash_window_attention"):
+                if not c.counts.get(k):
+                    raise AssertionError(f"{label}: launched no {k}")
+            prompts = _engine_prompts(cfg)
+            eng = Engine(params, cfg, max_batch=ENGINE_SLOTS, max_len=ENGINE_CTX + ENGINE_GEN + 1,
+                         burst=16, device="cuda")
+            for i, p in enumerate(prompts):
+                eng.submit(Request(request_id=i, prompt=p, max_new_tokens=ENGINE_GEN))
+            with counted(label) as c:
+                tick = time.perf_counter()
+                done = eng.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - tick
+            ticks, tokens = eng.ticks, sum(len(r.output) for r in done)
+            want = {"qgemv_stacked": 4 * n * ticks, "qgemm": 4 * n * ENGINE_REQUESTS,
+                    "flash_window_attention": n * (ticks + ENGINE_REQUESTS)}
+            per_tick = {k: v / ticks for k, v in c.counts.items()}
+            log(f"[{label}] one serve: {len(done)} requests, {tokens} tokens in {wall:.3f} s -> "
+                f"{tokens / wall:.2f} tokens/s, {ticks} ticks, {wall / ticks * 1e3:.3f} ms per tick "
+                f"(host clock, prefill included); launches {c.counts} (per tick {per_tick}); "
+                f"expected {want}")
+            if c.counts != want or len(done) != ENGINE_REQUESTS:
+                raise AssertionError(f"{label}: did not launch each kernel as expected")
+            outputs = [r.output for r in sorted(done, key=lambda r: r.request_id)]
+            if any(len(o) != ENGINE_GEN for o in outputs):
+                raise AssertionError(f"{label}: a request was not served in full")
+            res = _check_served(cfg, params, prompts, outputs, label, bool(env))
+            res.update(_profile_burst(cfg, params, prompts, label))
+        out[label] = dict(tokens_s=tps, serve_tokens_s=tokens / wall, ms_per_tick=wall / ticks * 1e3,
+                          ticks=ticks, launches_per_tick=per_tick, **res)
+    return out
+
+
+@torch.inference_mode()
+def _profile_burst(cfg, params, prompts, label):
+    """Device busy time and idle share of one engine burst (16 ticks) with
+    all 8 slots decoding: the burst after admission, run once unprofiled
+    (host clock) and once under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qeft_tpu_torch.serving import Engine, Request
+
+    eng = Engine(params, cfg, max_batch=ENGINE_SLOTS, max_len=ENGINE_CTX + ENGINE_GEN + 1,
+                 burst=16, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(request_id=i, prompt=p, max_new_tokens=ENGINE_GEN))
+    eng.step()  # admission (8 prefills) and the first burst
+    torch.cuda.synchronize()
+    tick = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - tick) * 1e3 / 16
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    kernels, busy = kernel_times(prof, 16)
+    if busy == 0:
+        log(f"[{label}] burst: {wall:.3f} ms per tick; device time not measured (the profiler "
+            "recorded no CUDA kernel)")
+        return dict(tick_wall_ms=wall)
+    log(f"[{label}] burst of 16 ticks, 8 slots decoding: {wall:.3f} ms per tick (host clock, "
+        f"unprofiled), device busy {busy:.3f} ms -> idle share {max(0.0, 1 - busy / wall):.1%}; "
+        "top kernels per tick:")
+    for name, ms in kernels[:8]:
+        log(f"    {ms * 1e3:9.1f} us  {ms / busy:6.1%}  {name[:90]}")
+    return dict(tick_wall_ms=wall, tick_busy_ms=busy)
+
+
+def phase_spec(cfg, params):
+    """Speculative serving with a self-draft of 8 of the 32 layers, gamma 4:
+    ``SpecEngine`` over the engine's 16 requests and
+    ``speculative_generate_batched`` at B = 4; the greedy output must be the
+    target's own greedy choice at every step under teacher forcing."""
+    from qeft_tpu_torch.models.llama import init_kv_cache
+    from qeft_tpu_torch.serving import Request, SpecEngine
+    from qeft_tpu_torch.speculative import layer_sliced_draft, speculative_generate_batched
+
+    gamma = 4
+    draft, dcfg = layer_sliced_draft(params, cfg, SPEC_DRAFT_LAYERS)
+    prompts = _engine_prompts(cfg)
+    out = {}
+    eng = SpecEngine(params, cfg, draft, dcfg, gamma=gamma, max_batch=ENGINE_SLOTS,
+                     max_len=ENGINE_CTX + ENGINE_GEN + gamma + 2, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(request_id=i, prompt=p, max_new_tokens=ENGINE_GEN))
+    with counted("spec engine") as c:
+        tick = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tick
+    tokens = sum(len(r.output) for r in done)
+    accept = eng.accepted_total / max(eng.slot_rounds, 1)
+    log(f"[spec engine] self-draft {dcfg.num_layers} layers, gamma {gamma}: {len(done)} requests, "
+        f"{tokens} tokens in {wall:.3f} s -> {tokens / wall:.2f} tokens/s (host clock), "
+        f"{eng.rounds_total} rounds, mean accept length {accept:.3f} of {gamma}; launches "
+        f"{c.counts}")
+    for k in ("qgemv_stacked", "qgemm", "flash_window_attention"):
+        if not c.counts.get(k):
+            raise AssertionError(f"spec engine: launched no {k}")
+    outputs = [r.output for r in sorted(done, key=lambda r: r.request_id)]
+    if len(done) != ENGINE_REQUESTS or any(len(o) != ENGINE_GEN for o in outputs):
+        raise AssertionError("spec engine: a request was not served in full")
+    res = _check_served(cfg, params, prompts, outputs, "spec engine", False, exact=True)
+    out["spec engine"] = dict(tokens_s=tokens / wall, rounds=eng.rounds_total,
+                              mean_accept_length=accept, **res)
+
+    b = 4
+    slots = ENGINE_CTX + ENGINE_GEN + gamma + 1
+    prompt = torch.as_tensor(np.stack(prompts[:b]), device="cuda")
+    caches = [init_kv_cache(c, b, slots, device="cuda") for c in (cfg, dcfg)]
+    with counted("spec batched") as c:
+        tick = time.perf_counter()
+        toks, tel = speculative_generate_batched(params, draft, prompt, *caches, cfg, dcfg,
+                                                 ENGINE_GEN, gamma=gamma, greedy=True,
+                                                 device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tick
+    accept, rounds = float(tel["mean_accept_length"]), int(tel["rounds"])
+    log(f"[spec batched] B={b}, {ENGINE_GEN} tokens each in {wall:.3f} s -> "
+        f"{b * ENGINE_GEN / wall:.2f} tokens/s (host clock), {rounds} rounds, mean accept length "
+        f"{accept:.3f}; launches {c.counts}")
+    res = _check_served(cfg, params, prompts[:b], toks.tolist(), "spec batched", False,
+                        exact=True)
+    out["spec batched"] = dict(tokens_s=b * ENGINE_GEN / wall, rounds=rounds,
+                               mean_accept_length=accept, **res)
+    return out
+
+
+def phase_serving_cli():
+    """``run_benchmark --method engine`` and ``--method spec-batch
+    --draft_layers 8`` at full width and depth, one timed run each."""
+    import io
+
+    from qeft_tpu_torch import run_benchmark
+
+    lines = {}
+    for method, extra in (("engine", []), ("spec-batch", ["--draft_layers", str(SPEC_DRAFT_LAYERS)])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = run_benchmark.main(["--method", method, "--reps", "1", "--gen",
+                                      str(ENGINE_GEN)] + extra)
+        line = buf.getvalue().strip().splitlines()[-1]
+        log(f"[serving-cli] run_benchmark --method {method} {' '.join(extra)}: {line}")
+        if json.loads(line) != res:
+            raise AssertionError(f"run_benchmark --method {method} printed another result")
+        lines[method] = res
+        torch.cuda.empty_cache()
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -796,18 +1314,26 @@ def main() -> int:
     phase_build()
     cfg, params, nbytes, bw = phase_model()
     rows = phase_kernels(cfg, params, bw)
-    prompt, tokens, counts, main_res = phase_main(cfg, params, nbytes)
-    for key, row in rows.items():
-        row.d["launches"] = counts.get(key, 0)
+    phase_serving_kernels(cfg, params, bw, rows)
+    prompt, tokens, main_res = phase_main(cfg, params, nbytes)
     phase_profile(cfg, params, prompt)
     phase_oracle(cfg, params, prompt, tokens)
+    phase_int8_generate(cfg, params, prompt)
+    phase_stacked_generate(cfg, params, prompt)
+    phase_engine(cfg, params)
+    phase_spec(cfg, params)
+    phase_serving_cli()
     phase_train_kernels(cfg, params, bw, rows)
     phase_train_grad(cfg, params)
-    train = phase_train(cfg, params)
-    rows["qgemm"].d["launches_train"] = train["counts"].get("qgemm", 0)
-    rows["qgemm_t"].d["launches"] = train["counts"].get("qgemm_t", 0)
+    phase_train(cfg, params)
     phase_cli(cfg)
     phase_train_oracle(cfg, params)
+    for key, row in rows.items():
+        by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if c.get(key)}
+        row.d["launches_by_path"] = by_path
+        row.d["launches"] = sum(by_path.values())
+        if not by_path:
+            raise AssertionError(f"no main path launched {key}")
     log(f"[done] {time.perf_counter() - tick:.1f} s")
     print(json.dumps({"kernels": [r.d for r in rows.values()]}))
     print(smi)

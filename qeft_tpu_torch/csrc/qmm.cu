@@ -27,6 +27,14 @@
 //   halves are exact floats after one more logic op each, and the 128 folds
 //   into the zero-point term (z_g - 128*s_g).
 //
+// qgemv_stacked (K6) replaces pallas_qmm.py::qgemv_stacked
+//   (_qmm_kernel_stacked): the INT4 matvec of layer `layer` of a stacked
+//   linear plus its weak-column slab, with no norm and no residual -- the
+//   linear of the ragged window forward that continuous batching and
+//   speculative drafting run.  It is K1's kernel with the norm prologue and
+//   the residual epilogue compiled out (template flag FUSED = false); same
+//   bound, same design, same dequantization.
+//
 // qgemm (K2) replaces pallas_qmm.py::qgemm (_run_qmm / _qmm_kernel): the
 //   W4A16 GEMM for more rows (prefill, PPL windows), with the weak-column
 //   slab and an optional residual in the epilogue instead of separate GEMMs.
@@ -157,7 +165,8 @@ __device__ __forceinline__ void compute_unit(const Unit& u, float (&acc)[MT], co
     acc[m] += u.s * (t0[m] + t1[m]) + (first ? z * sumx[m * n_groups + u.gi] : 0.f);
 }
 
-template <int MT>
+// FUSED = false compiles the norm prologue and the residual epilogue out (K6)
+template <int MT, bool FUSED>
 __global__ void __launch_bounds__(kV_THREADS)
 qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
                    const int32_t* __restrict__ qw, const bf16* __restrict__ sc,
@@ -177,7 +186,7 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // 1. RMS statistics of each row (f32), as rms_norm computes them
-  if (lnw != nullptr) {
+  if (FUSED && lnw != nullptr) {
     for (int m = 0; m < MT; ++m) {
       const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)m * K);
       float ss = 0.f;
@@ -203,13 +212,13 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
     const int m = idx / k8, c = idx - m * k8;
     const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K) + c);
     uint4 lv = make_uint4(0u, 0u, 0u, 0u);
-    if (lnw != nullptr) lv = __ldg(reinterpret_cast<const uint4*>(lnw) + c);
+    if (FUSED && lnw != nullptr) lv = __ldg(reinterpret_cast<const uint4*>(lnw) + c);
     const bf16* xe = reinterpret_cast<const bf16*>(&xv);
     const bf16* le = reinterpret_cast<const bf16*>(&lv);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       bf16 v = xe[e];
-      if (lnw != nullptr) {
+      if (FUSED && lnw != nullptr) {
         const float nrm = bf2f(f2bf(bf2f(v) * rstd[m]));
         float wl = bf2f(le[e]);
         if (one_offset) wl = bf2f(f2bf(1.f + wl));
@@ -276,13 +285,13 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
     if (nn < N) {
       float y = 0.f;
       for (int wp = 0; wp < kV_WARPS; ++wp) y += part[(wp * MT + m) * kV_COLS + col];
-      if (res != nullptr) y += bf2f(res[(size_t)m * N + nn]);
+      if (FUSED && res != nullptr) y += bf2f(res[(size_t)m * N + nn]);
       out[(size_t)m * N + nn] = f2bf(y);
     }
   }
 }
 
-template <int MT>
+template <int MT, bool FUSED>
 cudaError_t launch_qgemv(const bf16* x, const bf16* lnw, const int32_t* qw, const bf16* sc,
                          const bf16* sz, const bf16* ow, const bf16* res, bf16* out,
                          int K, int N, int g, int R, float eps, int one_offset,
@@ -291,12 +300,12 @@ cudaError_t launch_qgemv(const bf16* x, const bf16* lnw, const int32_t* qw, cons
   const size_t smem = (size_t)MT * K * sizeof(bf16) + (size_t)MT * n_groups * sizeof(float) +
                       (size_t)kV_WARPS * MT * kV_COLS * sizeof(float);
   if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
-    cudaError_t e = cudaFuncSetAttribute(qgemv_fused_kernel<MT>,
+    cudaError_t e = cudaFuncSetAttribute(qgemv_fused_kernel<MT, FUSED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((N + kV_COLS - 1) / kV_COLS);
-  qgemv_fused_kernel<MT><<<grid, kV_THREADS, smem, stream>>>(
+  qgemv_fused_kernel<MT, FUSED><<<grid, kV_THREADS, smem, stream>>>(
       x, lnw, qw, sc, sz, ow, res, out, K, N, g, R, eps, one_offset);
   return cudaGetLastError();
 }
@@ -649,10 +658,13 @@ cudaError_t launch_qgemm_t(const bf16* gy, const int32_t* qw, const bf16* sc, co
 
 }  // namespace
 
-extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* qweight,
-                                   const void* scales, const void* szeros, const void* ow,
-                                   const void* res, void* out, int layer, int M, int K, int N,
-                                   int g, int R, float eps, int one_offset, void* stream) {
+namespace {
+
+// layer `layer` of the stacked buffers, then the MT instance of K1 or K6
+template <bool FUSED>
+int run_qgemv(const void* x, const void* lnw, const void* qweight, const void* scales,
+              const void* szeros, const void* ow, const void* res, void* out, int layer, int M,
+              int K, int N, int g, int R, float eps, int one_offset, void* stream) {
   if (M < 1 || M > 8 || K <= 0 || N <= 0 || g <= 0 || g % 8 || K % g || R < 0 || R > K ||
       layer < 0)
     return (int)cudaErrorInvalidValue;
@@ -667,14 +679,33 @@ extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* q
   bf16* y = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (M) {
-#define QEFT_CASE(MT) \
-  case MT:            \
-    return (int)launch_qgemv<MT>(xx, ln, qw, sc, sz, o, rs, y, K, N, g, o ? R : 0, eps, one_offset, st);
+#define QEFT_CASE(MT)                                                                        \
+  case MT:                                                                                   \
+    return (int)launch_qgemv<MT, FUSED>(xx, ln, qw, sc, sz, o, rs, y, K, N, g, o ? R : 0, eps, \
+                                        one_offset, st);
     QEFT_CASE(1) QEFT_CASE(2) QEFT_CASE(3) QEFT_CASE(4)
     QEFT_CASE(5) QEFT_CASE(6) QEFT_CASE(7) QEFT_CASE(8)
 #undef QEFT_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* qweight,
+                                   const void* scales, const void* szeros, const void* ow,
+                                   const void* res, void* out, int layer, int M, int K, int N,
+                                   int g, int R, float eps, int one_offset, void* stream) {
+  return run_qgemv<true>(x, lnw, qweight, scales, szeros, ow, res, out, layer, M, K, N, g, R, eps,
+                         one_offset, stream);
+}
+
+// K6: K1 without the norm and the residual; the weak columns stay inside
+extern "C" int qgemv_stacked(const void* x, const void* qweight, const void* scales,
+                             const void* szeros, const void* ow, void* out, int layer, int M,
+                             int K, int N, int g, int R, void* stream) {
+  return run_qgemv<false>(x, nullptr, qweight, scales, szeros, ow, nullptr, out, layer, M, K, N,
+                          g, R, 0.f, 0, stream);
 }
 
 // ws: f32 [splits, M, N] scratch when splits > 1 (else unused)

@@ -15,7 +15,8 @@ class ModelApi:
     forward: Callable  # (params, tokens [B,S], cfg) -> logits [B,S,V]
     prefill: Callable  # (params, tokens, cache, cfg) -> (logits, cache)
     decode_step: Callable  # (params, token [B,1], cache, pos, cfg) -> (logits [B,V], cache)
-    init_cache: Callable  # (cfg, batch, max_len, dtype, device) -> cache dict
+    forward_window: Callable  # (params, tokens, cache, pos, cfg) -> (logits, cache)
+    init_cache: Callable  # (cfg, batch, max_len, dtype, device, quantized) -> cache dict
     config_cls: type
 
 
@@ -30,6 +31,7 @@ def get_model_api(family: str) -> ModelApi:
         forward=m.llama_forward,
         prefill=m.llama_prefill,
         decode_step=m.llama_decode_step,
+        forward_window=m.llama_forward_window,
         init_cache=m.init_kv_cache,
         config_cls=m.LlamaConfig,
     )

@@ -1,14 +1,32 @@
-"""Single-query decode attention over the static bf16 KV cache (K4).
+"""Single-query decode attention over the static KV cache: bf16 (K4), int8
+codes with per-vector f32 scales (K4q), and the stacked-cache variant with
+the current token as an extra term (K8).
 
-`decode_attention` replaces the bf16 branch of ``qeft_tpu/ops/
-pallas_attention.py::decode_attention`` with ``csrc/decode_attention.cu``:
-one query per (batch, head) attends cache slots ``<= pos`` (the current
-token's K/V are already written), GQA included.  It runs at every cache
-length.  Its plain version, `decode_attention_plain`, is the masked softmax
-of ``qeft_tpu/models/llama.py::_attention`` over those slots.
+Kernels (``csrc/decode_attention.cu``), each beside its plain PyTorch
+version:
+
+- `decode_attention` without scales replaces the bf16 branch of
+  ``qeft_tpu/ops/pallas_attention.py::decode_attention``: one query per
+  (batch, head) attends cache slots ``<= pos`` (the current token's K/V are
+  already written), GQA included, at every cache length.
+- `decode_attention` with ``k_scale``/``v_scale`` replaces its int8 branch:
+  the caches hold int8 codes; the K scale multiplies each score after the
+  ``D**-0.5`` scale, the running sum takes the unscaled probabilities, and
+  the V scale multiplies them only for the P.V product.
+- `decode_attention_stacked` replaces ``pallas_attention.py::
+  decode_attention_stacked``: layer ``layer`` of the whole stacked cache
+  ``[L, B, Hkv, S, D]`` (bf16, or int8 plus ``[L, B, Hkv, S]`` scales),
+  slots ``< pos`` only -- slot ``pos`` is stale -- plus the current token's
+  unquantized ``k_new``/``v_new`` as one extra softmax term.
+
+The plain versions are the masked f32 softmax of ``qeft_tpu/models/
+llama.py::_attention`` over the same slots, with the scales applied as the
+kernels apply them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,42 +37,154 @@ from qeft_tpu_torch.ops.flash import masked_attention
 KV_CHUNK = 256
 
 
-def decode_attention_plain(q, k_cache, v_cache, pos: int) -> torch.Tensor:
+def _scores(q, k, d):
+    """f32 q.k^T * D**-0.5 per kv-head group: q [B, Hkv, rep, D], k [B, Hkv,
+    S, D] -> [B, Hkv, rep, S]."""
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * (d ** -0.5)
+
+
+def _int8_attention(q, k_codes, v_codes, k_scale, v_scale, k_new=None, v_new=None):
+    """f32 softmax of q over int8 slots (and an optional unquantized extra
+    key/value); q [B, H, D], codes [B, Hkv, S, D], scales [B, Hkv, S]."""
     b, h, d = q.shape
+    hkv = k_codes.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, d)
+    s = _scores(qg, k_codes, d) * k_scale.float()[:, :, None, :]
+    if k_new is not None:
+        s = torch.cat([s, _scores(qg, k_new[:, :, None], d)], dim=-1)
+    p = torch.softmax(s, dim=-1)
+    n = k_codes.shape[2]
+    ctx = torch.matmul(p[..., :n] * v_scale.float()[:, :, None, :], v_codes.float())
+    if v_new is not None:
+        ctx = ctx + p[..., n:] * v_new.float()[:, :, None]
+    return ctx.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_plain(q, k_cache, v_cache, pos: int, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    b, h, d = q.shape
+    if k_scale is not None:
+        return _int8_attention(q, k_cache[:, :, : pos + 1], v_cache[:, :, : pos + 1],
+                               k_scale[:, :, : pos + 1], v_scale[:, :, : pos + 1])
     ctx = masked_attention(q[:, None], k_cache[:, :, : pos + 1],
                            v_cache[:, :, : pos + 1], None)
     return ctx.reshape(b, h, d)
 
 
+def decode_attention_stacked_plain(q, k_cache, v_cache, layer: int, pos: int, k_new, v_new,
+                                   k_scale=None, v_scale=None) -> torch.Tensor:
+    kc, vc = k_cache[layer, :, :, :pos], v_cache[layer, :, :, :pos]
+    if k_scale is not None:
+        return _int8_attention(q, kc, vc, k_scale[layer, :, :, :pos],
+                               v_scale[layer, :, :, :pos], k_new, v_new)
+    b, h, d = q.shape
+    dtype = q.dtype
+    k_all = torch.cat([kc.to(dtype), k_new[:, :, None].to(dtype)], dim=2)
+    v_all = torch.cat([vc.to(dtype), v_new[:, :, None].to(dtype)], dim=2)
+    return masked_attention(q[:, None], k_all, v_all, None).reshape(b, h, d)
+
+
+def _check(name: str, t: torch.Tensor, dtype) -> None:
+    if t.dtype != dtype or not t.is_cuda or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_caches(q, k_cache, v_cache, k_scale, v_scale):
+    """The checks both wrappers share: heads, head_dim, dtypes (bf16, or
+    int8 codes with f32 scales), contiguity, alignment and shapes."""
+    _, h, d = q.shape
+    hkv = k_cache.shape[-3]
+    if h % hkv or d not in (64, 128, 256):
+        raise ValueError(f"unsupported heads {h}/{hkv} or head_dim {d}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    kv_dtype = torch.int8 if k_scale is not None else torch.bfloat16
+    _check("q", q, torch.bfloat16)
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _check(name, t, kv_dtype)
+    if tuple(v_cache.shape) != tuple(k_cache.shape):
+        raise ValueError("k and v caches disagree")
+    if k_scale is not None:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _check(name, t, torch.float32)
+            if tuple(t.shape) != tuple(k_cache.shape[:-1]):
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                                 f"{tuple(k_cache.shape[:-1])}")
+
+
+def _scratch(n_split: int, bh: int, d: int, device):
+    """Per-split partial results, combined by the kernel's second pass."""
+    part_acc = torch.empty(n_split, bh, d, dtype=torch.float32, device=device)
+    part_ml = torch.empty(2, n_split, bh, dtype=torch.float32, device=device)
+    return part_acc, part_ml
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int) -> torch.Tensor:
-    """q [B, H, D] (RoPE applied); caches [B, Hkv, S, D]; ``pos`` the index
-    of the current token.  Returns [B, H, D]."""
+                     pos: int, k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B, H, D] (RoPE applied); caches [B, Hkv, S, D] bf16, or int8 codes
+    with f32 ``k_scale``/``v_scale`` [B, Hkv, S]; ``pos`` the index of the
+    current token.  Returns [B, H, D]."""
     if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, pos)
+        return decode_attention_plain(q, k_cache, v_cache, pos, k_scale, v_scale)
     b, h, d = q.shape
     _, hkv, s_max, _ = k_cache.shape
     pos = int(pos)
-    if h % hkv or d not in (64, 128, 256):
-        raise ValueError(f"unsupported heads {h}/{hkv} or head_dim {d}")
+    _check_caches(q, k_cache, v_cache, k_scale, v_scale)
     if not 0 <= pos < s_max:
         raise IndexError(f"pos {pos} outside a {s_max}-slot cache")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous bfloat16 CUDA tensor")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if tuple(v_cache.shape) != tuple(k_cache.shape) or k_cache.shape[0] != b:
+    if k_cache.shape[0] != b:
         raise ValueError("cache shapes disagree with q")
     n_split = -(-(pos + 1) // KV_CHUNK)
-    # per-split partial results, combined by the kernel's second pass
-    part_acc = torch.empty(n_split, b * h, d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(2, n_split, b * h, dtype=torch.float32, device=q.device)
+    part_acc, part_ml = _scratch(n_split, b * h, d, q.device)
+    out = torch.empty(b, h, d, dtype=torch.bfloat16, device=q.device)
+    tail = (cuda_lib.ptr(out), cuda_lib.ptr(part_acc), cuda_lib.ptr(part_ml[0]),
+            cuda_lib.ptr(part_ml[1]), b, h, hkv, s_max, d, pos, n_split)
+    if k_scale is None:
+        cuda_lib.launch("decode_attention", cuda_lib.ptr(q), cuda_lib.ptr(k_cache),
+                        cuda_lib.ptr(v_cache), *tail)
+    else:
+        cuda_lib.launch("decode_attention_int8", cuda_lib.ptr(q), cuda_lib.ptr(k_cache),
+                        cuda_lib.ptr(v_cache), cuda_lib.ptr(k_scale), cuda_lib.ptr(v_scale),
+                        *tail)
+    return out
+
+
+def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             layer: int, pos: int, k_new: torch.Tensor, v_new: torch.Tensor,
+                             k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B, H, D] (RoPE applied); the stacked caches [L, B, Hkv, S, D] (bf16,
+    or int8 with f32 scales [L, B, Hkv, S]) whose slot ``pos`` is stale;
+    k_new/v_new [B, Hkv, D] the current token's K/V.  Attends slots ``<
+    pos`` of layer ``layer`` plus the new token.  Returns [B, H, D]."""
+    if not q.is_cuda:
+        return decode_attention_stacked_plain(q, k_cache, v_cache, layer, pos, k_new, v_new,
+                                              k_scale, v_scale)
+    b, h, d = q.shape
+    n_layers, b_c, hkv, s_max, _ = k_cache.shape
+    layer, pos = int(layer), int(pos)
+    _check_caches(q, k_cache, v_cache, k_scale, v_scale)
+    if b_c != b:
+        raise ValueError("cache shapes disagree with q")
+    if not 0 <= pos < s_max:
+        raise IndexError(f"pos {pos} outside a {s_max}-slot cache")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range for {n_layers} layers")
+    kn, vn = cuda_lib.aligned(k_new), cuda_lib.aligned(v_new)
+    for name, t in (("k_new", kn), ("v_new", vn)):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (b, hkv, d):
+            raise ValueError(f"{name} must be bfloat16 of shape {(b, hkv, d)}")
+    n_split = max(1, -(-pos // KV_CHUNK))
+    part_acc, part_ml = _scratch(n_split, b * h, d, q.device)
     out = torch.empty(b, h, d, dtype=torch.bfloat16, device=q.device)
     cuda_lib.launch(
-        "decode_attention",
-        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache),
-        cuda_lib.ptr(out), cuda_lib.ptr(part_acc), cuda_lib.ptr(part_ml[0]),
-        cuda_lib.ptr(part_ml[1]), b, h, hkv, s_max, d, pos, n_split,
+        "decode_attention_stacked",
+        cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache), cuda_lib.ptr(k_scale),
+        cuda_lib.ptr(v_scale), cuda_lib.ptr(kn), cuda_lib.ptr(vn), cuda_lib.ptr(out),
+        cuda_lib.ptr(part_acc), cuda_lib.ptr(part_ml[0]), cuda_lib.ptr(part_ml[1]),
+        n_layers, b, h, hkv, s_max, d, layer, pos, n_split,
     )
     return out

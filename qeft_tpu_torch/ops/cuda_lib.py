@@ -67,6 +67,22 @@ _ENTRY_POINTS = {
         _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos n_split
         _P,  # stream
     ]),
+    "decode_attention_int8": ("decode_attention.cu", [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale out part_acc part_m part_l
+        _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos n_split
+        _P,  # stream
+    ]),
+    "decode_attention_stacked": ("decode_attention.cu", [
+        _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale k_new v_new
+        _P, _P, _P, _P,  # out part_acc part_m part_l
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,  # L B H Hkv S D layer pos n_split
+        _P,  # stream
+    ]),
+    "qgemv_stacked": ("qmm.cu", [
+        _P, _P, _P, _P, _P, _P,  # x qweight scales szeros ow out
+        _I, _I, _I, _I, _I, _I,  # layer M K N group_size R
+        _P,  # stream
+    ]),
 }
 
 _lock = threading.Lock()

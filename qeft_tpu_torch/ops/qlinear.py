@@ -2,7 +2,8 @@
 GEMM, and the autograd linear that training differentiates through.
 
 Counterpart of ``qeft_tpu/ops/qlinear.py``: `qlinear_fused_stage` of its
-``qlinear_fused_stage`` (inference), `qlinear_apply` / `QLinearFunction` of
+``qlinear_fused_stage`` (inference), `qlinear_apply_stacked` of its
+``qlinear_apply_stacked`` (inference), `qlinear_apply` / `QLinearFunction` of
 its ``qlinear_apply`` and custom-vjp core ``_qlinear_core`` / ``_core_fwd`` /
 ``_core_bwd``.  The JAX package switches kernels at ``< 8`` tokens in one
 place and ``<= 8`` in another; here one threshold, `qmm.DECODE_MAX_TOKENS`,
@@ -30,6 +31,7 @@ from qeft_tpu_torch.ops.qmm import (
     DECODE_MAX_TOKENS,
     qgemm,
     qgemm_t,
+    qgemv_stacked,
     qgemv_stacked_fused,
     rms_norm,
 )
@@ -54,6 +56,15 @@ def qlinear_fused_stage(x: torch.Tensor, p: QLinearParams, layer: int,
     return qgemm(x, p.layer(layer), residual=residual)
 
 
+def qlinear_apply_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torch.Tensor:
+    """``x @ W`` of layer ``layer`` of the stacked linear ``p``, no norm and
+    no residual: the plain decode matvec (K6) for few rows, the GEMM (K2) on
+    the layer's view for more."""
+    if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
+        return qgemv_stacked(x, p, layer)
+    return qgemm(x, p.layer(layer))
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D) summed and returned in f32.  On the GPU half-precision
     operands stay as they are (``torch.mm(..., out_dtype=float32)``); f32
@@ -63,18 +74,12 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
 
 
-def _forward(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
-    if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
-        return qgemv_stacked_fused(x, p.map(lambda t: t.unsqueeze(0)), 0)
-    return qgemm(x, p)
-
-
 class QLinearFunction(torch.autograd.Function):
     """``x @ W_deq + x[..., K-r:] @ oweight`` of one layer's packed linear,
-    differentiable in ``x`` and ``oweight``.  The forward runs K1 (at most
-    `DECODE_MAX_TOKENS` rows, no norm, no residual) or K2 with the oweight
-    cast to x's dtype; the backward runs K7 for ``dx`` only when it is
-    wanted, and returns ``dow`` in oweight's dtype (f32 when training)."""
+    differentiable in ``x`` and ``oweight``.  The forward runs K6 (at most
+    `DECODE_MAX_TOKENS` rows) or K2 with the oweight cast to x's dtype; the
+    backward runs K7 for ``dx`` only when it is wanted, and returns ``dow``
+    in oweight's dtype (f32 when training)."""
 
     @staticmethod
     def forward(ctx, x, qweight, scales, scaled_zeros, oweight, group_size):
@@ -82,7 +87,7 @@ class QLinearFunction(torch.autograd.Function):
         p = QLinearParams(qweight, scales, scaled_zeros, oweight=ow, group_size=group_size)
         ctx.group_size = group_size
         ctx.save_for_backward(x, qweight, scales, scaled_zeros, oweight)
-        return _forward(x, p)
+        return qlinear_apply_stacked(x, p.map(lambda t: t.unsqueeze(0)), 0)
 
     @staticmethod
     def backward(ctx, g):

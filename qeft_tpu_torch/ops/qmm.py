@@ -1,5 +1,6 @@
-"""Packed INT4 matrix products: the decode matvec (K1), the prefill GEMM (K2)
-and the training backward's transposed GEMM (K7).
+"""Packed INT4 matrix products: the fused decode matvec (K1), the plain decode
+matvec (K6), the prefill GEMM (K2) and the training backward's transposed
+GEMM (K7).
 
 Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
 
@@ -8,6 +9,9 @@ Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
   rows -- optional RMS norm of the raw residual, the INT4 matvec over all K
   rows, the weak-column slab, optional residual add -- reading layer
   ``layer`` straight out of the stacked ``[L, ...]`` buffers.
+- `qgemv_stacked` replaces ``pallas_qmm.py::qgemv_stacked``: the same
+  matvec of layer ``layer`` with its weak-column slab, without the norm and
+  the residual (K1's kernel with both compiled out).
 - `qgemm` replaces ``pallas_qmm.py::qgemm``: the W4A16 GEMM for more rows,
   with the weak-column slab and an optional residual in its epilogue.
 - `qgemm_t` replaces ``pallas_qmm.py::qgemm_t``: ``dx = g @ W_deq^T`` from
@@ -70,6 +74,12 @@ def qgemv_stacked_fused_plain(x, p: QLinearParams, layer: int, lnw=None,
     return qgemm_plain(x, p.layer(layer), residual)
 
 
+def qgemv_stacked_plain(x, p: QLinearParams, layer: int) -> torch.Tensor:
+    """``x @ W_deq[l] + x[..., -r:] @ oweight[l]`` (twin of ``qgemv_stacked``
+    with its outside weak-column product)."""
+    return qgemm_plain(x, p.layer(layer))
+
+
 def qgemm_t_plain(g: torch.Tensor, p: QLinearParams,
                   tail: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``g @ W_deq^T`` with the weight dequantized in g's dtype, the products
@@ -119,6 +129,19 @@ def gemm_splits(m: int, n: int, n_groups: int, sms: int) -> int:
     return -(-n_groups // -(-n_groups // splits))  # no empty split
 
 
+def _decode_rows(x: torch.Tensor, p: QLinearParams, layer: int):
+    """The checks K1 and K6 share -> (x as [M, K], M, K, N)."""
+    _check_packed(p, stacked=True)
+    n_layers, k8, n = p.qweight.shape
+    k = k8 * 8
+    m = x.numel() // k
+    if not 1 <= m <= DECODE_MAX_TOKENS:
+        raise ValueError(f"decode matvec takes 1..{DECODE_MAX_TOKENS} rows, got {m}")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range for {n_layers} layers")
+    return _check_act(x.reshape(m, k), "x", (m, k)), m, k, n
+
+
 def qgemv_stacked_fused(x: torch.Tensor, p: QLinearParams, layer: int,
                         lnw: Optional[torch.Tensor] = None,
                         residual: Optional[torch.Tensor] = None,
@@ -129,16 +152,7 @@ def qgemv_stacked_fused(x: torch.Tensor, p: QLinearParams, layer: int,
     input; ``residual`` [..., N] is added to the output.  Returns [..., N]."""
     if not x.is_cuda:
         return qgemv_stacked_fused_plain(x, p, layer, lnw, residual, eps, one_offset)
-    _check_packed(p, stacked=True)
-    n_layers, k8, n = p.qweight.shape
-    k = k8 * 8
-    lead = x.shape[:-1]
-    m = x.numel() // k
-    if not 1 <= m <= DECODE_MAX_TOKENS:
-        raise ValueError(f"decode matvec takes 1..{DECODE_MAX_TOKENS} rows, got {m}")
-    if not 0 <= layer < n_layers:
-        raise IndexError(f"layer {layer} out of range for {n_layers} layers")
-    x2 = _check_act(x.reshape(m, k), "x", (m, k))
+    x2, m, k, n = _decode_rows(x, p, layer)
     lnw_c = None if lnw is None else _check_act(lnw, "lnw", (k,))
     res = None if residual is None else _check_act(residual.reshape(m, n), "residual", (m, n))
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
@@ -149,7 +163,24 @@ def qgemv_stacked_fused(x: torch.Tensor, p: QLinearParams, layer: int,
         cuda_lib.ptr(res), cuda_lib.ptr(out),
         int(layer), m, k, n, p.group_size, p.n_outlier, float(eps), int(one_offset),
     )
-    return out.reshape(*lead, n)
+    return out.reshape(*x.shape[:-1], n)
+
+
+def qgemv_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torch.Tensor:
+    """The decode matvec of layer ``layer`` of the stacked linear ``p``, no
+    norm, no residual.  ``x`` [..., K] with at most `DECODE_MAX_TOKENS`
+    rows -> [..., N]."""
+    if not x.is_cuda:
+        return qgemv_stacked_plain(x, p, layer)
+    x2, m, k, n = _decode_rows(x, p, layer)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    cuda_lib.launch(
+        "qgemv_stacked",
+        cuda_lib.ptr(x2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
+        cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight), cuda_lib.ptr(out),
+        int(layer), m, k, n, p.group_size, p.n_outlier,
+    )
+    return out.reshape(*x.shape[:-1], n)
 
 
 def qgemm(x: torch.Tensor, p: QLinearParams,

@@ -3,7 +3,10 @@ versions on the card, at small shapes that reach every branch: 1..8 decode
 rows, 86 quantization groups, no weak columns, the gemma norm, GEMM rows past
 one tile, GQA, window offsets and per-sequence positions, split decode
 chunks; the transposed GEMM (K7) at 1 to 2048 rows, with and without the
-weak-column addend, and the autograd linear's gradients.  They need an NVIDIA GPU and ``nvcc`` and skip elsewhere:
+weak-column addend, and the autograd linear's gradients; the plain decode
+matvec (K6) at 1..8 rows; int8 decode attention (K4q) and the stacked-cache
+decode attention (K8, bf16 and int8, slots >= pos poisoned), and the
+wrappers' refusals.  They need an NVIDIA GPU and ``nvcc`` and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -151,7 +154,7 @@ def test_qgemm_t(gen, m, g, r):
 @pytest.mark.parametrize("m", [4, 300])
 def test_autograd_linear_gradients(gen, m):
     """``dx`` (K7 plus the weak-column addend) and the f32 ``dow`` against
-    autograd through the plain version in f32; m = 4 runs K1 forward."""
+    autograd through the plain version in f32; m = 4 runs K6 forward."""
     p = _packed(gen, 1, 512, 96, 128, 16).layer(0)
     x = _randn(gen, m, 512)
     ow = (torch.randn(16, 96, generator=gen, device="cuda") * 0.02).requires_grad_()
@@ -181,3 +184,90 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(IndexError):
         attention.decode_attention(_randn(gen, 1, 4, 64), _randn(gen, 1, 4, 8, 64),
                                    _randn(gen, 1, 4, 8, 64), 8)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("k,n,g,r", [(512, 96, 128, 16), (11008, 64, 128, 128),
+                                     (1024, 200, 64, 0)])
+def test_plain_decode_matvec(gen, m, k, n, g, r):
+    p = _packed(gen, 3, k, n, g, r)
+    x = _randn(gen, m, k)
+    before = cuda_lib.launches["qgemv_stacked"]
+    got = qmm.qgemv_stacked(x, p, 2)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["qgemv_stacked"] == before + 1
+    _close(got, qmm.qgemv_stacked_plain(_f32(x), _f32(p), 2))
+
+
+def _int8_cache(gen, *shape):
+    codes = torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
+    scales = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.03 + 0.005
+    return codes, scales
+
+
+@pytest.mark.parametrize("pos", [0, 1, 255, 256, 700, 4095])
+@pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (8, 2, 128), (4, 4, 64)])
+def test_int8_decode_attention(gen, pos, h, hkv, d):
+    q = _randn(gen, 2, h, d)
+    (kc, ks), (vc, vs) = _int8_cache(gen, 2, hkv, 4096, d), _int8_cache(gen, 2, hkv, 4096, d)
+    before = cuda_lib.launches["decode_attention_int8"]
+    got = attention.decode_attention(q, kc, vc, pos, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["decode_attention_int8"] == before + 1
+    _close(got, attention.decode_attention_plain(_f32(q), kc, vc, pos, ks, vs))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("layer,pos", [(0, 0), (1, 1), (2, 255), (3, 256), (1, 1000)])
+@pytest.mark.parametrize("h,hkv,d", [(8, 2, 128), (4, 4, 64), (2, 1, 256)])
+def test_stacked_decode_attention(gen, quantized, layer, pos, h, hkv, d):
+    shape = (4, 2, hkv, 1024, d)
+    q, kn, vn = _randn(gen, 2, h, d), _randn(gen, 2, hkv, d), _randn(gen, 2, hkv, d)
+    if quantized:
+        (kc, ks), (vc, vs) = _int8_cache(gen, *shape), _int8_cache(gen, *shape)
+        for c, sc in ((kc, ks), (vc, vs)):  # poison the stale slot at pos and beyond
+            c[:, :, :, pos:] = 127
+            sc[:, :, :, pos:] = 1e3
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = _randn(gen, *shape), _randn(gen, *shape)
+        kc[:, :, :, pos:] = 1e4
+        vc[:, :, :, pos:] = 1e4
+        scales = {}
+    before = cuda_lib.launches["decode_attention_stacked"]
+    got = attention.decode_attention_stacked(q, kc, vc, layer, pos, kn, vn, **scales)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["decode_attention_stacked"] == before + 1
+    want = attention.decode_attention_stacked_plain(
+        _f32(q), kc if quantized else _f32(kc), vc if quantized else _f32(vc), layer, pos,
+        _f32(kn), _f32(vn), **scales)
+    _close(got, want)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    (kc, ks), (vc, vs) = _int8_cache(gen, 1, 4, 64, 64), _int8_cache(gen, 1, 4, 64, 64)
+    q = _randn(gen, 1, 4, 64)
+    with pytest.raises(IndexError):  # pos past the cache
+        attention.decode_attention(q, kc, vc, 64, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError):  # one scale plane without the other
+        attention.decode_attention(q, kc, vc, 3, k_scale=ks)
+    with pytest.raises(ValueError):  # a non-contiguous cache
+        attention.decode_attention(q, kc.transpose(2, 1), vc.transpose(2, 1), 3,
+                                   k_scale=ks, v_scale=vs)
+    raw = torch.empty(1 * 4 * 64 * 64 + 1, dtype=torch.int8, device="cuda")
+    misaligned = raw[1:].view(1, 4, 64, 64)  # one byte off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        attention.decode_attention(q, misaligned, vc, 3, k_scale=ks, v_scale=vs)
+    stacked = _randn(gen, 2, 1, 4, 64, 64)
+    kn = _randn(gen, 1, 4, 64)
+    with pytest.raises(IndexError):
+        attention.decode_attention_stacked(q, stacked, stacked, 0, 64, kn, kn)
+    with pytest.raises(IndexError):
+        attention.decode_attention_stacked(q, stacked, stacked, 2, 3, kn, kn)
+    with pytest.raises(ValueError):  # the stale-slot step takes its new K/V in bf16
+        attention.decode_attention_stacked(q, stacked, stacked, 0, 3, kn.float(), kn)
+    p = _packed(gen, 2, 256, 64, 64, 8)
+    with pytest.raises(ValueError):
+        qmm.qgemv_stacked(_randn(gen, 9, 256), p, 0)
+    with pytest.raises(IndexError):
+        qmm.qgemv_stacked(_randn(gen, 1, 256), p, 2)

@@ -12,12 +12,14 @@ import torch
 
 import qeft_tpu_torch
 from qeft_tpu_torch import main as torch_main
-from qeft_tpu_torch import run_finetune
+from qeft_tpu_torch import run_benchmark, run_finetune
+from qeft_tpu_torch import speculative as spec
 from qeft_tpu_torch.checkpoint import load_model, load_packed, load_wct, save_packed
 from qeft_tpu_torch.eval_mc import evaluate_mc, synthetic_mc_examples
 from qeft_tpu_torch.eval import eval_ppl
 from qeft_tpu_torch.generate import generate
-from qeft_tpu_torch.models.llama import LLAMA_PRESETS
+from qeft_tpu_torch.models.llama import LLAMA_PRESETS, init_kv_cache, init_params
+from qeft_tpu_torch.serving import Engine, SpecEngine, measure_engine_throughput
 from qeft_tpu_torch.testing import build_packed_model
 
 PKG = Path(qeft_tpu_torch.__file__).parent
@@ -106,3 +108,36 @@ def test_training_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypat
         evaluate_mc(tuned, synthetic_mc_examples(2, cfg.vocab_size), cfg2, family)
     assert evaluate_mc(tuned, synthetic_mc_examples(2, cfg.vocab_size), cfg2, family,
                        device="cpu")["n"] == 2
+
+
+def test_serving_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LLAMA_PRESETS["tiny"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    params = build_packed_model(cfg, g=64, r=8, dtype=torch.float32, device="cpu")
+    draft, dcfg = spec.layer_sliced_draft(params, cfg, 1)
+    prompt = torch.zeros(1, 4, dtype=torch.int64)
+
+    def caches():
+        return (init_kv_cache(cfg, 1, 16, dtype=torch.float32),
+                init_kv_cache(dcfg, 1, 16, dtype=torch.float32))
+
+    calls = [
+        lambda **kw: Engine(params, cfg, max_batch=1, max_len=16, **kw),
+        lambda **kw: SpecEngine(params, cfg, draft, dcfg, max_batch=1, max_len=16, **kw),
+        lambda **kw: spec.speculative_generate(params, draft, prompt, *caches(), cfg, dcfg, 2,
+                                               **kw),
+        lambda **kw: spec.speculative_generate_sampled(params, draft, prompt, *caches(), cfg,
+                                                       dcfg, 2, **kw),
+        lambda **kw: spec.speculative_generate_batched(params, draft, prompt, *caches(), cfg,
+                                                       dcfg, 2, **kw),
+        lambda **kw: measure_engine_throughput(params, cfg, slots=1, burst=1, requests=1, ctx=3,
+                                               gen=2, reps=1, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_benchmark.main(["--method", "engine", "--model", "tiny"])

@@ -5,7 +5,10 @@ K1: the port's `qgemv_stacked_fused` (plain on CPU tensors) against
 ``pallas_qmm.qgemv_stacked_fused`` -- norm prologue (one_offset on and off),
 residual epilogue, with and without the weak-column slab -- as
 tests/test_pallas_qmm.py::test_qgemv_stacked_fused_matches_composed does.
-K2: the port's `qgemm` against ``pallas_qmm.qgemm``.
+K2: the port's `qgemm` against ``pallas_qmm.qgemm``.  K6: the port's
+`qgemv_stacked` (no norm, no residual, the weak-column slab inside) against
+``pallas_qmm.qgemv_stacked`` (its slab product outside the kernel), and
+`qlinear_apply_stacked` on both sides of the row threshold.
 
 Tolerance 1e-4 (abs and rel), the JAX test's own: both sides are f32, and the
 Pallas kernels sum per nibble plane and fold the zero points through group
@@ -19,6 +22,7 @@ import torch
 
 from qeft_tpu.ops.packing import QLinearParams as JaxQLinear, pack_codes
 from qeft_tpu.ops.pallas_qmm import qgemm as jax_qgemm, qgemv_stacked_fused as jax_fused
+from qeft_tpu.ops.pallas_qmm import qgemv_stacked as jax_qgemv_stacked
 from qeft_tpu_torch.ops import qlinear, qmm
 from qeft_tpu_torch.ops.packing import QLinearParams
 
@@ -93,6 +97,29 @@ def test_qgemm_matches_pallas(shape):
     ref = np.asarray(jax_qgemm(jnp.asarray(x), jp, dtype=jnp.float32))
     got = qmm.qgemm(torch.from_numpy(x), tp)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("m", [1, 4, 7])
+@pytest.mark.parametrize("with_ow", [True, False])
+def test_plain_decode_matvec_matches_pallas(m, with_ow):
+    rng = np.random.default_rng(7)
+    jp, tp = _stack(_layers(rng), with_ow)
+    x = rng.normal(size=(m, K)).astype(np.float32)
+    for l in range(L):
+        ref = np.asarray(jax_qgemv_stacked(jnp.asarray(x), jp, jnp.int32(l), dtype=jnp.float32))
+        got = qmm.qgemv_stacked(torch.from_numpy(x), tp, l)
+        assert got.shape == (m, N)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("tokens", [1, 8, 9, 64])
+def test_stacked_apply_is_one_function(tokens):
+    """Both sides of the row threshold give x @ W_deq[l] + x[:, -r:] @ ow[l]."""
+    rng = np.random.default_rng(8)
+    _, tp = _stack(_layers(rng), True)
+    x = torch.from_numpy(rng.normal(size=(1, tokens, K)).astype(np.float32))
+    got = qlinear.qlinear_apply_stacked(x, tp, 2)
+    torch.testing.assert_close(got, qmm.qgemm_plain(x, tp.layer(2)), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("tokens", [1, 8, 9, 64])

@@ -17,6 +17,13 @@ from qeft_tpu_torch.models.llama import LLAMA_PRESETS as TORCH_PRESETS
 from qeft_tpu_torch.models.registry import get_model_meta
 from qeft_tpu_torch.pipeline import fuse_packed_stages
 
+# The suite runs several pytest workers on one host, each collecting every
+# test module.  Torch's default of one intra-op thread per core then
+# oversubscribes the host several times over, and its spinning OpenMP
+# threads slow some tiny CPU parity tests a hundredfold; one thread per
+# worker keeps them near their time alone.
+torch.set_num_threads(1)
+
 
 def gptq_packed_tiny(seed=0):
     """The ``packed_tiny`` recipe of tests/test_finetune.py: real GPTQ, real
@@ -26,11 +33,45 @@ def gptq_packed_tiny(seed=0):
     return packed_tiny(seed)
 
 
-def random_packed_tiny_gemma(seed=0):
-    """``qeft_tpu.testing.build_packed_model`` on ``tiny-gemma`` (f32, g = 64,
-    r = 8)."""
-    return jax_build_packed_model(LLAMA_PRESETS["tiny-gemma"], jax.random.PRNGKey(seed),
+def random_packed(name, seed=0):
+    """``qeft_tpu.testing.build_packed_model`` on preset ``name`` (f32, g = 64,
+    r = 8; identity ``o_reorder``): seconds to build where the GPTQ recipe
+    takes about fifteen."""
+    return jax_build_packed_model(LLAMA_PRESETS[name], jax.random.PRNGKey(seed),
                                   g=64, r=8, fuse_stages=False, dtype=jnp.float32)
+
+
+def random_packed_tiny_gemma(seed=0):
+    return random_packed("tiny-gemma", seed)
+
+
+def random_packed_tiny(seed=0):
+    return random_packed("tiny", seed)
+
+
+# the random packed models of the serving parity tests, by preset: family
+RANDOM_MODELS = {"tiny": "llama", "tiny-gemma": "gemma"}
+
+
+def random_models():
+    """{preset: (JAX params, port params, JAX config, port f32 config,
+    family)} for every entry of RANDOM_MODELS."""
+    built = {}
+    for name, family in RANDOM_MODELS.items():
+        jparams = random_packed(name)
+        built[name] = (jparams, to_port(jparams, family), LLAMA_PRESETS[name], torch_cfg(name),
+                       family)
+    return built
+
+
+def random_tokens(vocab, shape, seed):
+    return np.random.default_rng(seed).integers(0, vocab, size=shape)
+
+
+def assert_close_to_scale(got, ref):
+    """Within 1e-4 relative and 1e-4 of max |ref|: the model parity bound."""
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(f32(got), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
 
 
 def to_port(jax_params, family="llama"):
