@@ -49,7 +49,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    requests and ``speculative_generate_batched`` at B = 4, checked against
    the target's greedy choice under teacher forcing;
 18. serving cli: ``run_benchmark --method engine`` and ``--method
-   spec-batch --draft_layers 8``.
+   spec-batch --draft_layers 8``;
+19. opt model: the Llama model freed, a random packed OPT-6.7B (w4/g128/r128,
+   full width and depth) built on the card;
+20. family kernels: K5 (the unstacked decode matvec) against its plain version
+   at the six OPT-6.7B stage shapes, M = 1 and 8, with and without bias,
+   timed beside its bound and ``torch.addmm`` on a pre-dequantized weight;
+   every linear of layer 0 with its bias through K5 (M = 1) and K2 (M = 64);
+   K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (staged in bands);
+21. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
+   with launch counts checked (K5 for every decode linear, K2 for the
+   prefill, nothing else), a profiled decode step and prefill, and the
+   dense-model oracle (teacher-forced logits, greedy agreement);
+22. families: Phi-2, Bloom-7b1 (per-linear ``reorder_ids``) and Falcon-7b
+   (g = 64) at full width and 2 layers: every linear of layer 0 on its
+   gathered input, with its bias, through K5 (M = 1) and K2 (M = 64)
+   against the plain versions; prefill 64 + 32 greedy each, launch counts
+   and the dense-model oracle;
+23. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
+   ``run_benchmark --method qeft --load`` as subprocesses.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON table sums its paths (by
@@ -86,6 +104,12 @@ ORACLE_RTOL = 0.1  # of max |dense logit|; see phase_oracle()
 # measure_engine_throughput's defaults; the self-draft of run_benchmark's example
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_CTX, ENGINE_GEN = 8, 16, 64, 128
 SPEC_DRAFT_LAYERS = 8
+OPT_LINEARS = ("q", "k", "v", "o", "fc1", "fc2")
+WIDE_K = (13824, 16384, 28672)  # llama2-13b / OPT-6.7B fc2 / 70B down: past one band at M = 8
+# (family, preset, group size, global reorder) of the 2-layer family runs
+FAMILY_RUNS = (("phi", "phi-2", 128, True), ("bloom", "bloom-7b1", 128, False),
+               ("falcon", "falcon-7b", 64, True))
+FAMILY_LAYERS, FAMILY_NEW = 2, 32
 PATH_LAUNCHES: dict = {}  # launch counts of each main path, by path
 
 
@@ -420,7 +444,7 @@ def phase_main(cfg, params, nbytes):
 
 
 @torch.inference_mode()
-def phase_profile(cfg, params, prompt):
+def phase_profile(cfg, params, prompt, family="llama", tag="profile"):
     """Where the device time of a decode step and of the prefill goes
     (torch.profiler, CUDA activity), and the device's idle share: summed
     kernel time over host-clock time of the same work run unprofiled."""
@@ -428,7 +452,7 @@ def phase_profile(cfg, params, prompt):
 
     from qeft_tpu_torch.models.api import get_model_api
 
-    api = get_model_api("llama")
+    api = get_model_api(family)
     steps = 16
     tok = prompt[:, :1]
 
@@ -453,10 +477,10 @@ def phase_profile(cfg, params, prompt):
             torch.cuda.synchronize()
         kernels, busy = kernel_times(prof, per)
         if busy == 0:
-            log(f"[profile] {label}: wall {wall_ms:.3f} ms; device time not measured "
+            log(f"[{tag}] {label}: wall {wall_ms:.3f} ms; device time not measured "
                 "(the profiler recorded no CUDA kernel)")
             continue
-        log(f"[profile] {label}: wall {wall_ms:.3f} ms (host clock, unprofiled), device busy "
+        log(f"[{tag}] {label}: wall {wall_ms:.3f} ms (host clock, unprofiled), device busy "
             f"{busy:.3f} ms -> idle share {max(0.0, 1 - busy / wall_ms):.1%}; top kernels:")
         for name, ms in kernels[:8]:
             log(f"    {ms * 1e3:9.1f} us  {ms / busy:6.1%}  {name[:90]}")
@@ -472,10 +496,10 @@ def _teacher_forced(params, cfg, api, prompt, tokens, quantized=False):
                            quantized=quantized)
     logits, cache = api.prefill(params, prompt, cache, cfg)
     out = [logits[:, -1].float()]
-    for i in range(NEW_TOKENS - 1):
+    for i in range(tokens.shape[1] - 1):
         logits, cache = api.decode_step(params, tokens[:, i: i + 1], cache, PROMPT + i, cfg)
         out.append(logits.float())
-    return torch.cat(out)  # [NEW_TOKENS, V]
+    return torch.cat(out)  # [generated tokens, V]
 
 
 def phase_oracle(cfg, params, prompt, tokens):
@@ -1305,36 +1329,327 @@ def phase_serving_cli():
     return lines
 
 
+# ---------------------------------------------------------------------------
+# the other families: OPT-6.7B at full depth; Phi-2, Bloom-7b1 and Falcon-7b
+# at full width and 2 layers -- every linear at decode through K5
+
+
+def phase_opt_model(cfg):
+    from qeft_tpu_torch.testing import build_packed_model
+
+    tick = time.perf_counter()
+    params = build_packed_model(cfg, seed=0, g=128, r=128, device="cuda", family="opt")
+    torch.cuda.synchronize()
+    top = [params[k] for k in ("final_ln", "final_ln_b", "lm_head")]
+    nbytes = sum(t.numel() * t.element_size() for t in [*_leaves(params["layers"]), *top])
+    log(f"[opt-model] random packed opt-6.7b ({cfg.num_layers} layers, w4/g128/r128) on the card "
+        f"in {time.perf_counter() - tick:.1f} s; {nbytes} bytes of layers, final norm and lm_head")
+    return params, nbytes
+
+
+def _check_layer0(label, layers, rows):
+    """Every packed linear of layer 0 of a family model as its main path runs
+    it -- the input gathered by the linear's ``reorder_ids``, if it has
+    them, and K5 with the ``<name>_b`` bias in its epilogue -- against the
+    plain versions evaluated in f32: K5 at M = 1 (a decode step) and K2 at
+    M = PROMPT (the prefill).  Not counted on any main path."""
+    from qeft_tpu_torch.ops import qmm
+    from qeft_tpu_torch.ops.packing import QLinearParams
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for name, lin in layers.items():
+        if not isinstance(lin, QLinearParams):
+            continue
+        p = lin.layer(0)
+        x = torch.randn(PROMPT, p.in_features, generator=gen, device="cuda").to(torch.bfloat16)
+        if p.reorder_ids is not None:
+            x = x.index_select(-1, p.reorder_ids)
+        p = dataclasses.replace(p, reorder_ids=None)
+        bias = layers.get(name + "_b")
+        pb = dataclasses.replace(p, bias=None if bias is None else bias[0])
+        shape = (f"{p.in_features}->{p.out_features} g={p.group_size}"
+                 f"{' bias' if bias is not None else ''}"
+                 f"{' reorder_ids' if lin.reorder_ids is not None else ''}")
+        e5 = check(f"{label} layer 0 {name} {shape}: K5 M=1", qmm.qgemv(x[:1], pb),
+                   qmm.qgemv_plain(f32(x[:1]), f32(pb)))
+        e2 = check(f"{label} layer 0 {name} {shape}: K2 M={PROMPT}", qmm.qgemm(x, p),
+                   qmm.qgemm_plain(f32(x), f32(p)))
+        for key, err in (("qgemv", e5), ("qgemm", e2)):
+            rows[key].d["max_abs_err"] = max(rows[key].d["max_abs_err"], err)
+
+
+def phase_family_kernels(cfg, params, bw, rows):
+    """K5 against its plain version evaluated in f32 at the OPT-6.7B stage
+    shapes (the row: one decode layer at M = 1, bias on, as the main path
+    runs it), every linear of layer 0 through K5 and K2 as `_check_layer0`
+    holds it, and K1 / K6 at eight rows of wide K."""
+    from qeft_tpu_torch.ops import qmm
+    from qeft_tpu_torch.testing import dense_linear, random_packed_linear
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    layers, n_layers = params["layers"], cfg.num_layers
+    k5 = rows["qgemv"] = Row("qgemv", "qeft_tpu_torch/csrc/qmm.cu",
+                             "qeft_tpu/ops/pallas_qmm.py:599", True)
+    k5_m8 = Row("qgemv", "", "", True)  # M = 8, merged into the row below
+    log("[family-kernels] K5 qgemv vs plain at the OPT-6.7B stage shapes, M in (1, 8), with and "
+        f"without bias, layer rotating over {n_layers} (cold weights)")
+    for name in OPT_LINEARS:
+        p, bias = layers[name], layers[name + "_b"]
+        k, n, r = p.in_features, p.out_features, p.n_outlier
+
+        def lin(i, with_bias=True):
+            return dataclasses.replace(p.layer(i % n_layers),
+                                       bias=bias[i % n_layers] if with_bias else None)
+
+        w = dense_linear(_one_layer(p, 0))[0]
+        for m, row in ((1, k5), (8, k5_m8)):
+            x = randn(m, k)
+            err = max(check(f"K5 {name} {k}->{n} M={m}{' bias' if b else ''}",
+                            qmm.qgemv(x, lin(3, b)), qmm.qgemv_plain(f32(x), f32(lin(3, b))))
+                      for b in (False, True))
+            ms = time_ms(lambda i: qmm.qgemv(x, lin(i)))
+            plain = time_ms(lambda i: qmm.qgemv_plain(x, lin(i)), inner=2, reps=3)
+            lib = time_ms(lambda i: torch.addmm(bias[0], x, w))
+            nbytes = k * n // 2 + 4 * (k // p.group_size) * n + 2 * r * n + 2 * n + 2 * m * (k + n)
+            b = row.add(err, ms, plain, lib, nbytes, 2 * m * (k + r) * n, bw)
+            log(f"    M={m}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, torch.addmm on "
+                f"the dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]}: "
+                f"{nbytes} B)")
+        del w
+    k5.d["per"] = "one OPT-6.7B decode layer: q + k + v + o + fc1 + fc2 at M=1, bias on (m8_*: M=8)"
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        k5.d[f"m8_{key}"] = k5_m8.d[key]
+    k5.d["max_abs_err"] = max(k5.d["max_abs_err"], k5_m8.d["max_abs_err"])
+    log(f"[family-kernels] K5 per OPT layer: M=1 {k5.d['ms'] * 1e3:.1f} us (bound "
+        f"{k5.d['bound_ms'] * 1e3:.2f}), M=8 {k5_m8.d['ms'] * 1e3:.1f} us (bound "
+        f"{k5_m8.d['bound_ms'] * 1e3:.2f})")
+    _check_layer0("opt-6.7b", layers, rows)
+
+    n = 4096
+    log(f"[family-kernels] K1 and K6 at M=8, N={n}, K past one shared-memory band")
+    for k in WIDE_K:
+        p = random_packed_linear(gen, 2, k, n, 128, 128)
+        x, res = randn(8, k), randn(8, n, scale=4.0)
+        lnw = (1.0 + randn(k, scale=0.1).float()).to(torch.bfloat16)
+        kw = dict(lnw=lnw, residual=res, eps=1e-5)
+        e1 = check(f"K1 M=8 K={k}", qmm.qgemv_stacked_fused(x, p, 1, **kw),
+                   qmm.qgemv_stacked_fused_plain(f32(x), f32(p), 1, lnw=f32(lnw),
+                                                 residual=f32(res), eps=1e-5))
+        e6 = check(f"K6 M=8 K={k}", qmm.qgemv_stacked(x, p, 1),
+                   qmm.qgemv_stacked_plain(f32(x), f32(p), 1))
+        ms1 = time_ms(lambda i: qmm.qgemv_stacked_fused(x, p, i % 2, **kw))
+        ms6 = time_ms(lambda i: qmm.qgemv_stacked(x, p, i % 2))
+        nbytes = k * n // 2 + 4 * (k // 128) * n + 2 * 128 * n + 2 * 8 * (k + n)
+        b = bound_ms(nbytes, 2 * 8 * (k + 128) * n)
+        for key, err, ms in (("qgemv_stacked_fused", e1, ms1), ("qgemv_stacked", e6, ms6)):
+            d = rows[key].d
+            d["max_abs_err"] = max(d["max_abs_err"], err)
+            d.setdefault("wide_k_m8_ms", {})[k] = ms
+            d.setdefault("wide_k_m8_bound_ms", {})[k] = b[0]
+        log(f"    K={k}: K1 {ms1 * 1e3:.1f} us, K6 {ms6 * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us "
+            f"({b[1]})")
+        del p
+
+
+def _family_generate(family, cfg, params, new_tokens, label):
+    """``generate`` (prompt 64, ``new_tokens`` greedy, batch 1, 320-slot bf16
+    cache) after a short warm-up, with the launch counts of path ``label``
+    checked: K5 for every linear of every decode step, K2 for every linear
+    of the prefill, nothing else.  -> (prompt, tokens, seconds)."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.registry import get_model_meta
+
+    api = get_model_api(family)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen, device="cuda")
+
+    def new_cache():
+        return api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda")
+
+    generate(params, prompt, new_cache(), cfg, 8, api=api, device="cuda")  # warm-up
+    cache = new_cache()
+    with counted(label) as c:
+        tick = time.perf_counter()
+        tokens, _ = generate(params, prompt, cache, cfg, new_tokens, api=api, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - tick
+    linears = len(get_model_meta(family).all_linears) * cfg.num_layers
+    want = {"qgemv": linears * (new_tokens - 1), "qgemm": linears}
+    log(f"[{label}] prefill {PROMPT} + {new_tokens} greedy tokens in {dt:.3f} s -> "
+        f"{new_tokens / dt:.2f} tok/s, {dt / new_tokens * 1e3:.3f} ms/token (host clock, Python "
+        f"decode loop); launches {c.counts}; expected {want}")
+    if c.counts != want:
+        raise AssertionError(f"{label}: did not launch each kernel as expected")
+    if tokens.shape != (1, new_tokens) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: generated tokens out of range")
+    return prompt, tokens, dt
+
+
+def _dense_oracle(label, family, cfg, params, prompt, tokens):
+    """The generated tokens teacher-forced through the kernel path and the
+    dense bf16 model it stands for (plain PyTorch): max logit difference per
+    step within ORACLE_RTOL of the dense logit scale, as phase_oracle bounds
+    it; the greedy agreement is that of the two argmaxes at each step."""
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.testing import dense_model
+
+    api = get_model_api(family)
+    dense = dense_model(params)
+    lk = _teacher_forced(params, cfg, api, prompt, tokens)
+    ld = _teacher_forced(dense, cfg, api, prompt, tokens)
+    del dense
+    torch.cuda.empty_cache()
+    diff = (lk - ld).abs().amax(dim=-1)
+    scale, worst = ld.abs().amax().item(), diff.max().item()
+    agree = (lk.argmax(-1) == ld.argmax(-1)).sum().item()
+    log(f"[{label}] teacher-forced max |logit diff| {worst:.4g}, median "
+        f"{diff.median().item():.4g}, dense logit scale {scale:.4g}, bound "
+        f"{ORACLE_RTOL * scale:.4g}; greedy (argmax) agreement {agree}/{tokens.shape[1]}")
+    if not (torch.isfinite(lk).all() and worst <= ORACLE_RTOL * scale):
+        raise AssertionError(f"{label}: the kernel path disagrees with the dense model")
+    return dict(max_logit_diff=worst, logit_scale=scale, argmax_agree=agree)
+
+
+def phase_opt(cfg, params, nbytes):
+    """OPT-6.7B's main path: ``generate`` at full depth, a profiled decode
+    step and prefill, the dense-model oracle."""
+    prompt, tokens, dt = _family_generate("opt", cfg, params, NEW_TOKENS, "opt generate")
+    per_token = nbytes + 2 * cfg.num_layers * cfg.hidden_size * 2 * (PROMPT + NEW_TOKENS / 2)
+    log(f"[opt generate] bytes/token about {per_token:.0f} (weights, final norm, lm_head and the "
+        f"mean cached K/V) -> {per_token / (dt / NEW_TOKENS) / 1e9:.1f} GB/s achieved")
+    prof = phase_profile(cfg, params, prompt, family="opt", tag="opt-profile")
+    res = _dense_oracle("opt oracle", "opt", cfg, params, prompt, tokens)
+    return dict(tok_s=NEW_TOKENS / dt, ms_token=dt / NEW_TOKENS * 1e3, profile=prof, **res)
+
+
+def phase_families(rows):
+    """Phi-2, Bloom-7b1 and Falcon-7b at full width and FAMILY_LAYERS layers:
+    each built on the card, its layer-0 linears held against the plain
+    versions (`_check_layer0`), generated from and checked against its
+    dense model."""
+    import importlib
+
+    from qeft_tpu_torch.testing import build_packed_model
+
+    out = {}
+    for family, preset, g, reorder in FAMILY_RUNS:
+        module = importlib.import_module(f"qeft_tpu_torch.models.{family}")
+        cfg = dataclasses.replace(getattr(module, f"{family.upper()}_PRESETS")[preset],
+                                  num_layers=FAMILY_LAYERS)
+        tick = time.perf_counter()
+        params = build_packed_model(cfg, seed=0, g=g, r=128, device="cuda", family=family,
+                                    reorder=reorder)
+        torch.cuda.synchronize()
+        log(f"[{preset}] random packed {preset} at {FAMILY_LAYERS} layers (w4/g{g}/r128, "
+            f"{'o_reorder' if reorder else 'per-linear reorder_ids'}) built in "
+            f"{time.perf_counter() - tick:.1f} s")
+        _check_layer0(preset, params["layers"], rows)
+        prompt, tokens, dt = _family_generate(family, cfg, params, FAMILY_NEW,
+                                              f"{preset} generate")
+        out[preset] = dict(tok_s=FAMILY_NEW / dt, **_dense_oracle(f"{preset} oracle", family, cfg,
+                                                                  params, prompt, tokens))
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_cli(cfg):
+    """``main --load --eval --benchmark`` and ``run_benchmark --method qeft
+    --load`` on a FAMILY_LAYERS-layer OPT-6.7B written with ``save_packed``,
+    each in its own process."""
+    from qeft_tpu_torch.checkpoint import save_packed
+    from qeft_tpu_torch.testing import build_packed_model
+
+    small = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "opt_6.7b_2layers_packed")
+        save_packed(base, build_packed_model(small, seed=5, g=128, r=128, device="cuda",
+                                             family="opt"), small, family="opt")
+        torch.cuda.empty_cache()
+        for label, argv in (
+                ("main", ["-m", "qeft_tpu_torch.main", "--load", base, "--eval", "--eval_windows",
+                          "1", "--seqlen", "512", "--benchmark", "64"]),
+                ("run_benchmark", ["-m", "qeft_tpu_torch.run_benchmark", "--method", "qeft",
+                                   "--load", base])):
+            tick = time.perf_counter()
+            proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                                  cwd=root, timeout=600)
+            lines = proc.stdout.strip().splitlines()
+            log(f"[family-cli] python {' '.join(argv[:2])} --load <2-layer opt-6.7b> ... exit "
+                f"{proc.returncode} in {time.perf_counter() - tick:.1f} s:")
+            for line in lines[-4:]:
+                log(f"    {line}")
+            if proc.returncode != 0:
+                log(proc.stderr[-3000:])
+                raise AssertionError(f"{label} on an OPT checkpoint failed")
+            out[label] = proc.stdout
+    if "family opt" not in out["main"] or "synthetic ppl" not in out["main"]:
+        raise AssertionError("main did not serve the OPT checkpoint as OPT")
+    if not json.loads(out["run_benchmark"].strip().splitlines()[-1])["tokens_per_s"] > 0:
+        raise AssertionError("run_benchmark reported no throughput")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     tick = time.perf_counter()
-    name, smi = phase_device()
-    phase_build()
-    cfg, params, nbytes, bw = phase_model()
-    rows = phase_kernels(cfg, params, bw)
-    phase_serving_kernels(cfg, params, bw, rows)
-    prompt, tokens, main_res = phase_main(cfg, params, nbytes)
-    phase_profile(cfg, params, prompt)
-    phase_oracle(cfg, params, prompt, tokens)
-    phase_int8_generate(cfg, params, prompt)
-    phase_stacked_generate(cfg, params, prompt)
-    phase_engine(cfg, params)
-    phase_spec(cfg, params)
-    phase_serving_cli()
-    phase_train_kernels(cfg, params, bw, rows)
-    phase_train_grad(cfg, params)
-    phase_train(cfg, params)
-    phase_cli(cfg)
-    phase_train_oracle(cfg, params)
+    seconds = {}
+
+    def timed(fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__.removeprefix("phase_")] = round(time.perf_counter() - start, 1)
+        return out
+
+    name, smi = timed(phase_device)
+    timed(phase_build)
+    cfg, params, nbytes, bw = timed(phase_model)
+    rows = timed(phase_kernels, cfg, params, bw)
+    timed(phase_serving_kernels, cfg, params, bw, rows)
+    prompt, tokens, main_res = timed(phase_main, cfg, params, nbytes)
+    timed(phase_profile, cfg, params, prompt)
+    timed(phase_oracle, cfg, params, prompt, tokens)
+    timed(phase_int8_generate, cfg, params, prompt)
+    timed(phase_stacked_generate, cfg, params, prompt)
+    timed(phase_engine, cfg, params)
+    timed(phase_spec, cfg, params)
+    timed(phase_serving_cli)
+    timed(phase_train_kernels, cfg, params, bw, rows)
+    timed(phase_train_grad, cfg, params)
+    timed(phase_train, cfg, params)
+    timed(phase_cli, cfg)
+    timed(phase_train_oracle, cfg, params)
+    del params  # the Llama model's tensors, before OPT-6.7B is built
+    torch.cuda.empty_cache()
+    from qeft_tpu_torch.models.opt import OPT_PRESETS
+
+    opt_cfg = OPT_PRESETS["opt-6.7b"]
+    opt_params, opt_bytes = timed(phase_opt_model, opt_cfg)
+    timed(phase_family_kernels, opt_cfg, opt_params, bw, rows)
+    timed(phase_opt, opt_cfg, opt_params, opt_bytes)
+    del opt_params
+    torch.cuda.empty_cache()
+    timed(phase_families, rows)
+    timed(phase_family_cli, opt_cfg)
     for key, row in rows.items():
         by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if c.get(key)}
         row.d["launches_by_path"] = by_path
         row.d["launches"] = sum(by_path.values())
         if not by_path:
             raise AssertionError(f"no main path launched {key}")
-    log(f"[done] {time.perf_counter() - tick:.1f} s")
+    log(f"[done] {time.perf_counter() - tick:.1f} s; seconds by phase {seconds}")
     print(json.dumps({"kernels": [r.d for r in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,17 +15,25 @@
 //   of the TPU's sequential grid axis.  A warp issues all loads of a unit
 //   (16 words a lane, plus the group's scale and zero point) before it uses
 //   any of them.  Every block recomputes the row's RMS statistics itself
-//   (K <= 11008 bf16 values, small next to the weights; blocks run in no
-//   order), writes the normalised row to shared memory in packed-word order
-//   (word row r, nibble p at r*8 + p) so one 16-byte broadcast load feeds the
-//   8 nibbles of a word, and keeps per-group activation sums so the zero
-//   points cost one FMA per group: y = sum_g s_g*sum(h*code) + z_g*sum(h).
-//   Warps read the group-interleaved words directly (word row jj*G + gi),
-//   coalesced along N.  At one token row the kernel is bound by instruction
-//   issue as much as by bytes, so the unpack is lean: one shift and one
-//   mask-or turn nibbles (q, q+4) into the bf16 pair (128 + code), whose
-//   halves are exact floats after one more logic op each, and the 128 folds
-//   into the zero-point term (z_g - 128*s_g).
+//   (blocks run in no order), writes the normalised row to shared memory in
+//   packed-word order (word row r, nibble p at r*8 + p) so one 16-byte
+//   broadcast load feeds the 8 nibbles of a word, and keeps per-group
+//   activation sums so the zero points cost one FMA per group:
+//   y = sum_g s_g*sum(h*code) + z_g*sum(h).  Warps read the
+//   group-interleaved words directly (word row jj*G + gi), coalesced along N.
+//   At one token row the kernel is bound by instruction issue as much as by
+//   bytes, so the unpack is lean: one shift and one mask-or turn nibbles
+//   (q, q+4) into the bf16 pair (128 + code), whose halves are exact floats
+//   after one more logic op each, and the 128 folds into the zero-point term
+//   (z_g - 128*s_g).
+//   Wide rows: 8 rows of K bf16 values take 16*K bytes, more than the 227 KB
+//   of shared memory a block may have once K passes about 13,000.  The row
+//   is then staged in bands of whole quantization groups (each band a
+//   contiguous K range of x, balanced over the fewest bands that fit); the
+//   accumulators stay in registers from band to band, and the weights are
+//   still read once.  K1's RMS statistics take one pass over the whole row
+//   first, and the norm is applied as each band is staged.  Where the row
+//   fits (Llama-2-7B's widths at every M) there is one band, as before.
 //
 // qgemv_stacked (K6) replaces pallas_qmm.py::qgemv_stacked
 //   (_qmm_kernel_stacked): the INT4 matvec of layer `layer` of a stacked
@@ -34,6 +42,13 @@
 //   speculative drafting run.  It is K1's kernel with the norm prologue and
 //   the residual epilogue compiled out (template flag FUSED = false); same
 //   bound, same design, same dequantization.
+//
+// qgemv (K5) replaces pallas_qmm.py::qgemv (_run_qmm at bm = 8): the INT4
+//   matvec of one unstacked linear for 1..8 rows, the weak-column slab and an
+//   optional bias [N], summed in f32 and rounded to bf16 once (the TPU path
+//   adds slab and bias outside its kernel, rounding after each).  It is K6's
+//   kernel at layer 0 with the bias added in the epilogue: the linear of
+//   every OPT, Phi, Bloom and Falcon layer at decode.
 //
 // qgemm (K2) replaces pallas_qmm.py::qgemm (_run_qmm / _qmm_kernel): the
 //   W4A16 GEMM for more rows (prefill, PPL windows), with the weak-column
@@ -103,8 +118,9 @@ __device__ __forceinline__ int word_order(int k, int g, int hh, int n_groups) {
 __device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
 
-// a unit of work: up to kV_CHUNK word rows of group gi from row j0 (j0 = hh
-// marks an empty unit), with the group's scale and zero point
+// a unit of work: up to kV_CHUNK word rows of group gi of the staged band
+// from row j0 (j0 = hh marks an empty unit), with the group's scale and zero
+// point
 struct Unit {
   uint32_t w[kV_CHUNK];
   float s, z;
@@ -112,26 +128,29 @@ struct Unit {
 };
 
 __device__ __forceinline__ void load_unit(Unit& u, int idx, int n_units, int cpg, int hh,
-                                          int n_groups, int N, int n, bool col_ok,
+                                          int n_groups, int g0, int N, int n, bool col_ok,
                                           const int32_t* __restrict__ qw,
                                           const bf16* __restrict__ sc,
                                           const bf16* __restrict__ sz) {
   const bool ok = col_ok && idx < n_units;
   u.gi = ok ? idx / cpg : 0;
   u.j0 = ok ? (idx - u.gi * cpg) * kV_CHUNK : hh;
-  u.s = ok ? bf2f(sc[(size_t)u.gi * N + n]) : 0.f;
-  u.z = ok ? bf2f(sz[(size_t)u.gi * N + n]) : 0.f;
+  const int gi = g0 + u.gi;  // the group's index in the whole row
+  u.s = ok ? bf2f(sc[(size_t)gi * N + n]) : 0.f;
+  u.z = ok ? bf2f(sz[(size_t)gi * N + n]) : 0.f;
 #pragma unroll
   for (int t = 0; t < kV_CHUNK; ++t)
     u.w[t] = (u.j0 + t < hh)
-                 ? (uint32_t)__ldg(qw + (size_t)((u.j0 + t) * n_groups + u.gi) * N + n)
+                 ? (uint32_t)__ldg(qw + (size_t)((u.j0 + t) * n_groups + gi) * N + n)
                  : 0u;
 }
 
-// acc[m] += s * sum_k h[m,k] * code_k + z * sum_k h[m,k] over the unit's rows
+// acc[m] += s * sum_k h[m,k] * code_k + z * sum_k h[m,k] over the unit's rows;
+// hs holds rows of kb values in the staged band's word order, whose n_groups
+// is the band's group count GB
 template <int MT>
 __device__ __forceinline__ void compute_unit(const Unit& u, float (&acc)[MT], const bf16* hs,
-                                             const float* sumx, int K, int n_groups, int hh) {
+                                             const float* sumx, int kb, int n_groups, int hh) {
   if (u.j0 >= hh) return;
   float t0[MT], t1[MT];  // nibbles 0..3 and 4..7: two independent FMA chains
 #pragma unroll
@@ -146,7 +165,7 @@ __device__ __forceinline__ void compute_unit(const Unit& u, float (&acc)[MT], co
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       // activations base..base+7 as four bf16 pairs: nibble q in pair q/2
-      const uint4 hv = *reinterpret_cast<const uint4*>(hs + m * K + base);
+      const uint4 hv = *reinterpret_cast<const uint4*>(hs + m * kb + base);
       const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -165,28 +184,47 @@ __device__ __forceinline__ void compute_unit(const Unit& u, float (&acc)[MT], co
     acc[m] += u.s * (t0[m] + t1[m]) + (first ? z * sumx[m * n_groups + u.gi] : 0.f);
 }
 
-// FUSED = false compiles the norm prologue and the residual epilogue out (K6)
+// the K1 prologue's value of one activation: rounded to bf16 after the RMS
+// scale, then multiplied by the norm weight (by 1 + w for gemma), as rms_norm
+__device__ __forceinline__ bf16 normed(bf16 v, bf16 w, float rs, int one_offset) {
+  const float nrm = bf2f(f2bf(bf2f(v) * rs));
+  float wl = bf2f(w);
+  if (one_offset) wl = bf2f(f2bf(1.f + wl));
+  return f2bf(nrm * wl);
+}
+
+// FUSED = false compiles the norm prologue and the residual epilogue out (K6,
+// K5).  The row is staged in bands of GB quantization groups (K columns
+// g0*g .. (g0+GB)*g, contiguous in x): each band is written to shared memory
+// in band-local packed-word order, its units are consumed, and the
+// accumulators stay in registers across bands.  When the whole row fits,
+// GB = K/g and there is one band.  The weak-column tail x[:, K-R:] is staged
+// once, in its own buffer, before the bands.
 template <int MT, bool FUSED>
 __global__ void __launch_bounds__(kV_THREADS)
 qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
                    const int32_t* __restrict__ qw, const bf16* __restrict__ sc,
                    const bf16* __restrict__ sz, const bf16* __restrict__ ow,
-                   const bf16* __restrict__ res, bf16* __restrict__ out,
-                   int K, int N, int g, int R, float eps, int one_offset) {
+                   const bf16* __restrict__ res, const bf16* __restrict__ bias,
+                   bf16* __restrict__ out, int K, int N, int g, int R, int GB, float eps,
+                   int one_offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_groups = K / g;
   const int hh = g / 8;
   const int k8 = K / 8;
-  bf16* hs = reinterpret_cast<bf16*>(smem);                   // [MT][K]
-  float* sumx = reinterpret_cast<float*>(hs + MT * K);          // [MT][G]
-  float* part = sumx + MT * n_groups;                           // [WARPS][MT][COLS]
+  const int kb = GB * g;                                        // K rows of one band
+  bf16* hs = reinterpret_cast<bf16*>(smem);                     // [MT][kb]
+  float* sumx = reinterpret_cast<float*>(hs + MT * kb);         // [MT][GB]
+  float* part = sumx + MT * GB;                                 // [WARPS][MT][COLS]
+  bf16* ts = reinterpret_cast<bf16*>(part + kV_WARPS * MT * kV_COLS);  // [MT][R]
   __shared__ float red[32];
   __shared__ float rstd[MT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool norm = FUSED && lnw != nullptr;
 
-  // 1. RMS statistics of each row (f32), as rms_norm computes them
-  if (FUSED && lnw != nullptr) {
+  // 1. RMS statistics of each whole row (f32), as rms_norm computes them
+  if (norm) {
     for (int m = 0; m < MT; ++m) {
       const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)m * K);
       float ss = 0.f;
@@ -206,56 +244,67 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
     __syncthreads();
   }
 
-  // 2. the (normalised) rows into shared memory, in packed-word order; the
-  //    value is rounded to bf16 before the weight multiply, like rms_norm
-  for (int idx = tid; idx < MT * k8; idx += kV_THREADS) {
-    const int m = idx / k8, c = idx - m * k8;
-    const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K) + c);
-    uint4 lv = make_uint4(0u, 0u, 0u, 0u);
-    if (FUSED && lnw != nullptr) lv = __ldg(reinterpret_cast<const uint4*>(lnw) + c);
-    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-    const bf16* le = reinterpret_cast<const bf16*>(&lv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      bf16 v = xe[e];
-      if (FUSED && lnw != nullptr) {
-        const float nrm = bf2f(f2bf(bf2f(v) * rstd[m]));
-        float wl = bf2f(le[e]);
-        if (one_offset) wl = bf2f(f2bf(1.f + wl));
-        v = f2bf(nrm * wl);
-      }
-      hs[m * K + word_order(c * 8 + e, g, hh, n_groups)] = v;
-    }
+  // 2. the (normalised) weak-column tail, in original order
+  for (int idx = tid; idx < MT * R; idx += kV_THREADS) {
+    const int m = idx / R, k = K - R + (idx - m * R);
+    bf16 v = x[(size_t)m * K + k];
+    if (norm) v = normed(v, lnw[k], rstd[m], one_offset);
+    ts[idx] = v;
   }
-  __syncthreads();
 
-  // 3. per-group activation sums for the zero points
-  for (int pr = warp; pr < MT * n_groups; pr += kV_WARPS) {
-    const int m = pr / n_groups, gi = pr - m * n_groups;
-    float s = 0.f;
-    for (int t = lane; t < g; t += 32)
-      s += bf2f(hs[m * K + word_order(gi * g + t, g, hh, n_groups)]);
-    s = warp_sum(s);
-    if (lane == 0) sumx[m * n_groups + gi] = s;
-  }
-  __syncthreads();
-
-  // 4. the matvec: warp `warp` takes units warp, warp + 16, ...
   const int n = blockIdx.x * kV_COLS + lane;
   const bool col_ok = n < N;
   const int cpg = (hh + kV_CHUNK - 1) / kV_CHUNK;  // units per group
-  const int n_units = n_groups * cpg;
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-  for (int idx = warp; idx < n_units; idx += kV_WARPS) {
-    Unit u;
-    load_unit(u, idx, n_units, cpg, hh, n_groups, N, n, col_ok, qw, sc, sz);
-    compute_unit<MT>(u, acc, hs, sumx, K, n_groups, hh);
+
+  for (int g0 = 0; g0 < n_groups; g0 += GB) {
+    const int gb = min(GB, n_groups - g0);  // groups of this band
+    const int c8 = gb * hh;                 // 8-column chunks of a row in this band
+    if (g0 > 0) __syncthreads();            // the previous band's units are done
+
+    // 3. the band's (normalised) rows into shared memory, in band-local
+    //    packed-word order; the value is rounded to bf16 before the weight
+    //    multiply, like rms_norm
+    for (int idx = tid; idx < MT * c8; idx += kV_THREADS) {
+      const int m = idx / c8, c = idx - m * c8;
+      const int kc = g0 * hh + c;  // the chunk's index in the whole row
+      const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K) + kc);
+      uint4 lv = make_uint4(0u, 0u, 0u, 0u);
+      if (norm) lv = __ldg(reinterpret_cast<const uint4*>(lnw) + kc);
+      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+      const bf16* le = reinterpret_cast<const bf16*>(&lv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        bf16 v = xe[e];
+        if (norm) v = normed(v, le[e], rstd[m], one_offset);
+        hs[m * kb + word_order(c * 8 + e, g, hh, GB)] = v;
+      }
+    }
+    __syncthreads();
+
+    // 4. per-group activation sums for the zero points
+    for (int pr = warp; pr < MT * gb; pr += kV_WARPS) {
+      const int m = pr / gb, gl = pr - m * gb;
+      float s = 0.f;
+      for (int t = lane; t < g; t += 32)
+        s += bf2f(hs[m * kb + word_order(gl * g + t, g, hh, GB)]);
+      s = warp_sum(s);
+      if (lane == 0) sumx[m * GB + gl] = s;
+    }
+    __syncthreads();
+
+    // 5. the band's matvec: warp `warp` takes units warp, warp + 16, ...
+    const int n_units = gb * cpg;
+    for (int idx = warp; idx < n_units; idx += kV_WARPS) {
+      Unit u;
+      load_unit(u, idx, n_units, cpg, hh, n_groups, g0, N, n, col_ok, qw, sc, sz);
+      compute_unit<MT>(u, acc, hs, sumx, kb, GB, hh);
+    }
   }
 
-  // 5. weak columns: original-order tail of the same normalised row; eight
-  //    rows a warp in flight at once
+  // 6. weak columns: the staged tail; eight rows a warp in flight at once
   if (ow != nullptr && col_ok) {
     for (int i0 = warp; i0 < R; i0 += 8 * kV_WARPS) {
       float o[8];
@@ -268,14 +317,13 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
       for (int e = 0; e < 8; ++e) {
         const int i = i0 + e * kV_WARPS;
         if (i >= R) break;
-        const int idx = word_order(K - R + i, g, hh, n_groups);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m] += bf2f(hs[m * K + idx]) * o[e];
+        for (int m = 0; m < MT; ++m) acc[m] += bf2f(ts[m * R + i]) * o[e];
       }
     }
   }
 
-  // 6. reduce the warps' partial sums, add the residual, store bf16
+  // 7. reduce the warps' partial sums, add the residual or the bias, store bf16
 #pragma unroll
   for (int m = 0; m < MT; ++m) part[(warp * MT + m) * kV_COLS + lane] = acc[m];
   __syncthreads();
@@ -286,19 +334,48 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
       float y = 0.f;
       for (int wp = 0; wp < kV_WARPS; ++wp) y += part[(wp * MT + m) * kV_COLS + col];
       if (FUSED && res != nullptr) y += bf2f(res[(size_t)m * N + nn]);
+      if (bias != nullptr) y += bf2f(bias[nn]);
       out[(size_t)m * N + nn] = f2bf(y);
     }
   }
 }
 
+// the most dynamic shared memory a block may ask for (227 KB on Hopper), or
+// 0 if the device cannot be queried
+inline int smem_optin() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) == cudaSuccess)
+      bytes = v;
+  }
+  return bytes;
+}
+
+// groups per band: as many as fit under the limit (less 1 KB for the static
+// shared memory), balanced over the fewest bands; 0 if not one group fits
+template <int MT>
+int band_groups(int n_groups, int g, int R, size_t& smem) {
+  const size_t fixed = (size_t)kV_WARPS * MT * kV_COLS * sizeof(float) + (size_t)MT * R * sizeof(bf16);
+  const size_t per_group = (size_t)MT * (g * sizeof(bf16) + sizeof(float));
+  const size_t limit = (size_t)smem_optin();
+  if (limit < 1024 + fixed + per_group) return 0;
+  const int fit = (int)((limit - 1024 - fixed) / per_group);
+  const int bands = (n_groups + fit - 1) / fit;
+  const int gb = (n_groups + bands - 1) / bands;
+  smem = fixed + per_group * gb;
+  return gb;
+}
+
 template <int MT, bool FUSED>
 cudaError_t launch_qgemv(const bf16* x, const bf16* lnw, const int32_t* qw, const bf16* sc,
-                         const bf16* sz, const bf16* ow, const bf16* res, bf16* out,
-                         int K, int N, int g, int R, float eps, int one_offset,
+                         const bf16* sz, const bf16* ow, const bf16* res, const bf16* bias,
+                         bf16* out, int K, int N, int g, int R, float eps, int one_offset,
                          cudaStream_t stream) {
-  const int n_groups = K / g;
-  const size_t smem = (size_t)MT * K * sizeof(bf16) + (size_t)MT * n_groups * sizeof(float) +
-                      (size_t)kV_WARPS * MT * kV_COLS * sizeof(float);
+  size_t smem = 0;
+  const int gb = band_groups<MT>(K / g, g, R, smem);
+  if (gb == 0) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
     cudaError_t e = cudaFuncSetAttribute(qgemv_fused_kernel<MT, FUSED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -306,7 +383,7 @@ cudaError_t launch_qgemv(const bf16* x, const bf16* lnw, const int32_t* qw, cons
   }
   dim3 grid((N + kV_COLS - 1) / kV_COLS);
   qgemv_fused_kernel<MT, FUSED><<<grid, kV_THREADS, smem, stream>>>(
-      x, lnw, qw, sc, sz, ow, res, out, K, N, g, R, eps, one_offset);
+      x, lnw, qw, sc, sz, ow, res, bias, out, K, N, g, R, gb, eps, one_offset);
   return cudaGetLastError();
 }
 
@@ -660,11 +737,12 @@ cudaError_t launch_qgemm_t(const bf16* gy, const int32_t* qw, const bf16* sc, co
 
 namespace {
 
-// layer `layer` of the stacked buffers, then the MT instance of K1 or K6
+// layer `layer` of the stacked buffers (K1, K6; 0 for K5), then the MT instance
 template <bool FUSED>
 int run_qgemv(const void* x, const void* lnw, const void* qweight, const void* scales,
-              const void* szeros, const void* ow, const void* res, void* out, int layer, int M,
-              int K, int N, int g, int R, float eps, int one_offset, void* stream) {
+              const void* szeros, const void* ow, const void* res, const void* bias, void* out,
+              int layer, int M, int K, int N, int g, int R, float eps, int one_offset,
+              void* stream) {
   if (M < 1 || M > 8 || K <= 0 || N <= 0 || g <= 0 || g % 8 || K % g || R < 0 || R > K ||
       layer < 0)
     return (int)cudaErrorInvalidValue;
@@ -676,13 +754,14 @@ int run_qgemv(const void* x, const void* lnw, const void* qweight, const void* s
   const bf16* xx = static_cast<const bf16*>(x);
   const bf16* ln = static_cast<const bf16*>(lnw);
   const bf16* rs = static_cast<const bf16*>(res);
+  const bf16* bs = static_cast<const bf16*>(bias);
   bf16* y = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (M) {
-#define QEFT_CASE(MT)                                                                        \
-  case MT:                                                                                   \
-    return (int)launch_qgemv<MT, FUSED>(xx, ln, qw, sc, sz, o, rs, y, K, N, g, o ? R : 0, eps, \
-                                        one_offset, st);
+#define QEFT_CASE(MT)                                                                    \
+  case MT:                                                                               \
+    return (int)launch_qgemv<MT, FUSED>(xx, ln, qw, sc, sz, o, rs, bs, y, K, N, g, o ? R : 0, \
+                                        eps, one_offset, st);
     QEFT_CASE(1) QEFT_CASE(2) QEFT_CASE(3) QEFT_CASE(4)
     QEFT_CASE(5) QEFT_CASE(6) QEFT_CASE(7) QEFT_CASE(8)
 #undef QEFT_CASE
@@ -696,16 +775,25 @@ extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* q
                                    const void* scales, const void* szeros, const void* ow,
                                    const void* res, void* out, int layer, int M, int K, int N,
                                    int g, int R, float eps, int one_offset, void* stream) {
-  return run_qgemv<true>(x, lnw, qweight, scales, szeros, ow, res, out, layer, M, K, N, g, R, eps,
-                         one_offset, stream);
+  return run_qgemv<true>(x, lnw, qweight, scales, szeros, ow, res, nullptr, out, layer, M, K, N,
+                         g, R, eps, one_offset, stream);
 }
 
 // K6: K1 without the norm and the residual; the weak columns stay inside
 extern "C" int qgemv_stacked(const void* x, const void* qweight, const void* scales,
                              const void* szeros, const void* ow, void* out, int layer, int M,
                              int K, int N, int g, int R, void* stream) {
-  return run_qgemv<false>(x, nullptr, qweight, scales, szeros, ow, nullptr, out, layer, M, K, N,
-                          g, R, 0.f, 0, stream);
+  return run_qgemv<false>(x, nullptr, qweight, scales, szeros, ow, nullptr, nullptr, out, layer,
+                          M, K, N, g, R, 0.f, 0, stream);
+}
+
+// K5: K6's kernel on one unstacked linear, with an optional bias [N] added
+// before the one rounding
+extern "C" int qgemv(const void* x, const void* qweight, const void* scales, const void* szeros,
+                     const void* ow, const void* bias, void* out, int M, int K, int N, int g,
+                     int R, void* stream) {
+  return run_qgemv<false>(x, nullptr, qweight, scales, szeros, ow, nullptr, bias, out, 0, M, K,
+                          N, g, R, 0.f, 0, stream);
 }
 
 // ws: f32 [splits, M, N] scratch when splits > 1 (else unused)

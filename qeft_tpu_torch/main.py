@@ -1,9 +1,11 @@
 """CLI: load a packed or WCT checkpoint, evaluate PPL and benchmark greedy
 decoding.
 
-The ``--load ... --eval --benchmark`` surface of ``qeft_tpu/main.py``; a WCT
-checkpoint (``run_finetune``'s ``wct_final``) loads as its base model with
-the tuned weak-column slabs laid over it:
+The ``--load ... --eval --benchmark`` surface of ``qeft_tpu/main.py``.  The
+model API follows the checkpoint's family (llama, gemma, OPT, Phi, Bloom,
+Falcon), as ``qeft_tpu/main.py`` picks it; a WCT checkpoint
+(``run_finetune``'s ``wct_final``) loads as its base model with the tuned
+weak-column slabs laid over it:
 
     python -m qeft_tpu_torch.main --load ckpt/llama2_7b_packed --eval \\
         --eval_windows 4 --seqlen 2048 --benchmark 256

@@ -1,5 +1,11 @@
-"""Model families of the PyTorch port (llama topology: llama and gemma)."""
+"""Model families of the PyTorch port: llama (gemma on the same topology),
+OPT, Phi, Bloom and Falcon."""
 
+from qeft_tpu_torch.models.bloom import BLOOM_PRESETS, BloomConfig
+from qeft_tpu_torch.models.falcon import FALCON_PRESETS, FalconConfig
 from qeft_tpu_torch.models.llama import LLAMA_PRESETS, LlamaConfig
+from qeft_tpu_torch.models.opt import OPT_PRESETS, OPTConfig
+from qeft_tpu_torch.models.phi import PHI_PRESETS, PhiConfig
 
-__all__ = ["LLAMA_PRESETS", "LlamaConfig"]
+__all__ = ["BLOOM_PRESETS", "BloomConfig", "FALCON_PRESETS", "FalconConfig", "LLAMA_PRESETS",
+           "LlamaConfig", "OPT_PRESETS", "OPTConfig", "PHI_PRESETS", "PhiConfig"]

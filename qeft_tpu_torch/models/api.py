@@ -1,12 +1,14 @@
 """Family-dispatched model API: the forward surfaces every caller (eval,
 generation, benchmark) programs against.  Counterpart of
-``qeft_tpu/models/api.py``; this slice carries the llama topology only
-(llama and gemma)."""
+``qeft_tpu/models/api.py``: llama (gemma on the same topology), OPT, Phi,
+Bloom and Falcon."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import functools
+import importlib
+from typing import Callable, Dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,18 +22,37 @@ class ModelApi:
     config_cls: type
 
 
+# family -> (module under qeft_tpu_torch.models, its config class).  The
+# llama module names its own llama_forward, _prefill, _decode_step and
+# _forward_window; every other family's module gives `models.common`'s layer
+# loop its DECODER hooks.  gemma runs on the llama topology (LlamaConfig
+# switches).
+_FAMILIES = {
+    "llama": ("llama", "LlamaConfig"),
+    "gemma": ("llama", "LlamaConfig"),
+    "opt": ("opt", "OPTConfig"),
+    "phi": ("phi", "PhiConfig"),
+    "bloom": ("bloom", "BloomConfig"),
+    "falcon": ("falcon", "FalconConfig"),
+}
+_CACHE: Dict[str, ModelApi] = {}
+
+
 def get_model_api(family: str) -> ModelApi:
     fam = family.lower()
-    if fam not in ("llama", "gemma"):
-        raise NotImplementedError(f"no model API for family {family!r} yet")
-    from qeft_tpu_torch.models import llama as m
+    if fam not in _FAMILIES:
+        raise NotImplementedError(f"no model API for family {family!r}")
+    if fam not in _CACHE:
+        module, config = _FAMILIES[fam]
+        m = importlib.import_module(f"qeft_tpu_torch.models.{module}")
+        if module == "llama":
+            fns = (m.llama_forward, m.llama_prefill, m.llama_decode_step,
+                   m.llama_forward_window, m.init_kv_cache)
+        else:
+            from qeft_tpu_torch.models import common
 
-    return ModelApi(
-        family=fam,
-        forward=m.llama_forward,
-        prefill=m.llama_prefill,
-        decode_step=m.llama_decode_step,
-        forward_window=m.llama_forward_window,
-        init_cache=m.init_kv_cache,
-        config_cls=m.LlamaConfig,
-    )
+            fns = (*(functools.partial(f, m.DECODER) for f in (
+                common.forward, common.prefill, common.decode_step, common.forward_window)),
+                common.init_kv_cache)
+        _CACHE[fam] = ModelApi(fam, *fns, config_cls=getattr(m, config))
+    return _CACHE[fam]

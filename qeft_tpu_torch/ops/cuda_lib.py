@@ -83,6 +83,11 @@ _ENTRY_POINTS = {
         _I, _I, _I, _I, _I, _I,  # layer M K N group_size R
         _P,  # stream
     ]),
+    "qgemv": ("qmm.cu", [
+        _P, _P, _P, _P, _P, _P, _P,  # x qweight scales szeros ow bias out
+        _I, _I, _I, _I, _I,  # M K N group_size R
+        _P,  # stream
+    ]),
 }
 
 _lock = threading.Lock()

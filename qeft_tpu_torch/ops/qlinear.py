@@ -9,12 +9,20 @@ its ``qlinear_apply`` and custom-vjp core ``_qlinear_core`` / ``_core_fwd`` /
 place and ``<= 8`` in another; here one threshold, `qmm.DECODE_MAX_TOKENS`,
 decides for every call.
 
+`qlinear_apply` is the linear of every OPT, Phi, Bloom and Falcon layer in
+serving and of every training layer: a per-linear ``reorder_ids`` gather
+first (outside the autograd function, as the JAX package keeps it outside
+its custom vjp), then `QLinearFunction`, whose forward runs K5 for at most
+`qmm.DECODE_MAX_TOKENS` rows (bias inside the kernel) and K2 above (bias
+added after it).  The stacked paths keep K1 and K6.
+
 The backward of `QLinearFunction` (the reference's ``QuantMatMulQEFT``, with
 the true transpose)::
 
-    dx  = g @ W_deq^T  +  pad_last_r(g @ oweight^T)   K7, the weak-column
-                                                      product as its f32 addend
-    dow = x[..., -r:]^T @ g                           f32, the only trainable
+    dx    = g @ W_deq^T  +  pad_last_r(g @ oweight^T)   K7, the weak-column
+                                                        product as its f32 addend
+    dow   = x[..., -r:]^T @ g                           f32, the only trainable
+    dbias = sum of g over the rows
 
 The two weak-column products are `matmul_f32`: bf16 operands, f32 sums and an
 f32 result, as JAX's ``preferred_element_type=f32``.
@@ -31,6 +39,7 @@ from qeft_tpu_torch.ops.qmm import (
     DECODE_MAX_TOKENS,
     qgemm,
     qgemm_t,
+    qgemv,
     qgemv_stacked,
     qgemv_stacked_fused,
     rms_norm,
@@ -74,28 +83,38 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
 
 
+def _forward(x, qweight, scales, scaled_zeros, oweight, bias, group_size):
+    """K5 for at most `DECODE_MAX_TOKENS` rows (bias in its epilogue), K2
+    with the bias added after it for more; oweight and bias in x's dtype."""
+    ow = None if oweight is None else oweight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
+        return qgemv(x, QLinearParams(qweight, scales, scaled_zeros, oweight=ow, bias=b,
+                                      group_size=group_size))
+    y = qgemm(x, QLinearParams(qweight, scales, scaled_zeros, oweight=ow, group_size=group_size))
+    return y if b is None else y + b
+
+
 class QLinearFunction(torch.autograd.Function):
-    """``x @ W_deq + x[..., K-r:] @ oweight`` of one layer's packed linear,
-    differentiable in ``x`` and ``oweight``.  The forward runs K6 (at most
-    `DECODE_MAX_TOKENS` rows) or K2 with the oweight cast to x's dtype; the
-    backward runs K7 for ``dx`` only when it is wanted, and returns ``dow``
-    in oweight's dtype (f32 when training)."""
+    """``x @ W_deq + x[..., K-r:] @ oweight (+ bias)`` of one layer's packed
+    linear, differentiable in ``x``, ``oweight`` and ``bias``.  The forward
+    is `_forward`; the backward runs K7 for ``dx`` only when it is wanted,
+    and returns ``dow`` in oweight's dtype (f32 when training) and ``dbias``
+    in the bias's."""
 
     @staticmethod
-    def forward(ctx, x, qweight, scales, scaled_zeros, oweight, group_size):
-        ow = None if oweight is None else oweight.to(x.dtype)
-        p = QLinearParams(qweight, scales, scaled_zeros, oweight=ow, group_size=group_size)
+    def forward(ctx, x, qweight, scales, scaled_zeros, oweight, bias, group_size):
         ctx.group_size = group_size
-        ctx.save_for_backward(x, qweight, scales, scaled_zeros, oweight)
-        return qlinear_apply_stacked(x, p.map(lambda t: t.unsqueeze(0)), 0)
+        ctx.save_for_backward(x, qweight, scales, scaled_zeros, oweight, bias)
+        return _forward(x, qweight, scales, scaled_zeros, oweight, bias, group_size)
 
     @staticmethod
     def backward(ctx, g):
-        x, qweight, scales, scaled_zeros, oweight = ctx.saved_tensors
+        x, qweight, scales, scaled_zeros, oweight, bias = ctx.saved_tensors
         n, k = g.shape[-1], x.shape[-1]
         g2 = g.reshape(-1, n)
         ow = None if oweight is None else oweight.to(g.dtype)
-        dx = dow = None
+        dx = dow = dbias = None
         if ctx.needs_input_grad[0]:
             p = QLinearParams(qweight, scales, scaled_zeros, group_size=ctx.group_size)
             tail = None if ow is None else matmul_f32(g2, ow.t())
@@ -104,13 +123,22 @@ class QLinearFunction(torch.autograd.Function):
             r = oweight.shape[-2]
             xr = x.reshape(-1, k)[:, k - r:].to(g.dtype)
             dow = matmul_f32(xr.t(), g2).to(oweight.dtype)
-        return dx, None, None, None, dow, None
+        if bias is not None and ctx.needs_input_grad[5]:
+            dbias = g2.to(torch.float32).sum(0).to(bias.dtype)
+        return dx, None, None, None, dow, dbias, None
 
 
 def qlinear_apply(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
-    """The autograd linear on one layer's (unstacked) packed linear, whose
-    ``oweight`` may be a trainable leaf.  ``x`` [..., K] -> [..., N]."""
-    if p.bias is not None or p.reorder_ids is not None:
-        raise NotImplementedError("the training linear takes no bias or reorder_ids")
-    return QLinearFunction.apply(x, p.qweight, p.scales, p.scaled_zeros, p.oweight,
-                                 p.group_size)
+    """The linear of one layer's (unstacked) packed linear, whose ``oweight``
+    and ``bias`` may be trainable leaves: ``x`` gathered by ``reorder_ids``
+    (a linear packed without the global reorder keeps its weak columns last
+    by its own permutation), then `QLinearFunction` -- or its forward alone
+    where nothing needs a gradient (serving), which spares the autograd
+    bookkeeping on the host.  ``x`` [..., K] -> [..., N]."""
+    if p.reorder_ids is not None:
+        x = x.index_select(-1, p.reorder_ids)
+    args = (x, p.qweight, p.scales, p.scaled_zeros, p.oweight, p.bias, p.group_size)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, p.oweight, p.bias)):
+        return QLinearFunction.apply(*args)
+    return _forward(*args)

@@ -1,6 +1,6 @@
 """Packed INT4 matrix products: the fused decode matvec (K1), the plain decode
-matvec (K6), the prefill GEMM (K2) and the training backward's transposed
-GEMM (K7).
+matvec of a stacked (K6) and of an unstacked linear (K5), the prefill GEMM
+(K2) and the training backward's transposed GEMM (K7).
 
 Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
 
@@ -12,6 +12,10 @@ Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
 - `qgemv_stacked` replaces ``pallas_qmm.py::qgemv_stacked``: the same
   matvec of layer ``layer`` with its weak-column slab, without the norm and
   the residual (K1's kernel with both compiled out).
+- `qgemv` replaces ``pallas_qmm.py::qgemv``: the decode matvec of one
+  unstacked linear, its weak-column slab and an optional bias, rounded once
+  (K6's kernel at layer 0 with a bias epilogue) -- every linear of the OPT,
+  Phi, Bloom and Falcon blocks at decode.
 - `qgemm` replaces ``pallas_qmm.py::qgemm``: the W4A16 GEMM for more rows,
   with the weak-column slab and an optional residual in its epilogue.
 - `qgemm_t` replaces ``pallas_qmm.py::qgemm_t``: ``dx = g @ W_deq^T`` from
@@ -32,8 +36,9 @@ import torch
 from qeft_tpu_torch.ops import cuda_lib
 from qeft_tpu_torch.ops.packing import QLinearParams, dequantize_weight
 
-# calls with at most this many token rows take the decode matvec (K1); more
-# rows take the GEMM (K2).  The choice changes which kernel runs, not the math.
+# calls with at most this many token rows take a decode matvec (K1, K5, K6);
+# more rows take the GEMM (K2).  The choice changes which kernel runs, not the
+# math.
 DECODE_MAX_TOKENS = 8
 GEMM_TILE = 64  # output tile edge of the GEMM kernel (csrc/qmm.cu kG_BM, kG_BN)
 
@@ -74,6 +79,12 @@ def qgemv_stacked_fused_plain(x, p: QLinearParams, layer: int, lnw=None,
     return qgemm_plain(x, p.layer(layer), residual)
 
 
+def qgemv_plain(x, p: QLinearParams) -> torch.Tensor:
+    """``x @ W_deq + x[..., -r:] @ oweight + bias`` of one unstacked linear
+    (twin of ``qgemv`` with its outside slab product and bias)."""
+    return qgemm_plain(x, p)
+
+
 def qgemv_stacked_plain(x, p: QLinearParams, layer: int) -> torch.Tensor:
     """``x @ W_deq[l] + x[..., -r:] @ oweight[l]`` (twin of ``qgemv_stacked``
     with its outside weak-column product)."""
@@ -96,13 +107,23 @@ def qgemm_t_plain(g: torch.Tensor, p: QLinearParams,
 # kernel wrappers
 
 
-def _check_packed(p: QLinearParams, stacked: bool) -> None:
+def _check_packed(p: QLinearParams, stacked: bool, bias: bool = False) -> None:
+    """Raise unless ``p`` is what the kernels read; ``bias``: the kernel adds
+    a bias (K5), which must then be a bf16 CUDA vector of the N outputs."""
     nd = 3 if stacked else 2
     if p.qweight.dim() != nd or p.qweight.dtype != torch.int32:
         raise ValueError(f"qweight must be int32 with {nd} dims, got "
                          f"{p.qweight.dtype} {tuple(p.qweight.shape)}")
-    if p.bias is not None or p.reorder_ids is not None:
-        raise NotImplementedError("the packed kernels take no bias or reorder_ids")
+    if p.reorder_ids is not None:
+        raise ValueError("the packed kernels take no reorder_ids: gather the input first")
+    if p.bias is not None:
+        if not bias:
+            raise ValueError("this packed kernel takes no bias")
+        b = p.bias
+        if (b.dtype != torch.bfloat16 or not b.is_cuda or not b.is_contiguous()
+                or tuple(b.shape) != (p.out_features,)):
+            raise ValueError(f"bias must be a contiguous bfloat16 CUDA tensor of shape "
+                             f"({p.out_features},)")
     for name in ("qweight", "scales", "scaled_zeros", "oweight"):
         t = getattr(p, name)
         if t is None:
@@ -129,16 +150,18 @@ def gemm_splits(m: int, n: int, n_groups: int, sms: int) -> int:
     return -(-n_groups // -(-n_groups // splits))  # no empty split
 
 
-def _decode_rows(x: torch.Tensor, p: QLinearParams, layer: int):
-    """The checks K1 and K6 share -> (x as [M, K], M, K, N)."""
-    _check_packed(p, stacked=True)
-    n_layers, k8, n = p.qweight.shape
+def _decode_rows(x: torch.Tensor, p: QLinearParams, layer: Optional[int]):
+    """The checks K1, K5 and K6 share (``layer`` None: unstacked, K5)
+    -> (x as [M, K], M, K, N)."""
+    _check_packed(p, stacked=layer is not None, bias=layer is None)
+    k8, n = p.qweight.shape[-2:]
     k = k8 * 8
-    m = x.numel() // k
+    m = x.numel() // k if x.shape[-1] == k else 0
     if not 1 <= m <= DECODE_MAX_TOKENS:
-        raise ValueError(f"decode matvec takes 1..{DECODE_MAX_TOKENS} rows, got {m}")
-    if not 0 <= layer < n_layers:
-        raise IndexError(f"layer {layer} out of range for {n_layers} layers")
+        raise ValueError(f"decode matvec takes 1..{DECODE_MAX_TOKENS} rows of {k}, got "
+                         f"{tuple(x.shape)}")
+    if layer is not None and not 0 <= layer < p.qweight.shape[0]:
+        raise IndexError(f"layer {layer} out of range for {p.qweight.shape[0]} layers")
     return _check_act(x.reshape(m, k), "x", (m, k)), m, k, n
 
 
@@ -179,6 +202,23 @@ def qgemv_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torch.Tensor
         cuda_lib.ptr(x2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
         cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight), cuda_lib.ptr(out),
         int(layer), m, k, n, p.group_size, p.n_outlier,
+    )
+    return out.reshape(*x.shape[:-1], n)
+
+
+def qgemv(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
+    """``x @ W_deq + x[..., K-r:] @ oweight (+ bias)`` of one layer's
+    (unstacked) packed linear, rounded once.  ``x`` [..., K] with at most
+    `DECODE_MAX_TOKENS` rows -> [..., N]."""
+    if not x.is_cuda:
+        return qgemv_plain(x, p)
+    x2, m, k, n = _decode_rows(x, p, None)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    cuda_lib.launch(
+        "qgemv",
+        cuda_lib.ptr(x2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
+        cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight), cuda_lib.ptr(p.bias),
+        cuda_lib.ptr(out), m, k, n, p.group_size, p.n_outlier,
     )
     return out.reshape(*x.shape[:-1], n)
 

@@ -35,13 +35,23 @@ def _fuse_stage(layers: Dict, names: Sequence[str], fused_name: str) -> None:
 
 
 def fused_stages(meta: ModelMeta) -> Dict[str, Tuple[str, ...]]:
-    """Fused stage name -> its members, in concatenation order."""
-    return {"qkv": meta.qkv, "upgate": meta.ffn1}
+    """Fused stage name -> its members, in concatenation order, as
+    ``qeft_tpu/pipeline.py::fuse_packed_stages`` fuses them: q/k/v only for
+    the llama topology (llama, gemma), up/gate only where ffn1 has two
+    members.  The OPT, Phi, Bloom and Falcon blocks read their linears by
+    their own names and get nothing fused."""
+    out = {}
+    if meta.family in ("llama", "gemma") and len(meta.qkv) == 3:
+        out["qkv"] = meta.qkv
+    if len(meta.ffn1) == 2:
+        out["upgate"] = meta.ffn1
+    return out
 
 
 def fuse_packed_stages(params: Dict, meta: ModelMeta) -> Dict:
-    """q/k/v -> ``qkv`` and up/gate -> ``upgate`` on a stacked packed model;
-    a model already fused passes through unchanged."""
+    """q/k/v -> ``qkv`` and up/gate -> ``upgate`` on a stacked packed model
+    (see `fused_stages`); a model already fused, or of a family with nothing
+    to fuse, passes through unchanged."""
     layers = dict(params["layers"])
     for fused, names in fused_stages(meta).items():
         if all(n in layers for n in names):
@@ -50,10 +60,16 @@ def fuse_packed_stages(params: Dict, meta: ModelMeta) -> Dict:
 
 
 def member_widths(cfg, meta: ModelMeta) -> Dict[str, int]:
-    """Output width N of each member of a fused stage."""
-    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    return dict(zip(meta.qkv + meta.ffn1, (q, kv, kv, cfg.intermediate_size,
-                                           cfg.intermediate_size)))
+    """Output width N of each member of a fused stage (empty for a family
+    with nothing to fuse)."""
+    stages = fused_stages(meta)
+    out = {}
+    if "qkv" in stages:
+        q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        out.update(zip(stages["qkv"], (q, kv, kv)))
+    if "upgate" in stages:
+        out.update(dict.fromkeys(stages["upgate"], cfg.intermediate_size))
+    return out
 
 
 def split_fused(tensors: Dict[str, torch.Tensor], meta: ModelMeta, widths: Dict[str, int],

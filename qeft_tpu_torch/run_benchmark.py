@@ -16,7 +16,10 @@ warm-up; one JSON line of results.  Methods:
     python -m qeft_tpu_torch.run_benchmark --method spec-batch --draft_layers 8
     python -m qeft_tpu_torch.run_benchmark --method engine --model tiny --device cpu
 
-Runs on the GPU unless ``--device cpu`` is given.  The speculative methods
+Runs on the GPU unless ``--device cpu`` is given.  ``--load`` serves a
+packed checkpoint of any family through ``fp``/``qeft``; the speculative and
+engine methods run the llama family's ragged forward and raise for the
+others, as in the JAX package.  The speculative methods
 need a draft with the target's vocabulary: ``--draft_layers N`` slices the
 target itself; the default ``--draft_model tiny-v2`` (512 tokens) fits only
 a 512-token target.  Not ported: ``qeft-x`` (ROADMAP A11) and ``--tp > 1``

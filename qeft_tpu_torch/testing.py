@@ -1,32 +1,61 @@
 """Shape-faithful random packed models, built on the device from a seed, and
-the dense model a packed one stands for.
+the dense model a packed one stands for.  Test tooling: the machine with the
+card holds no checkpoint.
 
-Counterpart of ``qeft_tpu/testing.py`` (same value distributions: random
-full-range words, scales in [0.01, 0.03), zero points in (-0.16, 0],
-oweight ~ N(0, 0.02)), built directly in fused-stage form (``qkv``,
-``upgate``) without the TPU-only padding or banded operands.  ``o_reorder``
-is a random OGR-style compaction -- the non-outlier head channels in order,
-``r`` outliers moved to the tail -- so the o-projection gather really runs.
+Counterpart of ``qeft_tpu/testing.py``.  A llama model has its value
+distributions (random full-range words, scales in [0.01, 0.03), zero points
+in (-0.16, 0], oweight ~ N(0, 0.02)) and is built directly in fused-stage
+form (``qkv``, ``upgate``) without the TPU-only padding or banded operands.
+An OPT, Phi, Bloom or Falcon model keeps its family's linear names, with its
+norms, embeddings and heads shaped as the family's ``init_params`` makes
+them, every linear bias drawn ~ N(0, 0.02), and weights of the size
+``init_params`` gives (`random_packed_linear` with ``fan_in``): with the
+llama distribution every column's weights have a positive mean, ReLU or
+gelu outputs then give the residual stream a common mode hundreds of times
+the signal, and bf16 rounds the signal away before LayerNorm removes the
+common mode, so no two summation orders agree after 32 layers.
+
+With ``reorder=True`` ``o_reorder`` is a random OGR-style compaction -- the
+non-outlier head channels in order, ``r`` outliers moved to the tail -- so
+the o-projection gather really runs; with ``reorder=False`` every linear
+carries such a compaction as its own ``reorder_ids``, as a model packed
+without the global reorder does.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 from typing import Dict
 
 import torch
 
 from qeft_tpu_torch.device import resolve_device
-from qeft_tpu_torch.models.llama import LlamaConfig
-from qeft_tpu_torch.ops.packing import QLinearParams, dequantize_weight
+from qeft_tpu_torch.models.registry import get_model_meta
+from qeft_tpu_torch.ops.packing import QLinearParams, dequantize_weight, resolve_group
 
 
 def random_packed_linear(gen: torch.Generator, n_layers: int, k: int, n: int, g: int = 128,
-                         r: int = 128, dtype=torch.bfloat16) -> QLinearParams:
-    """A stacked [L, ...] packed linear with random codes and parameters."""
+                         r: int = 128, dtype=torch.bfloat16, fan_in: bool = False) -> QLinearParams:
+    """A stacked [L, ...] packed linear with random codes and parameters:
+    the JAX package's test distribution, or with ``fan_in`` weights of std
+    about 1/sqrt(k), as ``init_params`` draws dense ones -- scales
+    (0.75..1.25) / (4.61 sqrt(k)) (4.61 is the std of a uniform 4-bit code),
+    zero points at codes 7.25..7.75 (where an asymmetric quantizer puts them
+    for zero-mean weights) and oweight ~ N(0, 1/k)."""
     dev = gen.device
+    resolve_group(k, g)
     words = torch.randint(-2**31, 2**31, (n_layers, k // 8, n), generator=gen,
                           dtype=torch.int64, device=dev).to(torch.int32)
     groups = (n_layers, k // g, n)
+    if fan_in:
+        s = (torch.rand(groups, generator=gen, device=dev) * 0.5 + 0.75) / (4.61 * k ** 0.5)
+        zero = torch.rand(groups, generator=gen, device=dev) * 0.5 + 7.25
+        return QLinearParams(
+            qweight=words, scales=s.to(dtype), scaled_zeros=(-s * zero).to(dtype),
+            oweight=(torch.randn((n_layers, r, n), generator=gen, device=dev)
+                     * k ** -0.5).to(dtype),
+            group_size=g)
     scales = (torch.rand(groups, generator=gen, device=dev) * 0.02 + 0.01).to(dtype)
     szeros = (-torch.rand(groups, generator=gen, device=dev) * 0.16).to(dtype)
     ow = (torch.randn((n_layers, r, n), generator=gen, device=dev) * 0.02).to(dtype)
@@ -46,11 +75,18 @@ def random_compaction(gen: torch.Generator, n_layers: int, k: int, r: int) -> to
     return torch.stack(rows).to(torch.int32)
 
 
-def build_packed_model(cfg: LlamaConfig, seed: int = 0, g: int = 128, r: int = 128,
-                       dtype=torch.bfloat16, device=None) -> Dict:
-    """Random fused-stage packed model on ``device`` (default: the GPU, which
-    must exist).  ``dtype`` is the float dtype of every non-integer leaf."""
+def build_packed_model(cfg, seed: int = 0, g: int = 128, r: int = 128,
+                       dtype=torch.bfloat16, device=None, family: str = "llama",
+                       reorder: bool = True) -> Dict:
+    """Random packed model of ``family`` on ``device`` (default: the GPU,
+    which must exist).  ``dtype`` is the float dtype of every non-integer
+    leaf."""
     device = resolve_device(device)
+    meta = get_model_meta(family)
+    if meta.family not in ("llama", "gemma"):
+        return _build_family(cfg, meta, seed, g, r, dtype, device, reorder)
+    if not reorder:
+        raise ValueError("the fused llama stages need the global reorder")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, f, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -73,10 +109,37 @@ def build_packed_model(cfg: LlamaConfig, seed: int = 0, g: int = 128, r: int = 1
     }
 
 
+def _build_family(cfg, meta, seed, g, r, dtype, device, reorder) -> Dict:
+    """The family's ``init_params`` at one layer gives every leaf's shape;
+    norms repeat over the layers, linears become packed, biases random."""
+    module = importlib.import_module(f"qeft_tpu_torch.models.{meta.family}")
+    one = module.init_params(dataclasses.replace(cfg, num_layers=1), seed, dtype, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    n_layers = cfg.num_layers
+    layers = {}
+    for name, leaf in one["layers"].items():
+        if name in meta.all_linears:
+            k, n = leaf.shape[-2:]
+            lin = random_packed_linear(gen, n_layers, k, n, g, r, dtype, fan_in=True)
+            if not reorder:
+                lin.reorder_ids = random_compaction(gen, n_layers, k, r)
+            layers[name] = lin
+        elif name[:-2] in meta.all_linears:  # a linear's bias
+            layers[name] = (torch.randn((n_layers, *leaf.shape[1:]), generator=gen,
+                                        device=device) * 0.02).to(dtype)
+        else:
+            layers[name] = leaf.expand(n_layers, *leaf.shape[1:]).clone()
+    if reorder:
+        layers["o_reorder"] = random_compaction(gen, n_layers, layers[meta.out[0]].in_features, r)
+    return {**one, "layers": layers}
+
+
 def dense_linear(p: QLinearParams, dtype=torch.bfloat16) -> torch.Tensor:
     """Stacked dense [L, K, N] weight equal to a stacked packed linear:
     ``code*scale + zero`` with the oweight slab added on the last r rows,
-    summed in f32 and cast once."""
+    summed in f32 and cast once; a linear with ``reorder_ids`` has its rows
+    put back in input order (``x[..., ids] @ W == x @ dense``)."""
     n_layers, k = p.qweight.shape[0], p.in_features
     out = torch.empty(n_layers, k, p.out_features, dtype=dtype, device=p.qweight.device)
     for l in range(n_layers):
@@ -84,13 +147,23 @@ def dense_linear(p: QLinearParams, dtype=torch.bfloat16) -> torch.Tensor:
         w = dequantize_weight(lin, torch.float32)
         if lin.oweight is not None:
             w[k - lin.n_outlier:] += lin.oweight.to(torch.float32)
+        if lin.reorder_ids is not None:
+            w = torch.zeros_like(w).index_copy_(0, lin.reorder_ids.long(), w)
         out[l] = w.to(dtype)
     return out
 
 
 def dense_model(params: Dict, dtype=torch.bfloat16) -> Dict:
-    """The dense model a fused packed model stands for (the analogue of the
-    fake-quantized checkpoint).  Dense trees run plain PyTorch only."""
-    layers = {name: dense_linear(leaf, dtype) if isinstance(leaf, QLinearParams) else leaf
-              for name, leaf in params["layers"].items()}
+    """The dense model a packed model stands for (the analogue of the
+    fake-quantized checkpoint), of any family: each packed linear becomes its
+    dense weight and its own bias, if it has one, joins the ``<name>_b`` leaf.
+    Dense trees run plain PyTorch only."""
+    layers = {name: leaf for name, leaf in params["layers"].items()
+              if not isinstance(leaf, QLinearParams)}
+    for name, leaf in params["layers"].items():
+        if isinstance(leaf, QLinearParams):
+            layers[name] = dense_linear(leaf, dtype)
+            if leaf.bias is not None:
+                b = layers.get(name + "_b")
+                layers[name + "_b"] = leaf.bias if b is None else b + leaf.bias
     return {**params, "layers": layers}

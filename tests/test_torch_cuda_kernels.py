@@ -5,8 +5,11 @@ one tile, GQA, window offsets and per-sequence positions, split decode
 chunks; the transposed GEMM (K7) at 1 to 2048 rows, with and without the
 weak-column addend, and the autograd linear's gradients; the plain decode
 matvec (K6) at 1..8 rows; int8 decode attention (K4q) and the stacked-cache
-decode attention (K8, bf16 and int8, slots >= pos poisoned), and the
-wrappers' refusals.  They need an NVIDIA GPU and ``nvcc`` and skip elsewhere:
+decode attention (K8, bf16 and int8, slots >= pos poisoned); the unstacked
+decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes with and without
+a bias, and the autograd linear's K5 / K2 dispatch with ``reorder_ids``; K1
+and K6 at eight rows of K up to 28,672 (staged in bands); and the wrappers'
+refusals.  They need an NVIDIA GPU and ``nvcc`` and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -154,7 +157,7 @@ def test_qgemm_t(gen, m, g, r):
 @pytest.mark.parametrize("m", [4, 300])
 def test_autograd_linear_gradients(gen, m):
     """``dx`` (K7 plus the weak-column addend) and the f32 ``dow`` against
-    autograd through the plain version in f32; m = 4 runs K6 forward."""
+    autograd through the plain version in f32; m = 4 runs K5 forward."""
     p = _packed(gen, 1, 512, 96, 128, 16).layer(0)
     x = _randn(gen, m, 512)
     ow = (torch.randn(16, 96, generator=gen, device="cuda") * 0.02).requires_grad_()
@@ -271,3 +274,100 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
         qmm.qgemv_stacked(_randn(gen, 9, 256), p, 0)
     with pytest.raises(IndexError):
         qmm.qgemv_stacked(_randn(gen, 1, 256), p, 2)
+
+
+@pytest.mark.parametrize("k", [13824, 16384, 18176, 28672])
+def test_decode_matvecs_at_eight_rows_of_wide_k(gen, k):
+    """K1 (norm and residual) and K6 at M = 8 where eight whole rows need
+    more than the 227 KB of shared memory a block may have: the row is
+    staged in bands of groups."""
+    n = 96
+    p = _packed(gen, 2, k, n, 128, 128)
+    x = _randn(gen, 8, k)
+    lnw = (1.0 + _randn(gen, k, scale=0.1).float()).to(torch.bfloat16)
+    res = _randn(gen, 8, n, scale=4.0)
+    got = qmm.qgemv_stacked_fused(x, p, 1, lnw=lnw, residual=res, eps=1e-5)
+    want = qmm.qgemv_stacked_fused_plain(_f32(x), _f32(p), 1, lnw=_f32(lnw),
+                                         residual=_f32(res), eps=1e-5)
+    _close(got, want)
+    _close(qmm.qgemv_stacked(x, p, 1), qmm.qgemv_stacked_plain(_f32(x), _f32(p), 1))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("k,n,g,r", [
+    (4096, 4096, 128, 128),   # OPT-6.7B q/k/v/o
+    (16384, 512, 128, 128),   # OPT-6.7B fc2's K (two bands at M = 8)
+    (2560, 2560, 128, 128),   # Phi-2
+    (4544, 4672, 64, 128),    # Falcon-7b qkv, g = 64
+    (18176, 320, 64, 128),    # Falcon-7b fc2's K
+    (1024, 200, 64, 0),       # no weak columns, ragged N
+])
+def test_unstacked_decode_matvec(gen, m, k, n, g, r, bias):
+    p = _packed(gen, 1, k, n, g, r).layer(0)
+    if bias:
+        p = dataclasses.replace(p, bias=_randn(gen, n, scale=0.5))
+    x = _randn(gen, m, k)
+    before = cuda_lib.launches["qgemv"]
+    got = qmm.qgemv(x, p)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["qgemv"] == before + 1
+    _close(got, qmm.qgemv_plain(_f32(x), _f32(p)))
+
+
+@pytest.mark.parametrize("m,kernel", [(1, "qgemv"), (8, "qgemv"), (40, "qgemm")])
+def test_autograd_linear_reorder_and_bias(gen, m, kernel):
+    """``reorder_ids`` gathered before the linear, the bias inside K5 or
+    after K2; values and the gradients of x, oweight and bias."""
+    k, n = 512, 96
+    p = _packed(gen, 1, k, n, 64, 16).layer(0)
+    ids = torch.randperm(k, generator=gen, device="cuda").to(torch.int32)
+    b = (torch.randn(n, generator=gen, device="cuda") * 0.5).to(torch.bfloat16).requires_grad_()
+    ow = (torch.randn(16, n, generator=gen, device="cuda") * 0.02).requires_grad_()
+    x = _randn(gen, m, k)
+    gy = _randn(gen, m, n)
+    xk = x.clone().requires_grad_()
+    before = cuda_lib.launches[kernel]
+    y = qlinear_apply(xk, dataclasses.replace(p, oweight=ow, bias=b, reorder_ids=ids))
+    torch.cuda.synchronize()
+    assert cuda_lib.launches[kernel] == before + 1
+    y.backward(gy)
+    x32 = x.float().requires_grad_()
+    ow32, b32 = ow.detach().clone().requires_grad_(), b.detach().float().requires_grad_()
+    y32 = qmm.qgemm_plain(x32.index_select(-1, ids.long()),
+                          dataclasses.replace(_f32(p), oweight=ow32, bias=b32))
+    y32.backward(gy.float())
+    _close(y, y32.detach())
+    _close(xk.grad, x32.grad)
+    _close(b.grad, b32.grad)
+    err = (ow.grad - ow32.grad).abs().max().item()
+    assert err <= RTOL * ow32.grad.abs().max().item(), err
+
+
+def test_unstacked_decode_matvec_refuses_what_it_does_not_take(gen):
+    p = _packed(gen, 1, 256, 64, 64, 8).layer(0)
+    x = _randn(gen, 2, 256)
+    with pytest.raises(ValueError):  # nine rows: the GEMM's, not the matvec's
+        qmm.qgemv(_randn(gen, 9, 256), p)
+    with pytest.raises(ValueError):  # f32 activations
+        qmm.qgemv(x.float(), p)
+    with pytest.raises(ValueError):  # a stacked linear
+        qmm.qgemv(x, _packed(gen, 2, 256, 64, 64, 8))
+    with pytest.raises(ValueError):  # the gather belongs before the kernel
+        qmm.qgemv(x, dataclasses.replace(p, reorder_ids=torch.arange(256, device="cuda")))
+    with pytest.raises(ValueError):  # an f32 bias
+        qmm.qgemv(x, dataclasses.replace(p, bias=torch.zeros(64, device="cuda")))
+    with pytest.raises(ValueError):  # a bias of the wrong width
+        qmm.qgemv(x, dataclasses.replace(p, bias=_randn(gen, 32)))
+    with pytest.raises(ValueError):  # a non-contiguous bias
+        qmm.qgemv(x, dataclasses.replace(p, bias=_randn(gen, 128)[::2]))
+    with pytest.raises(ValueError):  # non-contiguous codes
+        qmm.qgemv(x, dataclasses.replace(p, qweight=p.qweight.t().contiguous().t()))
+    raw = torch.empty(p.scales.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    misaligned = raw[1:].view(p.scales.shape)  # two bytes off a 16-byte boundary
+    misaligned.copy_(p.scales)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.qgemv(x, dataclasses.replace(p, scales=misaligned))
+    with pytest.raises(ValueError):  # K1 and K6 take no bias
+        qmm.qgemv_stacked(x, dataclasses.replace(_packed(gen, 2, 256, 64, 64, 8),
+                                                 bias=_randn(gen, 2, 64)), 0)

@@ -18,6 +18,8 @@ from qeft_tpu_torch.checkpoint import load_model, load_packed, load_wct, save_pa
 from qeft_tpu_torch.eval_mc import evaluate_mc, synthetic_mc_examples
 from qeft_tpu_torch.eval import eval_ppl
 from qeft_tpu_torch.generate import generate
+from qeft_tpu_torch.models import bloom, falcon, opt, phi
+from qeft_tpu_torch.models.api import get_model_api
 from qeft_tpu_torch.models.llama import LLAMA_PRESETS, init_kv_cache, init_params
 from qeft_tpu_torch.serving import Engine, SpecEngine, measure_engine_throughput
 from qeft_tpu_torch.testing import build_packed_model
@@ -141,3 +143,26 @@ def test_serving_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatc
         call(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_benchmark.main(["--method", "engine", "--model", "tiny"])
+
+
+@pytest.mark.parametrize("module,preset", [(opt, "opt-tiny"), (phi, "phi-tiny"),
+                                           (bloom, "bloom-tiny"), (falcon, "falcon-tiny")])
+def test_family_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, module,
+                                                                      preset):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    family = module.__name__.rsplit(".", 1)[1]
+    cfg = getattr(module, f"{family.upper()}_PRESETS")[preset]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_packed_model(cfg, g=32, r=8, family=family)
+    assert module.init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+    params = build_packed_model(cfg, g=32, r=8, dtype=torch.float32, device="cpu",
+                                family=family)
+    api = get_model_api(family)
+    cache = api.init_cache(cfg, 1, 8, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(params, torch.zeros(1, 4, dtype=torch.int64), cache, cfg, 2, api=api)
+    tokens, _ = generate(params, torch.zeros(1, 4, dtype=torch.int64), cache, cfg, 2, api=api,
+                         device="cpu")
+    assert tokens.shape == (1, 2)

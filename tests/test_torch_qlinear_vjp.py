@@ -7,7 +7,8 @@ tests/test_qlinear_vjp.py::test_qgemm_t_matches_dense_transpose and at row
 counts that are not a multiple of its 128-row tile.
 
 The autograd linear (`qlinear.QLinearFunction`): its output, ``dx`` and
-``dow`` against ``qeft_tpu.ops.qlinear.qlinear_apply`` with QEFT_PALLAS=1
+``dow`` (and, with a per-linear ``reorder_ids`` gather and a bias, ``dbias``)
+against ``qeft_tpu.ops.qlinear.qlinear_apply`` with QEFT_PALLAS=1
 (interpret: K2 forward, K7 backward) and QEFT_PALLAS=0 (the XLA dequant
 path), in the shapes of tests/test_qlinear_vjp.py, and against plain
 PyTorch autograd through `qmm.qgemm_plain`.
@@ -91,7 +92,7 @@ def _port_grads(tp, x, ow):
 @pytest.mark.parametrize("r", [8, 0])
 @pytest.mark.parametrize("shape", [(3, 5, 64), (1, 64)])
 def test_function_matches_jax_custom_vjp(monkeypatch, use_pallas, r, shape):
-    """(3, 5, 64) runs K2's plain version forward, (1, 64) K1's."""
+    """(3, 5, 64) runs K2's plain version forward, (1, 64) K5's."""
     monkeypatch.setenv("QEFT_PALLAS", "1" if use_pallas else "0")
     rng = np.random.default_rng(0)
     jp, tp = _linear(rng, r=r)
@@ -144,3 +145,36 @@ def test_backward_skips_dx_when_the_input_needs_no_gradient(monkeypatch):
     xg = x.clone().requires_grad_()
     qlinear_apply(xg, dataclasses.replace(tp, oweight=owt)).sum().backward()
     assert calls == [1] and xg.grad is not None
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("shape", [(3, 5, 64), (1, 3, 64)])
+def test_reorder_ids_and_bias_match_jax_custom_vjp(monkeypatch, use_pallas, shape):
+    """A linear packed without the global reorder: the input gathered by its
+    ``reorder_ids`` before the function, a bias inside it; output and the
+    gradients of x, oweight and bias.  (1, 3, 64) runs K5's plain version,
+    (3, 5, 64) K2's."""
+    monkeypatch.setenv("QEFT_PALLAS", "1" if use_pallas else "0")
+    rng = np.random.default_rng(6)
+    jp, tp = _linear(rng)
+    ids = rng.permutation(64).astype(np.int32)
+    bias = (rng.normal(size=(128,)) * 0.5).astype(np.float32)
+    x = rng.normal(size=shape).astype(np.float32)
+    ow = np.array(jp.oweight)
+
+    def f(x, o, b):
+        p = dataclasses.replace(jp, oweight=o, bias=b, reorder_ids=jnp.asarray(ids))
+        return jnp.sum(jax_qlinear_apply(x, p, dtype=jnp.float32) ** 2)
+
+    args = (jnp.asarray(x), jnp.asarray(ow), jnp.asarray(bias))
+    y_ref = jax_qlinear_apply(args[0], dataclasses.replace(
+        jp, bias=args[2], reorder_ids=jnp.asarray(ids)), dtype=jnp.float32)
+    dx_ref, dow_ref, db_ref = jax.grad(f, argnums=(0, 1, 2))(*args)
+
+    xt, owt, bt = (torch.from_numpy(a.copy()).requires_grad_() for a in (x, ow, bias))
+    y = qlinear_apply(xt, dataclasses.replace(tp, oweight=owt, bias=bt,
+                                              reorder_ids=torch.from_numpy(ids)))
+    (y ** 2).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref), **OUT_TOL)
+    for got, ref in ((xt.grad, dx_ref), (owt.grad, dow_ref), (bt.grad, db_ref)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)

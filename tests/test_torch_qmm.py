@@ -8,7 +8,9 @@ tests/test_pallas_qmm.py::test_qgemv_stacked_fused_matches_composed does.
 K2: the port's `qgemm` against ``pallas_qmm.qgemm``.  K6: the port's
 `qgemv_stacked` (no norm, no residual, the weak-column slab inside) against
 ``pallas_qmm.qgemv_stacked`` (its slab product outside the kernel), and
-`qlinear_apply_stacked` on both sides of the row threshold.
+`qlinear_apply_stacked` on both sides of the row threshold.  K5: the port's
+`qgemv` (one unstacked linear, slab and bias inside) against
+``pallas_qmm.qgemv`` (slab and bias outside) at 1..7 rows.
 
 Tolerance 1e-4 (abs and rel), the JAX test's own: both sides are f32, and the
 Pallas kernels sum per nibble plane and fold the zero points through group
@@ -22,7 +24,7 @@ import torch
 
 from qeft_tpu.ops.packing import QLinearParams as JaxQLinear, pack_codes
 from qeft_tpu.ops.pallas_qmm import qgemm as jax_qgemm, qgemv_stacked_fused as jax_fused
-from qeft_tpu.ops.pallas_qmm import qgemv_stacked as jax_qgemv_stacked
+from qeft_tpu.ops.pallas_qmm import qgemv as jax_qgemv, qgemv_stacked as jax_qgemv_stacked
 from qeft_tpu_torch.ops import qlinear, qmm
 from qeft_tpu_torch.ops.packing import QLinearParams
 
@@ -108,6 +110,25 @@ def test_plain_decode_matvec_matches_pallas(m, with_ow):
     for l in range(L):
         ref = np.asarray(jax_qgemv_stacked(jnp.asarray(x), jp, jnp.int32(l), dtype=jnp.float32))
         got = qmm.qgemv_stacked(torch.from_numpy(x), tp, l)
+        assert got.shape == (m, N)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("with_ow", [True, False])
+def test_unstacked_decode_matvec_matches_pallas(with_ow, with_bias):
+    rng = np.random.default_rng(9)
+    lay = _layers(rng)[0]
+    if not with_ow:
+        del lay["oweight"]
+    if with_bias:
+        lay["bias"] = (rng.normal(size=(N,)) * 0.5).astype(np.float32)
+    jp = JaxQLinear(**{f: jnp.asarray(v) for f, v in lay.items()}, group_size=G)
+    tp = QLinearParams(**{f: torch.from_numpy(v) for f, v in lay.items()}, group_size=G)
+    for m in range(1, 8):
+        x = rng.normal(size=(m, K)).astype(np.float32)
+        ref = np.asarray(jax_qgemv(jnp.asarray(x), jp, dtype=jnp.float32))
+        got = qmm.qgemv(torch.from_numpy(x), tp)
         assert got.shape == (m, N)
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
 

@@ -107,3 +107,50 @@ def oweights_from_port(oweights, cfg, family="llama"):
     meta = get_model_meta(family)
     stacked = {k: torch.stack([t.detach() for t in v]) for k, v in oweights.items()}
     return {k: v.numpy() for k, v in split_fused(stacked, meta, member_widths(cfg, meta)).items()}
+
+
+# the tiny family models of tests/test_torch_families.py: preset -> (family,
+# whether the JAX package packs it with the global reorder; without it every
+# linear carries its own reorder_ids)
+FAMILY_MODELS = {
+    "opt-tiny": ("opt", True),
+    "opt-tiny-350m": ("opt", False),
+    "phi-tiny": ("phi", True),
+    "bloom-tiny": ("bloom", False),
+    "falcon-tiny": ("falcon", True),
+    "falcon-tiny-40b": ("falcon", False),
+}
+
+
+def family_presets(family):
+    """(JAX module, its presets, the port's presets) of ``family``."""
+    import importlib
+
+    jmod = importlib.import_module(f"qeft_tpu.models.{family}")
+    tmod = importlib.import_module(f"qeft_tpu_torch.models.{family}")
+    key = f"{family.upper()}_PRESETS"
+    return jmod, getattr(jmod, key), getattr(tmod, key)
+
+
+def quantized_family(name, seed=5):
+    """Preset ``name`` of FAMILY_MODELS quantized (GPTQ-OWQ, 4 bits, group
+    32, rank 8, 2 x 16 calibration tokens) and packed in f32 by the JAX
+    package, as tests/test_families.py does -> (JAX params, port params,
+    JAX config, port f32 config, family)."""
+    from qeft_tpu.models.registry import get_model_meta as jax_meta
+    from qeft_tpu.pipeline import QuantizeArgs, extract_global_outidx, pack_model, quantize_model
+    from qeft_tpu.quant.quantizer import QuantSpec
+
+    family, reorder = FAMILY_MODELS[name]
+    jmod, jpresets, tpresets = family_presets(family)
+    cfg = jpresets[name]
+    meta = jax_meta(family)
+    params = jmod.init_params(cfg, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    calib = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 16))
+    args = QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=False, group_size=32),
+                        target_rank=8, no_frob_norm=True, nsamples=2, reorder=reorder)
+    outidx = extract_global_outidx(params, calib, cfg, meta, args)[0] if reorder else None
+    qparams, quantizers = quantize_model(params, calib, cfg, meta, args, outidx)
+    packed = pack_model(qparams, quantizers, cfg, meta, dtype=jnp.float32)
+    return (packed, to_port(packed, family), cfg,
+            dataclasses.replace(tpresets[name], dtype=torch.float32), family)
