@@ -12,61 +12,72 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 4. kernels: each kernel against its plain PyTorch version at the main path's
    shapes (bf16), with its time, the plain version's time, one PyTorch
    library call's time as a yardstick (never used by the port) and the bound;
-5. main path: ``generate`` -- prefill 64 tokens, greedy-decode 256 over a
-   320-slot bf16 cache -- with launch counts checked per kernel, then the
-   per-token protocol of ``main.benchmark``;
-6. profile: device busy time and idle share of a decode step and of the
-   prefill, with the kernels that take it (torch.profiler);
-7. oracle: the same model dequantized into a dense bf16 model that runs plain
+5. probes: P2 (dma_only, unpack_only), P3 (dma_tile at bn 256, 512, 1024)
+   and P4 (gemv_ablation, nine variants at the down and qkv shapes) against
+   their plain versions, timed hot (one buffer) and cold (rotating over
+   copies past 200 MB), with K6 at P4's shapes;
+6. main path: ``generate`` -- prefill 64 tokens, greedy-decode 256 over a
+   320-slot bf16 cache, the decode loop as replays of one captured CUDA
+   graph -- with launch counts checked per kernel, then the per-token
+   protocol of ``main.benchmark``;
+7. profile: device busy time and idle share of an eager decode step and of
+   the prefill, with the kernels that take it (torch.profiler);
+8. oracle: the same model dequantized into a dense bf16 model that runs plain
    PyTorch; the generated tokens teacher-forced through both paths (max logit
    difference per step, bounded), PPL of both on synthetic windows, greedy
    agreement;
-8. train kernels: K7 (transposed INT4 GEMM of the backward) and K2 at the
+9. train kernels: K7 (transposed INT4 GEMM of the backward) and K2 at the
    training shapes (M = 4 x 512 rows) against their plain versions, timed
    beside their bounds and a ``torch.matmul`` yardstick;
-9. train grad: the autograd linear's ``dx`` and ``dow`` on the full upgate
+10. train grad: the autograd linear's ``dx`` and ``dow`` on the full upgate
    stage against autograd through the plain version in f32;
-10. train oracle: loss and weak-column gradients of one 4 x 512 batch through
+11. train oracle: loss and weak-column gradients of one 4 x 512 batch through
    the kernel path and through the dense bf16 model, layers 0, 15 and 31;
-11. train: the WCT main path -- 6 ``make_train_step`` steps at full depth with
+12. train: the WCT main path -- 6 ``make_train_step`` steps at full depth with
    run_finetune's defaults -- with launch counts checked per step, step
    times, tokens/s, peak memory and the device's idle share;
-12. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
+13. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
    wct_final --eval --benchmark`` on a 4-layer model of full width, written
    with ``save_packed``; the tuned model is served through K1-K4;
-13. serving kernels: K4q (int8 decode attention), K8 (stacked-cache decode
+14. serving kernels: K4q (int8 decode attention), K8 (stacked-cache decode
    attention, bf16 and int8, slots >= pos poisoned) and K6 (the plain
    decode matvec at M = 1, 4, 8) against their plain versions, timed;
-14. int8 generate: 64 + 256 greedy over an int8 cache (K4q 32 x 255 times),
+15. int8 generate: 64 + 256 greedy over an int8 cache (K4q 32 x 255 times),
    teacher-forced through the bf16-cache path;
-15. stacked generate: the same with QEFT_ATTN_STACKED=1 over bf16 and int8
+16. stacked generate: the same with QEFT_ATTN_STACKED=1 over bf16 and int8
    caches (K8 32 x 255 times, K4 and K4q never);
-16. engine: ``measure_engine_throughput`` with its defaults (8 slots, 16
+17. graph: P1 (``probes.entry_overhead``) -- [A] the cost of one kernel
+   entry eagerly and in a graph, [B] each K1 stage in a graph, [C] the
+   decode step as graph replays and as the eager loop -- then each Llama
+   ``generate`` above against the eager loop (tokens identical), with the
+   graph step's host clock, busy time and idle share (OPT-6.7B and the
+   families likewise in their phases);
+18. engine: ``measure_engine_throughput`` with its defaults (8 slots, 16
    requests of 64 + 128, burst 16) over bf16 and int8 caches, then one
    counted serve -- launches per tick, every request checked against the
    single-sequence path;
-17. spec: ``SpecEngine`` with an 8-layer self-draft (gamma 4) over the same
+19. spec: ``SpecEngine`` with an 8-layer self-draft (gamma 4) over the same
    requests and ``speculative_generate_batched`` at B = 4, checked against
    the target's greedy choice under teacher forcing;
-18. serving cli: ``run_benchmark --method engine`` and ``--method
+20. serving cli: ``run_benchmark --method engine`` and ``--method
    spec-batch --draft_layers 8``;
-19. opt model: the Llama model freed, a random packed OPT-6.7B (w4/g128/r128,
+21. opt model: the Llama model freed, a random packed OPT-6.7B (w4/g128/r128,
    full width and depth) built on the card;
-20. family kernels: K5 (the unstacked decode matvec) against its plain version
+22. family kernels: K5 (the unstacked decode matvec) against its plain version
    at the six OPT-6.7B stage shapes, M = 1 and 8, with and without bias,
    timed beside its bound and ``torch.addmm`` on a pre-dequantized weight;
    every linear of layer 0 with its bias through K5 (M = 1) and K2 (M = 64);
    K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (staged in bands);
-21. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
+23. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
    with launch counts checked (K5 for every decode linear, K2 for the
    prefill, nothing else), a profiled decode step and prefill, and the
    dense-model oracle (teacher-forced logits, greedy agreement);
-22. families: Phi-2, Bloom-7b1 (per-linear ``reorder_ids``) and Falcon-7b
+24. families: Phi-2, Bloom-7b1 (per-linear ``reorder_ids``) and Falcon-7b
    (g = 64) at full width and 2 layers: every linear of layer 0 on its
    gathered input, with its bias, through K5 (M = 1) and K2 (M = 64)
    against the plain versions; prefill 64 + 32 greedy each, launch counts
    and the dense-model oracle;
-23. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
+25. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
    ``run_benchmark --method qeft --load`` as subprocesses.
 
 Each main path runs with the launch counts set to 0 just before it and read
@@ -92,13 +103,14 @@ import time
 import numpy as np
 import torch
 
+# the data-sheet peaks, the bound and the CUDA-event timer the probes use
+from qeft_tpu_torch.probes.common import PEAK_BF16, PEAK_HBM, bound_ms, time_ms
+
 PROMPT, NEW_TOKENS = 64, 256
 CACHE = PROMPT + NEW_TOKENS
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6  # run_finetune's defaults
 ORACLE_LAYERS = (0, 15, 31)
 LOSS_RTOL = 1e-2  # of the dense loss; see phase_train_oracle()
-PEAK_HBM = 3.35e12  # bytes/s, H100 SXM data sheet
-PEAK_BF16 = 989e12  # dense bf16 tensor FLOP/s, H100 SXM data sheet
 KERNEL_RTOL = 1e-2  # of max |plain|; see check()
 ORACLE_RTOL = 0.1  # of max |dense logit|; see phase_oracle()
 # measure_engine_throughput's defaults; the self-draft of run_benchmark's example
@@ -117,24 +129,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, inner: int = 10, reps: int = 7) -> float:
-    """Median device time of one ``fn(i)`` call.  A sleep kernel keeps the
-    card busy while the host enqueues the batch, so host overhead between
-    launches is not counted."""
-    fn(0)
-    times = []
-    for r in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for i in range(inner):
-            fn(r * inner + i)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
 def kernel_times(prof, per: int = 1):
     """(name, device ms) of each CUDA kernel a torch.profiler run recorded,
     divided by ``per``, longest first, and their sum."""
@@ -143,11 +137,6 @@ def kernel_times(prof, per: int = 1):
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     kernels = sorted((k for k in kernels if k[1] > 0), key=lambda k: -k[1])
     return kernels, sum(ms for _, ms in kernels)
-
-
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_HBM * 1e3, flops / PEAK_BF16 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def f32(t):
@@ -427,7 +416,7 @@ def phase_main(cfg, params, nbytes):
             "qgemm": 4 * cfg.num_layers, "flash_window_attention": cfg.num_layers}
     log(f"[main] generate: prefill {PROMPT} + {NEW_TOKENS} greedy tokens in {dt:.3f} s -> "
         f"{NEW_TOKENS / dt:.2f} tok/s, {dt / NEW_TOKENS * 1e3:.3f} ms/token (host clock, "
-        f"Python decode loop); prefill alone {prefill_ms:.2f} ms")
+        f"decode loop as CUDA graph replays); prefill alone {prefill_ms:.2f} ms")
     kv_per_pos = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
     mean_pos = PROMPT + steps / 2
     per_token = nbytes + kv_per_pos * mean_pos
@@ -440,7 +429,7 @@ def phase_main(cfg, params, nbytes):
         raise AssertionError("generated tokens out of range")
     bench = cli.benchmark(params, cfg, api, NEW_TOKENS, torch.device("cuda"), "synthetic", 0)
     return prompt, tokens, dict(tok_s=NEW_TOKENS / dt, ms_token=dt / NEW_TOKENS * 1e3,
-                                        prefill_ms=prefill_ms, **bench)
+                                prefill_ms=prefill_ms, seconds=dt, **bench)
 
 
 @torch.inference_mode()
@@ -465,7 +454,8 @@ def phase_profile(cfg, params, prompt, family="llama", tag="profile"):
             api.decode_step(params, tok, cache, PROMPT + i, cfg)
 
     out = {}
-    for label, work, per in (("prefill", lambda c: prefill(), 1), ("decode step", decode, steps)):
+    for label, work, per in (("prefill", lambda c: prefill(), 1),
+                             ("eager decode step", decode, steps)):
         cache = prefill()
         torch.cuda.synchronize()
         tick = time.perf_counter()
@@ -1085,7 +1075,7 @@ def phase_int8_generate(cfg, params, prompt):
     if counts != want:
         raise AssertionError("the int8 path did not launch each kernel as expected")
     res = _against_bf16_path(cfg, params, prompt, tokens, "int8", quantized=True)
-    return dict(tok_s=NEW_TOKENS / dt, **res)
+    return dict(tok_s=NEW_TOKENS / dt, tokens=tokens, seconds=dt, **res)
 
 
 def phase_stacked_generate(cfg, params, prompt):
@@ -1106,8 +1096,161 @@ def phase_stacked_generate(cfg, params, prompt):
             if counts != want:
                 raise AssertionError(f"{label}: did not launch each kernel as expected")
             res = _against_bf16_path(cfg, params, prompt, tokens, label, quantized)
-        out[label] = dict(tok_s=NEW_TOKENS / dt, **res)
+        out[label] = dict(tok_s=NEW_TOKENS / dt, tokens=tokens, seconds=dt, **res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the decode loop as one CUDA graph, and the probes (P1-P4)
+
+
+@torch.inference_mode()
+def _graph_step_profile(family, cfg, params, prompt, quantized=False, steps=16):
+    """Host clock per step and device busy time (torch.profiler) of
+    ``steps`` replays of the captured decode step after a prefill; the idle
+    share is what the busy time leaves of the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qeft_tpu_torch.generate import DecodeLoop, SampleConfig
+    from qeft_tpu_torch.models.api import get_model_api
+
+    api = get_model_api(family)
+    cache = api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda", quantized=quantized)
+    logits, cache = api.prefill(params, prompt, cache, cfg)
+    tokens = torch.zeros(1, 2 * steps + 2, dtype=torch.int64, device="cuda")
+    tokens[:, 0] = logits[:, -1].argmax(-1)
+    loop = DecodeLoop(api, params, cache, cfg, tokens, PROMPT, SampleConfig(), None)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        loop.step()
+    graph = loop.capture(stream)
+    torch.cuda.synchronize()
+    tick = time.perf_counter()
+    graph.replay(steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - tick) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay(steps)
+        torch.cuda.synchronize()
+    kernels, busy = kernel_times(prof, steps)
+    return wall, busy, kernels
+
+
+def _graph_case(label, family, cfg, params, prompt, tokens, seconds, quantized=False):
+    """The eager decode loop (``generate(graph=False)``) on the model and
+    prompt a graph-run ``generate`` took ``seconds`` for: tokens identical;
+    tok/s of both, and the graph step's host clock, busy time and idle
+    share."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+
+    api = get_model_api(family)
+    n = tokens.shape[1]
+    cache = api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda", quantized=quantized)
+    torch.cuda.synchronize()
+    tick = time.perf_counter()
+    eager, _ = generate(params, prompt, cache, cfg, n, api=api, device="cuda", graph=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - tick
+    same = torch.equal(eager, tokens)
+    wall, busy, kernels = _graph_step_profile(family, cfg, params, prompt, quantized)
+    idle = "not measured" if busy == 0 else f"{max(0.0, 1 - busy / wall):.1%}"
+    log(f"[graph] {label}: {PROMPT} + {n} tokens, graph {n / seconds:.2f} tok/s, eager loop "
+        f"{n / dt:.2f} tok/s (host clock, prefill included); graph step {wall:.3f} ms host clock, "
+        f"device busy {busy:.3f} ms -> idle share {idle}; tokens identical to the eager loop: "
+        f"{same}")
+    for name, ms in kernels[:4]:
+        log(f"    {ms * 1e3:9.1f} us  {name[:90]}")
+    if not same:
+        raise AssertionError(f"{label}: the graph and the eager loop chose other tokens")
+    return dict(graph_tok_s=n / seconds, eager_tok_s=n / dt, graph_step_ms=wall, busy_ms=busy,
+                idle=None if busy == 0 else max(0.0, 1 - busy / wall))
+
+
+def phase_graph(cfg, params, prompt, runs, bw, rows):
+    """P1 [A], [B], [C] (``probes.entry_overhead``) on the full model, then
+    each Llama ``generate`` of the phases before -- bf16, int8, stacked bf16
+    and int8 -- against the eager loop (``runs``: label -> (tokens, seconds,
+    quantized, stacked))."""
+    from qeft_tpu_torch.probes import entry_overhead as p1
+
+    with counted("graph probe"):
+        res = p1.measure(params, cfg, torch.device("cuda"))
+    p1.print_summary(res, cfg)
+    e = res["entry"]
+    row = rows["add_one"] = Row("add_one", "qeft_tpu_torch/csrc/probes.cu",
+                                "scripts/entry_overhead_probe.py:67", True)
+    row.add(0.0, e["kernel graph"]["device_us"] * 1e-3, e["torch.add eager"]["device_us"] * 1e-3,
+            e["torch.add graph"]["device_us"] * 1e-3, 2 * 8 * 128 * 4, 0, bw)
+    row.d.update(eager_host_us=e["kernel eager"]["host_us"],
+                 eager_device_us=e["kernel eager"]["device_us"],
+                 graph_host_us=e["kernel graph"]["host_us"],
+                 per=("one entry of a chain of 512 in a CUDA graph (CUDA events); plain: torch.add "
+                      "eagerly, library: torch.add in a graph; exact"))
+    out = {"p1": res}
+    for label, (tokens, seconds, quantized, stacked) in runs.items():
+        with environ(QEFT_ATTN_STACKED="1" if stacked else "0"):
+            out[label] = _graph_case(label, "llama", cfg, params, prompt, tokens, seconds,
+                                     quantized)
+    return out
+
+
+def phase_probes(bw, rows):
+    """P2, P3 and P4 at their scripts' shapes: each kernel against its plain
+    version (P2 and P3 exact, P4 within KERNEL_RTOL of the output's scale),
+    timed hot (one buffer, as the scripts run them) and cold (rotating over
+    copies past 200 MB), beside the plain version, one PyTorch call where
+    one computes the same function and the bound; K6 at P4's shapes."""
+    from qeft_tpu_torch.probes import dma, dma2
+    from qeft_tpu_torch.probes import gemv_ablation as p4
+
+    dev = torch.device("cuda")
+    with counted("probes"):
+        r2, r3, r4 = dma.measure(dev), dma2.measure(dev), p4.measure(dev)
+    src = "qeft_tpu_torch/csrc/probes.cu"
+    for name, line, lib in (("dma_only", 18, True), ("unpack_only", 52, False)):
+        t = r2[name]
+        row = rows[name] = Row(name, src, f"scripts/dma_probe.py:{line}", lib)
+        row.add(t["max_abs_err"], t["cold_ms"], t["plain_ms"], t.get("library_ms"), r2["bytes"], 0,
+                bw)
+        row.d.update(hot_ms=t["hot_ms"], hot_GBps=t["hot_GBps"], cold_GBps=t["cold_GBps"],
+                     per=f"one launch over [{dma.K8}, {dma.N}] int32 words, cold (hot_ms: one "
+                         "buffer); exact" + ("; library: qw.sum(0)" if lib else ""))
+        log(f"[probes] P2 {name}: hot {t['hot_ms'] * 1e3:.2f} us ({t['hot_GBps']:.0f} GB/s), cold "
+            f"{t['cold_ms'] * 1e3:.2f} us ({t['cold_GBps']:.0f} GB/s), plain "
+            f"{t['plain_ms'] * 1e3:.1f} us" + (f", qw.sum(0) {t['library_ms'] * 1e3:.2f} us"
+                                                if lib else "")
+            + f"; bound {r2['bytes'] / PEAK_HBM * 1e6:.2f} us; exact")
+    row = rows["dma_tile"] = Row("dma_tile", src, "scripts/dma_probe2.py:19", False)
+    t = r3["bn512"]
+    row.add(t["max_abs_err"], t["cold_ms"], r3["plain_ms"], None, r3["bytes"], 0, bw)
+    row.d.update(hot_ms=t["hot_ms"], by_bn={bn: {k: r3[f"bn{bn}"][k] for k in (
+        "hot_ms", "cold_ms", "hot_GBps", "cold_GBps")} for bn in dma2.BNS},
+        per=f"one launch over [{dma.K8}, {dma.N}] int32 words at bn = 512, cold; exact")
+    for bn in dma2.BNS:
+        t = r3[f"bn{bn}"]
+        log(f"[probes] P3 dma_tile bn={bn}: hot {t['hot_ms'] * 1e3:.2f} us ({t['hot_GBps']:.0f} "
+            f"GB/s), cold {t['cold_ms'] * 1e3:.2f} us ({t['cold_GBps']:.0f} GB/s); exact")
+    row = rows["gemv_ablation"] = Row("gemv_ablation", src, "scripts/gemv_ablation_probe.py:140",
+                                      True)
+    for label, r in r4.items():
+        t = r["v0_full"]
+        row.add(max(r[v]["max_abs_err"] for v in p4.VARIANTS), t["cold_ms"], r["plain_ms"],
+                r["library_ms"], r["bytes"], 2 * p4.M * r["K"] * r["N"], bw)
+        log(f"[probes] P4 {label}: bound {r['bound_ms'] * 1e3:.2f} us; torch.matmul on the "
+            f"dequantized weight {r['library_ms'] * 1e3:.1f} us; plain v0_full "
+            f"{r['plain_ms'] * 1e3:.1f} us; K6 M=8 hot {r['k6']['hot_ms'] * 1e3:.1f} us, cold "
+            f"{r['k6']['cold_ms'] * 1e3:.1f} us (bound {r['k6']['bound_ms'] * 1e3:.2f} us)")
+        for v in p4.VARIANTS:
+            t = r[v]
+            log(f"    {v:11s} hot {t['hot_ms'] * 1e3:7.1f} us, cold {t['cold_ms'] * 1e3:7.1f} us "
+                f"({t['cold_GBps']:.0f} GB/s of words), max_abs_err {t['max_abs_err']:.4g}")
+    row.d.update(per=("v0_full at down 11008->4096 + qkv 4096->12288, M=8, g=128, cold; every "
+                      "variant within KERNEL_RTOL of its plain version"),
+                 variants={label: {v: {k: r[v][k] for k in ("hot_ms", "cold_ms")}
+                                   for v in p4.VARIANTS} for label, r in r4.items()},
+                 k6={label: r["k6"] for label, r in r4.items()})
+    return dict(p2=r2, p3=r3, p4=r4)
 
 
 def _engine_prompts(cfg):
@@ -1484,8 +1627,8 @@ def _family_generate(family, cfg, params, new_tokens, label):
     linears = len(get_model_meta(family).all_linears) * cfg.num_layers
     want = {"qgemv": linears * (new_tokens - 1), "qgemm": linears}
     log(f"[{label}] prefill {PROMPT} + {new_tokens} greedy tokens in {dt:.3f} s -> "
-        f"{new_tokens / dt:.2f} tok/s, {dt / new_tokens * 1e3:.3f} ms/token (host clock, Python "
-        f"decode loop); launches {c.counts}; expected {want}")
+        f"{new_tokens / dt:.2f} tok/s, {dt / new_tokens * 1e3:.3f} ms/token (host clock, decode "
+        f"loop as CUDA graph replays); launches {c.counts}; expected {want}")
     if c.counts != want:
         raise AssertionError(f"{label}: did not launch each kernel as expected")
     if tokens.shape != (1, new_tokens) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
@@ -1522,12 +1665,14 @@ def phase_opt(cfg, params, nbytes):
     """OPT-6.7B's main path: ``generate`` at full depth, a profiled decode
     step and prefill, the dense-model oracle."""
     prompt, tokens, dt = _family_generate("opt", cfg, params, NEW_TOKENS, "opt generate")
+    graph = _graph_case("opt-6.7b", "opt", cfg, params, prompt, tokens, dt)
     per_token = nbytes + 2 * cfg.num_layers * cfg.hidden_size * 2 * (PROMPT + NEW_TOKENS / 2)
     log(f"[opt generate] bytes/token about {per_token:.0f} (weights, final norm, lm_head and the "
         f"mean cached K/V) -> {per_token / (dt / NEW_TOKENS) / 1e9:.1f} GB/s achieved")
     prof = phase_profile(cfg, params, prompt, family="opt", tag="opt-profile")
     res = _dense_oracle("opt oracle", "opt", cfg, params, prompt, tokens)
-    return dict(tok_s=NEW_TOKENS / dt, ms_token=dt / NEW_TOKENS * 1e3, profile=prof, **res)
+    return dict(tok_s=NEW_TOKENS / dt, ms_token=dt / NEW_TOKENS * 1e3, profile=prof, graph=graph,
+                **res)
 
 
 def phase_families(rows):
@@ -1554,8 +1699,10 @@ def phase_families(rows):
         _check_layer0(preset, params["layers"], rows)
         prompt, tokens, dt = _family_generate(family, cfg, params, FAMILY_NEW,
                                               f"{preset} generate")
-        out[preset] = dict(tok_s=FAMILY_NEW / dt, **_dense_oracle(f"{preset} oracle", family, cfg,
-                                                                  params, prompt, tokens))
+        graph = _graph_case(preset, family, cfg, params, prompt, tokens, dt)
+        out[preset] = dict(tok_s=FAMILY_NEW / dt, graph=graph,
+                           **_dense_oracle(f"{preset} oracle", family, cfg, params, prompt,
+                                           tokens))
         del params
         torch.cuda.empty_cache()
     return out
@@ -1618,11 +1765,17 @@ def main() -> int:
     cfg, params, nbytes, bw = timed(phase_model)
     rows = timed(phase_kernels, cfg, params, bw)
     timed(phase_serving_kernels, cfg, params, bw, rows)
+    timed(phase_probes, bw, rows)
     prompt, tokens, main_res = timed(phase_main, cfg, params, nbytes)
     timed(phase_profile, cfg, params, prompt)
     timed(phase_oracle, cfg, params, prompt, tokens)
-    timed(phase_int8_generate, cfg, params, prompt)
-    timed(phase_stacked_generate, cfg, params, prompt)
+    int8 = timed(phase_int8_generate, cfg, params, prompt)
+    stacked = timed(phase_stacked_generate, cfg, params, prompt)
+    runs = {"llama2-7b bf16": (tokens, main_res["seconds"], False, False),
+            "llama2-7b int8": (int8["tokens"], int8["seconds"], True, False)}
+    for label, r in stacked.items():
+        runs[f"llama2-7b {label}"] = (r["tokens"], r["seconds"], "int8" in label, True)
+    timed(phase_graph, cfg, params, prompt, runs, bw, rows)
     timed(phase_engine, cfg, params)
     timed(phase_spec, cfg, params)
     timed(phase_serving_cli)

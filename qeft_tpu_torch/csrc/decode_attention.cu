@@ -32,6 +32,17 @@
 // accumulator) in f32 scratch; a second small pass rescales and combines the
 // chunks (and K8's new-token term).  Slots past the valid prefix are never
 // read.
+//
+// Position on the device (pos_dev, an int64 scalar; NULL: the host int
+// pos).  A decode step captured once as a CUDA graph and replayed at every
+// position reads its position from the device.  The launch then has the
+// split count of the cache's full length; each block computes the valid
+// length and the split count the host-int launch would have used (the same
+// formula), blocks past it exit at once, and the combine pass reads only
+// those splits -- so chunk bounds and summation order, and hence the
+// output, are bit-identical to the host-int launch at the same position.
+// The range check of such a position is the caller's (once per loop); the
+// kernels clamp it into the cache, so a bad one reads no memory outside.
 
 #include <type_traits>
 
@@ -42,6 +53,15 @@ using namespace qeft;
 namespace {
 
 constexpr int kD_THREADS = 256;  // = keys per chunk at most
+
+// the valid slots at the device position (pos + len_off, clamped into the
+// cache) and the split count a host-int launch gives them
+__device__ __forceinline__ int valid_len(const long long* pos_dev, int len_off, int S) {
+  return (int)min(max(*pos_dev + len_off, 0LL), (long long)S);
+}
+__device__ __forceinline__ int splits_of(int len) {
+  return max(1, (len + kD_THREADS - 1) / kD_THREADS);
+}
 
 // element type of the cache: bf16, or int8 codes when Q8
 template <bool Q8>
@@ -91,6 +111,7 @@ decode_split_kernel(const bf16* __restrict__ q, const kv_t<Q8>* __restrict__ k,
                     const kv_t<Q8>* __restrict__ v, const float* __restrict__ ks,
                     const float* __restrict__ vs, float* __restrict__ part_acc,
                     float* __restrict__ part_m, float* __restrict__ part_l,
+                    const long long* __restrict__ pos_dev, int len_off,
                     int BH, int H, int Hkv, int S, int len, int n_split) {
   constexpr int HALF = D / 2;                 // dim pairs
   constexpr int GROUPS = kD_THREADS / HALF;   // key strides of the P.V pass
@@ -100,6 +121,11 @@ decode_split_kernel(const bf16* __restrict__ q, const kv_t<Q8>* __restrict__ k,
   __shared__ float red[32];
 
   const int split = blockIdx.x, bh = blockIdx.y;
+  if (pos_dev != nullptr) {
+    len = valid_len(pos_dev, len_off, S);
+    n_split = splits_of(len);
+    if (split >= n_split) return;
+  }
   const int b = bh / H, h = bh - b * H;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
@@ -176,9 +202,11 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const bf16* __restrict__ q,
                                       const bf16* __restrict__ k_new,
                                       const bf16* __restrict__ v_new, bf16* __restrict__ out,
+                                      const long long* __restrict__ pos_dev, int len_off, int S,
                                       int BH, int H, int Hkv, int D, int n_split) {
   __shared__ float red[32];
   const int bh = blockIdx.x, d = threadIdx.x;
+  if (pos_dev != nullptr) n_split = splits_of(valid_len(pos_dev, len_off, S));
   float mx = -CUDART_INF_F, s_new = 0.f, vn = 0.f;
   if (k_new != nullptr) {
     const int b = bh / H, h = bh - b * H;
@@ -207,29 +235,33 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
 template <int D, bool Q8>
 cudaError_t launch_decode(const bf16* q, const void* k, const void* v, const float* ks,
                           const float* vs, const bf16* k_new, const bf16* v_new, bf16* out,
-                          float* part_acc, float* part_m, float* part_l, int B, int H, int Hkv,
+                          float* part_acc, float* part_m, float* part_l,
+                          const long long* pos_dev, int len_off, int B, int H, int Hkv,
                           int S, int len, int n_split, cudaStream_t st) {
   const int BH = B * H;
   dim3 grid(n_split, BH);
   decode_split_kernel<D, Q8><<<grid, kD_THREADS, 0, st>>>(
       q, static_cast<const kv_t<Q8>*>(k), static_cast<const kv_t<Q8>*>(v), ks, vs, part_acc,
-      part_m, part_l, BH, H, Hkv, S, len, n_split);
+      part_m, part_l, pos_dev, len_off, BH, H, Hkv, S, len, n_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<<<BH, D, 0, st>>>(part_acc, part_m, part_l, q, k_new, v_new, out, BH, H,
-                                          Hkv, D, n_split);
+  decode_combine_kernel<<<BH, D, 0, st>>>(part_acc, part_m, part_l, q, k_new, v_new, out, pos_dev,
+                                          len_off, S, BH, H, Hkv, D, n_split);
   return cudaGetLastError();
 }
 
-// every entry point: checks, then the (D, int8) instance over `len` slots
+// every entry point: checks, then the (D, int8) instance over `len` slots,
+// or over pos_dev[0] + len_off slots with `len` and `n_split` the capacity
 int run(const void* q, const void* k, const void* v, const void* ks, const void* vs,
         const void* k_new, const void* v_new, void* out, void* part_acc, void* part_m,
-        void* part_l, int B, int H, int Hkv, int S, int D, int len, int n_split, void* stream) {
+        void* part_l, const void* pos_dev, int len_off, int B, int H, int Hkv, int S, int D,
+        int len, int n_split, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || len < 0 || len > S || n_split < 1 ||
       (ks == nullptr) != (vs == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((len + n_split - 1) / n_split > kD_THREADS) return (int)cudaErrorInvalidValue;
   const bool q8 = ks != nullptr;
+  const long long* pd = static_cast<const long long*>(pos_dev);
   const bf16* qq = static_cast<const bf16*>(q);
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
@@ -242,10 +274,10 @@ int run(const void* q, const void* k, const void* v, const void* ks, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define QEFT_CASE(DD)                                                                          \
   case DD:                                                                                     \
-    return q8 ? (int)launch_decode<DD, true>(qq, k, v, kss, vss, kn, vn, o, pa, pm, pl, B, H,  \
-                                             Hkv, S, len, n_split, st)                         \
-              : (int)launch_decode<DD, false>(qq, k, v, kss, vss, kn, vn, o, pa, pm, pl, B, H, \
-                                              Hkv, S, len, n_split, st);
+    return q8 ? (int)launch_decode<DD, true>(qq, k, v, kss, vss, kn, vn, o, pa, pm, pl, pd,    \
+                                             len_off, B, H, Hkv, S, len, n_split, st)          \
+              : (int)launch_decode<DD, false>(qq, k, v, kss, vss, kn, vn, o, pa, pm, pl, pd,   \
+                                              len_off, B, H, Hkv, S, len, n_split, st);
   switch (D) {
     QEFT_CASE(64) QEFT_CASE(128) QEFT_CASE(256)
   }
@@ -255,32 +287,38 @@ int run(const void* q, const void* k, const void* v, const void* ks, const void*
 
 }  // namespace
 
-extern "C" int decode_attention(const void* q, const void* k, const void* v, void* out,
-                                void* part_acc, void* part_m, void* part_l, int B, int H,
-                                int Hkv, int S, int D, int pos, int n_split, void* stream) {
+// pos_dev: NULL, or the int64 position on the device -- pos is then not
+// read and n_split is the capacity, ceil(S / 256); likewise below
+extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* pos_dev,
+                                void* out, void* part_acc, void* part_m, void* part_l, int B,
+                                int H, int Hkv, int S, int D, int pos, int n_split,
+                                void* stream) {
+  if (pos_dev != nullptr) pos = S - 1;
   if (pos < 0 || pos >= S) return (int)cudaErrorInvalidValue;
-  return run(q, k, v, nullptr, nullptr, nullptr, nullptr, out, part_acc, part_m, part_l, B, H,
-             Hkv, S, D, pos + 1, n_split, stream);
+  return run(q, k, v, nullptr, nullptr, nullptr, nullptr, out, part_acc, part_m, part_l, pos_dev,
+             1, B, H, Hkv, S, D, pos + 1, n_split, stream);
 }
 
 // ks, vs: f32 [B, Hkv, S] per-vector scales of the int8 codes k, v
 extern "C" int decode_attention_int8(const void* q, const void* k, const void* v, const void* ks,
-                                     const void* vs, void* out, void* part_acc, void* part_m,
-                                     void* part_l, int B, int H, int Hkv, int S, int D, int pos,
-                                     int n_split, void* stream) {
+                                     const void* vs, const void* pos_dev, void* out,
+                                     void* part_acc, void* part_m, void* part_l, int B, int H,
+                                     int Hkv, int S, int D, int pos, int n_split, void* stream) {
+  if (pos_dev != nullptr) pos = S - 1;
   if (pos < 0 || pos >= S || ks == nullptr || vs == nullptr) return (int)cudaErrorInvalidValue;
-  return run(q, k, v, ks, vs, nullptr, nullptr, out, part_acc, part_m, part_l, B, H, Hkv, S, D,
-             pos + 1, n_split, stream);
+  return run(q, k, v, ks, vs, nullptr, nullptr, out, part_acc, part_m, part_l, pos_dev, 1, B, H,
+             Hkv, S, D, pos + 1, n_split, stream);
 }
 
 // k, v: the stacked [L, B, Hkv, S, D] cache (bf16 when ks is NULL, else int8
 // with f32 [L, B, Hkv, S] scales ks, vs); k_new, v_new: bf16 [B, Hkv, D]
 extern "C" int decode_attention_stacked(const void* q, const void* k, const void* v,
                                         const void* ks, const void* vs, const void* k_new,
-                                        const void* v_new, void* out, void* part_acc,
-                                        void* part_m, void* part_l, int L, int B, int H, int Hkv,
-                                        int S, int D, int layer, int pos, int n_split,
-                                        void* stream) {
+                                        const void* v_new, const void* pos_dev, void* out,
+                                        void* part_acc, void* part_m, void* part_l, int L, int B,
+                                        int H, int Hkv, int S, int D, int layer, int pos,
+                                        int n_split, void* stream) {
+  if (pos_dev != nullptr) pos = S - 1;
   if (layer < 0 || layer >= L || pos < 0 || pos >= S || k_new == nullptr || v_new == nullptr)
     return (int)cudaErrorInvalidValue;
   const size_t vecs = (size_t)layer * B * Hkv * S;  // vectors before this layer
@@ -289,6 +327,6 @@ extern "C" int decode_attention_stacked(const void* q, const void* k, const void
   const char* vl = static_cast<const char*>(v) + vecs * D * elt;
   const float* ksl = ks != nullptr ? static_cast<const float*>(ks) + vecs : nullptr;
   const float* vsl = vs != nullptr ? static_cast<const float*>(vs) + vecs : nullptr;
-  return run(q, kl, vl, ksl, vsl, k_new, v_new, out, part_acc, part_m, part_l, B, H, Hkv, S, D,
-             pos, n_split, stream);
+  return run(q, kl, vl, ksl, vsl, k_new, v_new, out, part_acc, part_m, part_l, pos_dev, 0, B, H,
+             Hkv, S, D, pos, n_split, stream);
 }

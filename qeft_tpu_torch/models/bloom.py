@@ -13,6 +13,7 @@ are those of `models.common`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional
 
@@ -113,10 +114,19 @@ def init_params(cfg: BloomConfig, seed: int = 0, dtype=None, device=None) -> Dic
     }
 
 
+@functools.lru_cache(maxsize=None)
+def _slopes_on(n_heads: int, device: torch.device) -> torch.Tensor:
+    """`alibi_slopes` copied to ``device`` once: a copy from host memory
+    inside the decode step would wait for the device (and cannot be
+    captured in a CUDA graph)."""
+    return alibi_slopes(n_heads).to(device)
+
+
 def _alibi_bias(cfg: BloomConfig, n_keys: int, device) -> torch.Tensor:
     """[1, H, 1, Sk] additive score bias: slopes[h] * key_pos."""
     key_pos = torch.arange(n_keys, dtype=torch.float32, device=device)
-    return (alibi_slopes(cfg.num_heads).to(device)[:, None] * key_pos[None, :])[None, :, None, :]
+    slopes = _slopes_on(cfg.num_heads, torch.device(device))
+    return (slopes[:, None] * key_pos[None, :])[None, :, None, :]
 
 
 def bloom_block(layers: Dict, l: int, x: torch.Tensor, cfg: BloomConfig, mask: torch.Tensor,

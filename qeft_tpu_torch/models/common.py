@@ -101,16 +101,27 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def cache_write(cache: Dict, l: int, kh: torch.Tensor, vh: torch.Tensor, pos: int):
-    """Layer ``l``'s window K/V (head-major [B, H_kv, W, Dh]) into the cache
-    at ``pos``, in place and clamped into the cache as
-    ``dynamic_update_slice`` clamps; returns the layer's whole K and V."""
-    s_max, w = cache["k"].shape[3], kh.shape[2]
-    start = min(max(pos, 0), s_max - w)
-    cache["k"][l][:, :, start: start + w] = kh.to(cache["k"].dtype)
-    cache["v"][l][:, :, start: start + w] = vh.to(cache["v"].dtype)
-    return cache["k"][l], cache["v"][l]
+def write_window(cache_l: torch.Tensor, t: torch.Tensor, pos, dim: int) -> None:
+    """``t`` into ``cache_l`` along ``dim`` at slot ``pos`` -- a Python int,
+    or an int64 scalar tensor read on the device -- in place, the window
+    clamped into the cache as ``dynamic_update_slice`` clamps it."""
+    s, s_max = t.shape[dim], cache_l.shape[dim]
+    if isinstance(pos, torch.Tensor):
+        slots = pos.reshape(()).clamp(0, s_max - s) + torch.arange(s, device=pos.device)
+        cache_l.index_copy_(dim, slots, t.to(cache_l.dtype))
+    else:
+        start = min(max(pos, 0), s_max - s)
+        cache_l.narrow(dim, start, s).copy_(t)
 
+
+def cache_write(cache: Dict, l: int, kh: torch.Tensor, vh: torch.Tensor, pos):
+    """Layer ``l``'s window K/V (head-major [B, H_kv, W, Dh]) into the cache
+    at ``pos`` (an int, or an int64 scalar tensor read on the device), in
+    place and clamped into the cache as ``dynamic_update_slice`` clamps;
+    returns the layer's whole K and V."""
+    for name, t in (("k", kh), ("v", vh)):
+        write_window(cache[name][l], t.to(cache[name].dtype), pos, 2)
+    return cache["k"][l], cache["v"][l]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +137,10 @@ class Decoder:
 
 
 def forward_window(dec: Decoder, params: Dict, tokens: torch.Tensor, cache: Optional[Dict],
-                   pos: int, cfg):
-    """A window of tokens [B, W] at offset ``pos``; with ``cache`` its K/V
+                   pos, cfg):
+    """A window of tokens [B, W] at offset ``pos`` (an int; for a decode
+    step also an int64 scalar tensor on the device, with bit-identical
+    logits: nothing here reads it on the host); with ``cache`` its K/V
     are written in place and attention reads the whole cache (prefill at
     pos = 0, a decode step at W = 1), without one it attends within the
     window.  Returns (logits [B, W, V], cache)."""
@@ -155,7 +168,8 @@ def prefill(dec: Decoder, params: Dict, tokens: torch.Tensor, cache: Dict, cfg):
     return forward_window(dec, params, tokens, cache, 0, cfg)
 
 
-def decode_step(dec: Decoder, params: Dict, token: torch.Tensor, cache: Dict, pos: int, cfg):
-    """One token [B, 1] at position ``pos``; returns (logits [B, V], cache)."""
+def decode_step(dec: Decoder, params: Dict, token: torch.Tensor, cache: Dict, pos, cfg):
+    """One token [B, 1] at position ``pos`` (an int or an int64 scalar
+    tensor); returns (logits [B, V], cache)."""
     logits, cache = forward_window(dec, params, token, cache, pos, cfg)
     return logits[:, 0, :], cache

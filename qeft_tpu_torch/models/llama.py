@@ -26,6 +26,12 @@ The KV cache is bf16 (or the activation dtype), or int8 codes with one f32
 scale per cached vector (``init_kv_cache(quantized=True)``).  Every cache
 write is in place and, like JAX's ``dynamic_update_slice``, clamps its
 window into the cache.
+
+The decode step takes its position as a Python int or as an int64 scalar
+tensor, with bit-identical logits: a tensor position is read on the device
+(RoPE, the clamped cache write by ``index_copy_``, the attention kernels),
+so a step captured once as a CUDA graph replays at every position
+(`generate.py`).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from qeft_tpu_torch.device import resolve_device
+from qeft_tpu_torch.models.common import write_window
 from qeft_tpu_torch.ops.attention import (
     decode_attention,
     decode_attention_plain,
@@ -261,7 +268,7 @@ def _block_out(layers: Dict, l: int, x: torch.Tensor, ctx: torch.Tensor,
 
 
 def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
-                      vh: torch.Tensor, pos: int, packed: bool) -> torch.Tensor:
+                      vh: torch.Tensor, pos, packed: bool) -> torch.Tensor:
     """Writes this window's K/V (head-major [B, Hkv, S, Dh]) into layer
     ``l`` of the cache at ``pos`` -- in place, which saves the copy of the
     whole slab a functional update would make, and clamped into the cache as
@@ -271,10 +278,9 @@ def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
     runs K3, over the dequantized valid prefix for an int8 cache."""
     b, s = q.shape[:2]
     s_max = cache["k"].shape[3]
-    start = min(max(pos, 0), s_max - s)
     quantized = cache_quantized(cache)
     for name, t in _cache_entries(kh, vh, quantized).items():
-        cache[name][l][:, :, start: start + s] = t
+        write_window(cache[name][l], t, pos, 2)
     k_all, v_all = cache["k"][l], cache["v"][l]
     if s == 1:
         attend = decode_attention if packed else decode_attention_plain
@@ -413,16 +419,17 @@ def _kv_dequantize(codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Ten
     return (codes.to(torch.float32) * scale[..., None]).to(dtype)
 
 
-def llama_forward_window(params: Dict, tokens: torch.Tensor, cache: Dict, pos: int,
+def llama_forward_window(params: Dict, tokens: torch.Tensor, cache: Dict, pos,
                          cfg: LlamaConfig):
-    """A window of tokens [B, W] at offset ``pos`` (a Python int) through the
+    """A window of tokens [B, W] at offset ``pos`` (a Python int; for a
+    decode step also an int64 scalar tensor on the device) through the
     cache: query i sits at position pos + i and attends slots <= pos + i.
     Prefill is pos = 0, a decode step W = 1, the speculative verify window
     W = gamma + 1.  Writes the window's K/V in place; returns (logits [B, W,
     V], cache)."""
     b, w = tokens.shape
     x = _embed(params, tokens, cfg)
-    cos, sin = rope_tables(cfg, torch.arange(pos, pos + w, device=tokens.device)[None, :])
+    cos, sin = rope_tables(cfg, (pos + torch.arange(w, device=tokens.device))[None, :])
     for l in range(_num_layers(params)):
         x = llama_block(params["layers"], l, x, cfg, cos, sin, cache=cache, pos=pos)
     return _lm_head(params, x, cfg), cache
@@ -441,7 +448,7 @@ def _stacked_attn_enabled() -> bool:
     return v is not None and v not in ("0", "false", "off")
 
 
-def _decode_step_stacked_attn(params: Dict, token: torch.Tensor, cache: Dict, pos: int,
+def _decode_step_stacked_attn(params: Dict, token: torch.Tensor, cache: Dict, pos,
                               cfg: LlamaConfig):
     """Decode step whose attention reads the whole stacked cache at each
     layer (K8): slots < pos plus this layer's new K/V, unquantized, as an
@@ -449,7 +456,7 @@ def _decode_step_stacked_attn(params: Dict, token: torch.Tensor, cache: Dict, po
     of every layer are written once after it."""
     layers = params["layers"]
     x = _embed(params, token, cfg)
-    cos, sin = rope_tables(cfg, torch.arange(pos, pos + 1, device=token.device)[None, :])
+    cos, sin = rope_tables(cfg, (pos + torch.arange(1, device=token.device))[None, :])
     quantized = cache_quantized(cache)
     scales = ({"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
               if quantized else {})
@@ -465,13 +472,14 @@ def _decode_step_stacked_attn(params: Dict, token: torch.Tensor, cache: Dict, po
         x = _block_out(layers, l, x, ctx, cfg)
     # [L, B, Hkv, Dh] per entry, one write each
     for name, t in _cache_entries(torch.stack(new_k), torch.stack(new_v), quantized).items():
-        cache[name][:, :, :, pos] = t
+        write_window(cache[name], t.unsqueeze(3), pos, 3)
     return _lm_head(params, x, cfg)[:, 0, :], cache
 
 
-def llama_decode_step(params: Dict, token: torch.Tensor, cache: Dict, pos: int,
+def llama_decode_step(params: Dict, token: torch.Tensor, cache: Dict, pos,
                       cfg: LlamaConfig):
-    """One token [B, 1] at position ``pos`` (a Python int); writes its K/V
+    """One token [B, 1] at position ``pos`` (a Python int or an int64 scalar
+    tensor on the token's device: bit-identical logits); writes its K/V
     into the cache in place and returns (logits [B, V], cache).  A packed
     model takes the stacked-cache step when ``QEFT_ATTN_STACKED`` is on."""
     if _stacked_attn_enabled() and is_packed(params):

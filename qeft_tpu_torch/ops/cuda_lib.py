@@ -10,6 +10,11 @@ Every launch goes through `launch`, which checks the ``cudaError_t`` the C
 entry point returns and counts the launch in `launches` under the kernel's
 name.  Nothing here falls back to a plain version: a failed build or launch
 raises.
+
+`Graph` captures a function as one CUDA graph.  A launch made while a graph
+is captured only records the kernel, so the counts its capture added are
+taken back out and added again at every replay: `launches` counts kernels
+that ran, captured or not.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("qmm.cu", "flash.cu", "decode_attention.cu")
+SOURCES = ("qmm.cu", "flash.cu", "decode_attention.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -63,17 +68,18 @@ _ENTRY_POINTS = {
         _P,  # stream
     ]),
     "decode_attention": ("decode_attention.cu", [
-        _P, _P, _P, _P, _P, _P, _P,  # q k v out part_acc part_m part_l
+        _P, _P, _P, _P, _P, _P, _P, _P,  # q k v pos_dev out part_acc part_m part_l
         _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos n_split
         _P,  # stream
     ]),
     "decode_attention_int8": ("decode_attention.cu", [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale out part_acc part_m part_l
+        _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale pos_dev
+        _P, _P, _P, _P,  # out part_acc part_m part_l
         _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos n_split
         _P,  # stream
     ]),
     "decode_attention_stacked": ("decode_attention.cu", [
-        _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale k_new v_new
+        _P, _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale k_new v_new pos_dev
         _P, _P, _P, _P,  # out part_acc part_m part_l
         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # L B H Hkv S D layer pos n_split
         _P,  # stream
@@ -86,6 +92,23 @@ _ENTRY_POINTS = {
     "qgemv": ("qmm.cu", [
         _P, _P, _P, _P, _P, _P, _P,  # x qweight scales szeros ow bias out
         _I, _I, _I, _I, _I,  # M K N group_size R
+        _P,  # stream
+    ]),
+    "add_one": ("probes.cu", [_P, _P, _I, _P]),  # x y n stream
+    "dma_only": ("probes.cu", [
+        _P, _P, _P, _P,  # qw out workspace tickets
+        _I, _I, _I,  # K8 N rows_per_block
+        _P,  # stream
+    ]),
+    "unpack_only": ("probes.cu", [_P, _P, _P, _P, _I, _I, _I, _P]),  # as dma_only
+    "dma_tile": ("probes.cu", [
+        _P, _P, _P,  # qw s out
+        _I, _I, _I, _I,  # K8 N bn rows_per_block
+        _P,  # stream
+    ]),
+    "gemv_ablation": ("probes.cu", [
+        _P, _P, _P, _P, _P, _P,  # x qw s out workspace tickets
+        _I, _I, _I, _I, _I, _I,  # K8 N G bn rows_per_block variant
         _P,  # stream
     ]),
 }
@@ -165,6 +188,45 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     launches[name] += 1
+
+
+class Graph:
+    """``fn()`` captured once as a CUDA graph on ``stream`` (the caller has
+    run it there before, so that lazy set-up -- library handles, workspaces,
+    the kernel libraries -- happens outside the capture); `replay` runs it
+    and counts its launches.  ``generators``: the ``torch.Generator`` s the
+    function draws from, registered so that each replay draws new numbers.
+
+    A host read of a device value inside ``fn`` (``.item()``, ``int()`` of a
+    tensor) makes the capture raise; nothing falls back to running ``fn``
+    eagerly.  ``output``: what ``fn`` returned at the capture, tensors that
+    every replay writes anew."""
+
+    def __init__(self, fn, stream: torch.cuda.Stream, generators=()):
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = stream
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        before = collections.Counter(launches)
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin()
+            try:
+                self.output = fn()
+            finally:
+                self.graph.capture_end()
+        self.counts = launches - before  # recorded, not run
+        for name, c in self.counts.items():
+            launches[name] -= c
+            if not launches[name]:
+                del launches[name]
+
+    def replay(self, n: int = 1) -> None:
+        """``n`` replays on the capture stream, in order, without waiting."""
+        with torch.cuda.stream(self.stream):
+            for _ in range(n):
+                self.graph.replay()
+        for name, c in self.counts.items():
+            launches[name] += c * n
 
 
 def ptr(t) -> int:

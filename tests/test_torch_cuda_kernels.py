@@ -371,3 +371,143 @@ def test_unstacked_decode_matvec_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError):  # K1 and K6 take no bias
         qmm.qgemv_stacked(x, dataclasses.replace(_packed(gen, 2, 256, 64, 64, 8),
                                                  bias=_randn(gen, 2, 64)), 0)
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels (P1-P4) against their plain versions; the decode
+# attention kernels at a position read on the device; the decode loop as a
+# CUDA graph against the eager loop
+
+
+def test_probe_add_one(gen):
+    from qeft_tpu_torch.probes import entry_overhead
+
+    x = torch.randn(8, 128, generator=gen, device="cuda")
+    before = cuda_lib.launches["add_one"]
+    got = entry_overhead.add_one(x)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["add_one"] == before + 1
+    assert torch.equal(got, x + 1.0)
+
+
+@pytest.mark.parametrize("k8,n", [(8, 128), (37, 260), (1376, 4096)])
+def test_probe_column_sums_exact(gen, k8, n):
+    """P2 bit-exact, twice in a row (each launch leaves its workspace zeroed)."""
+    from qeft_tpu_torch.probes import dma
+
+    qw = torch.randint(-2**31, 2**31, (k8, n), generator=gen, device="cuda",
+                       dtype=torch.int64).to(torch.int32)
+    for name in ("dma_only", "unpack_only"):
+        want = getattr(dma, f"{name}_plain")(qw)
+        for _ in range(2):
+            assert torch.equal(getattr(dma, name)(qw), want), name
+
+
+@pytest.mark.parametrize("bn", [256, 512, 1024])
+@pytest.mark.parametrize("k8", [8, 37, 1376])
+def test_probe_dma_tile_exact(gen, k8, bn):
+    from qeft_tpu_torch.probes import dma2
+
+    qw = torch.randint(-2**31, 2**31, (k8, 2048), generator=gen, device="cuda",
+                       dtype=torch.int64).to(torch.int32)
+    s = torch.randn(8, 2048, generator=gen, device="cuda")
+    before = cuda_lib.launches["dma_tile"]
+    got = dma2.dma_tile(qw, s, bn)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["dma_tile"] == before + 1
+    assert torch.equal(got, dma2.dma_tile_plain(qw, s))
+
+
+@pytest.mark.parametrize("k,n,g,bn", [(1024, 384, 128, 128), (11008, 4096, 128, 512),
+                                      (4096, 12288, 128, 512)])
+def test_probe_gemv_ablation(gen, k, n, g, bn):
+    """Every P4 variant within 1e-2 of its output's scale, twice in a row."""
+    from qeft_tpu_torch.probes import gemv_ablation as p4
+
+    x, qw, s = p4.random_inputs(k, n, g, seed=k, device="cuda")
+    for v in p4.VARIANTS:
+        want = p4.gemv_ablation_plain(v, x, qw, s, bn)
+        for _ in range(2):
+            got = p4.gemv_ablation(v, x, qw, s, bn)
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            err = (got.float() - want.float()).abs().max().item()
+            assert torch.isfinite(got.float()).all()
+            assert err <= RTOL * want.float().abs().max().item(), (v, err)
+
+
+@pytest.mark.parametrize("pos", [0, 255, 256, 4095])
+def test_decode_attention_at_a_device_position_is_bit_identical(gen, pos):
+    """K4, K4q and K8 (bf16 and int8) with the position read on the device,
+    launched over the whole 4096-slot cache's splits, give the host-int
+    launch's output bit for bit."""
+    b, h, hkv, d, s = 2, 8, 2, 128, 4096
+    q, kn, vn = _randn(gen, b, h, d), _randn(gen, b, hkv, d), _randn(gen, b, hkv, d)
+    at = torch.tensor(pos, device="cuda")
+    k, v = _randn(gen, b, hkv, s, d), _randn(gen, b, hkv, s, d)
+    (kc, ks), (vc, vs) = _int8_cache(gen, b, hkv, s, d), _int8_cache(gen, b, hkv, s, d)
+    for kw, kk, vv in (({}, k, v), ({"k_scale": ks, "v_scale": vs}, kc, vc)):
+        assert torch.equal(attention.decode_attention(q, kk, vv, at, **kw),
+                           attention.decode_attention(q, kk, vv, pos, **kw))
+        stacked = {n: t[None].expand(2, *t.shape).contiguous() for n, t in kw.items()}
+        sk, sv = (t[None].expand(2, *t.shape).contiguous() for t in (kk, vv))
+        assert torch.equal(attention.decode_attention_stacked(q, sk, sv, 1, at, kn, vn, **stacked),
+                           attention.decode_attention_stacked(q, sk, sv, 1, pos, kn, vn, **stacked))
+
+
+def _graph_models():
+    """(label, family, config, packed model on the card, QEFT_ATTN_STACKED,
+    int8 cache): two layers each."""
+    from qeft_tpu_torch.models.llama import LLAMA_PRESETS
+    from qeft_tpu_torch.models.opt import OPT_PRESETS
+    from qeft_tpu_torch.testing import build_packed_model
+
+    llama = dataclasses.replace(LLAMA_PRESETS["tiny-v2"], num_layers=2)
+    opt = dataclasses.replace(OPT_PRESETS["opt-125m"], num_layers=2)
+    lp = build_packed_model(llama, seed=0, g=128, r=16, device="cuda")
+    op = build_packed_model(opt, seed=0, g=128, r=16, device="cuda", family="opt")
+    return [("llama bf16", "llama", llama, lp, "0", False), ("llama int8", "llama", llama, lp, "0", True),
+            ("llama stacked", "llama", llama, lp, "1", False),
+            ("llama stacked int8", "llama", llama, lp, "1", True),
+            ("opt-125m", "opt", opt, op, "0", False)]
+
+
+def test_graph_generate_gives_the_eager_loop_tokens(gen, monkeypatch):
+    """``generate`` on the card replays one captured step: greedy tokens
+    equal to the eager loop's, and the launches counted as if each step had
+    run eagerly."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+
+    for label, family, cfg, params, stacked, int8 in _graph_models():
+        monkeypatch.setenv("QEFT_ATTN_STACKED", stacked)
+        api = get_model_api(family)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen, device="cuda")
+        out = {}
+        for graph in (True, False):
+            cache = api.init_cache(cfg, 2, 40, dtype=torch.bfloat16, device="cuda", quantized=int8)
+            cuda_lib.reset_launches()
+            out[graph], _ = generate(params, prompt, cache, cfg, 30, api=api, graph=graph)
+            torch.cuda.synchronize()
+            out[graph, "launches"] = dict(cuda_lib.launches)
+        assert torch.equal(out[True], out[False]), label
+        assert out[True, "launches"] == out[False, "launches"], label
+
+
+def test_graph_generate_samples_fresh_numbers_each_replay(gen):
+    from qeft_tpu_torch.generate import SampleConfig, generate
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.llama import LLAMA_PRESETS
+    from qeft_tpu_torch.testing import build_packed_model
+
+    cfg = dataclasses.replace(LLAMA_PRESETS["tiny-v2"], num_layers=2)
+    params = build_packed_model(cfg, seed=0, g=128, r=16, device="cuda")
+    api = get_model_api("llama")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 9), generator=gen, device="cuda")
+    sc = SampleConfig(greedy=False, temperature=2.0)
+    toks, _ = generate(params, prompt, api.init_cache(cfg, 1, 80, device="cuda"), cfg, 64,
+                       sc=sc, api=api)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert len(set(toks[0, 2:].tolist())) > 8  # replays do not repeat one draw
+    again, _ = generate(params, prompt, api.init_cache(cfg, 1, 80, device="cuda"), cfg, 64,
+                        sc=sc, api=api)
+    assert torch.equal(toks, again)  # seed 0 by default: the same draws from the same state
