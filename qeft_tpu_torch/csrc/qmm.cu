@@ -51,22 +51,31 @@
 //   every OPT, Phi, Bloom and Falcon layer at decode.
 //
 // qgemm (K2) replaces pallas_qmm.py::qgemm (_run_qmm / _qmm_kernel): the
-//   W4A16 GEMM for more rows (prefill, PPL windows), with the weak-column
-//   slab and an optional residual in the epilogue instead of separate GEMMs.
-//   Bound: at M = 64 still the weight bytes (as K1); at M in the thousands
-//   the bf16 tensor-core rate.
-//   Design: 64x64 output tile per block, 4 warps of 32x32 on bf16 WMMA
-//   (mma.sync) with f32 accumulators; the K loop walks one quantization
-//   group (g <= 128) per step: the group's g/8 word rows are dequantized
-//   (code*scale + zero, rounded to bf16 exactly as the plain version does)
-//   into a [g x 64] shared tile next to the [64 x g] activation slab.  The
-//   next group's words and activations are loaded into registers while the
-//   tensor cores work on the current one.  At prefill sizes the output tiles
-//   alone are too few to fill 132 SMs, so the groups are split over
-//   blockIdx.z (split-K); each split leaves an f32 partial tile and a second
-//   pass sums them in split order (deterministic) with the residual.  The
-//   weak columns follow, in the last split, as extra K steps that read
-//   oweight directly.  No TMA/wgmma yet.
+//   W4A16 GEMM for more rows (prefill, PPL windows, the training forward),
+//   with the weak-column slab and an optional residual in the epilogue
+//   instead of separate GEMMs.  Group sizes 64 and 128.
+//   Bound: at M = 64 the weight bytes (as K1), and in practice the
+//   dequantization on CUDA cores (each weight is turned into bf16 once per
+//   block row); at M = 2048 the bf16 tensor-core rate.
+//   Design (Hopper): a block of two warpgroups computes a BM x 128 tile with
+//   wgmma (m64n128k16 at BM = 128, m64n64k16 at BM = 64), f32 accumulators
+//   in registers.  A step is 64 K rows (half a group at g = 128): one thread
+//   has TMA bring the step's activation tile (in the 128-byte swizzle wgmma
+//   reads) and, once a group, its packed words, scales and zero points into
+//   a ring of 3 (BM = 128) or 4 (BM = 64) shared-memory stages, S - 1 steps
+//   ahead, each stage completing on its own mbarrier.  All 256 threads dequantize a
+//   stage's words (code*scale, then + zero, in f32, one rounding to bf16 --
+//   as the plain version) into a K-major, swizzled B tile, 16 bytes a store,
+//   while the tensor cores run the previous step's wgmmas, which read the
+//   activations straight from the ring.  So each [g x 128] weight tile is
+//   dequantized once per 128 rows at M > 64 (16 times at M = 2048, against
+//   32 before).  Two blocks share an SM, so one block's barriers and
+//   dequantization overlap the other's tensor-core work.  At 9..64 rows BM
+//   = 64 and the groups are split over blockIdx.z (split-K, at least about
+//   two blocks per SM, no empty split); each split leaves an f32 partial
+//   tile and a second pass sums them in split order (deterministic) with
+//   the residual.  The weak columns follow, in the last split, as steps of
+//   32 K rows that copy oweight into the B tile.
 //
 // qgemm_t (K7) replaces pallas_qmm.py::qgemm_t (_qmm_t_kernel): the training
 //   backward dx = g @ W_deq^T from the packed codes, over ALL K rows (the
@@ -75,21 +84,18 @@
 //   outside) on the last r columns before the one rounding to bf16.
 //   Bound: at M = 2048 the bf16 tensor-core rate (2*M*K*N operations against
 //   K*N/2 code bytes and 2*M*(N + K) activation bytes).
-//   Design: one block per (64-row M tile, one quantization group of K
-//   columns); a loop over N in chunks of 64 takes the place of the TPU's
-//   sequential reduction axis, so nothing is carried between blocks.  Each
-//   chunk dequantizes the group's g/8 word rows x 8 planes (mul then add, as
-//   K2 and the plain version round) into a [g][64] shared tile -- word row
-//   jj, nibble p is K column p*(g/8) + jj of the group, so the block writes
-//   its g output columns in original K order and no inverse permutation is
-//   needed -- and 4 warps of 16 rows run bf16 WMMA against the [64 x 64] g
-//   tile, the W tile read column-major.  The next chunk's words and g tile
-//   are loaded into registers during the current chunk's MMAs, as in K2.  At
-//   M = 2048 this is 1,024 to 2,752 blocks; at small M the same grid runs
-//   K/g blocks with the rows past M masked (few blocks: slow, not wrong).
-//   No TMA/wgmma yet.
+//   Design: K2's main loop with the contraction over N.  A block owns BM
+//   rows x 128 output columns (one group at g = 128, two at g = 64) and
+//   loops over N in steps of 64 through a ring of 3 (BM = 128) or 4 stages;
+//   word row jj, nibble p is K column p*(g/8) + jj of its group, and N is
+//   the words' contiguous dimension, so W_deq^T is K-major
+//   (contraction-contiguous) as wgmma reads it: 8 consecutive words of one
+//   word row give one 16-byte chunk per plane.  The block writes its columns
+//   in original K order; no inverse permutation is needed.  At M = 2048
+//   each weight is dequantized 16 times (once per 128 rows), against 32
+//   before.
 
-#include <mma.h>
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -387,196 +393,519 @@ cudaError_t launch_qgemv(const bf16* x, const bf16* lnw, const int32_t* qw, cons
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- K2
+// ----------------------------------------------------------------- K2, K7
 
-namespace wmma = nvcuda::wmma;
+// One main loop serves both GEMMs (ROLE T7 = false: K2, true: K7).  A block
+// is 256 threads, two warpgroups, over a BM x 128 output tile: at BM = 128
+// each warpgroup owns 64 rows and all 128 columns (wgmma m64n128k16), at
+// BM = 64 each owns the 64 rows and half the columns (m64n64k16).  A step
+// contracts 64 rows of K (K2) or of N (K7).  Both operands sit K-major
+// (contraction-contiguous) in shared memory in the 128-byte swizzle wgmma
+// reads: rows of 64 bf16, 16-byte chunk c of row r at chunk c ^ (r & 7),
+// 8-row atoms of 1 KB.  Two blocks fit on an SM (shared memory under 113 KB,
+// at most 128 registers a thread), so one block's barriers and
+// dequantization overlap the other's tensor-core work.
 
-constexpr int kG_BM = 64, kG_BN = 64, kG_THREADS = 128;
-constexpr int kG_MAXG = 128;                                   // largest group a step holds
-constexpr int kG_A_PER = kG_BM * (kG_MAXG / 8) / kG_THREADS;   // 16-byte x chunks a thread
-constexpr int kG_B_PER = (kG_MAXG / 8) * kG_BN / kG_THREADS;   // words a thread
-constexpr int kG_LDB = kG_BN + 8;  // bf16 elements per shared B row
-constexpr int kG_LDC = kG_BN + 4;  // floats per shared C row
+constexpr int kM_THREADS = 256;
+constexpr int kM_BN = 128;   // output columns of a block (K2: of N; K7: of K)
+constexpr int kM_ROW = 128;  // bytes of one swizzled row: 64 bf16
+constexpr int kM_SZ = 512;   // a stage's scales and zero points (bf16)
+constexpr int kM_WEAK = 32;  // oweight rows of one K2 weak-column step
 
-__host__ __device__ inline size_t qgemm_smem(int g) {
-  const size_t ab = (size_t)kG_BM * (g + 8) * 2 + (size_t)g * kG_LDB * 2;
-  const size_t c = (size_t)kG_BM * kG_LDC * 4;
-  return ab > c ? ab : c;
+// bytes of one stage: the activation tile [BM][64], the packed operand (K2:
+// a group's words [g/8][128] int32 or 32 oweight rows [32][128] bf16; K7:
+// 16 word rows [16][64] int32), scales and zero points; the B tile [128][64]
+template <bool T7, int BM>
+__host__ __device__ constexpr int stage_bytes() {
+  return (BM * kM_ROW + (T7 ? 16 * 64 * 4 : 16 * kM_BN * 4) + kM_SZ + 1023) / 1024 * 1024;
+}
+constexpr int kM_BTILE = kM_BN * kM_ROW;
+template <bool T7, int BM, int S>
+__host__ __device__ constexpr int gemm_smem() {
+  return 2 * kM_BTILE + S * stage_bytes<T7, BM>() + 1024;  // + the 1 KB alignment slack
 }
 
-// one group's operands, held in registers between its load and its store
-struct GroupRegs {
-  uint4 a[kG_A_PER];
-  uint32_t b[kG_B_PER];
-  float s, z;
+struct GemmArgs {
+  const bf16* res;    // K2: residual [M, N] or null
+  const float* tail;  // K7: f32 [M, R] or null
+  bf16* out;
+  float* ws;  // K2: f32 [splits, M, N] partial tiles, or null
+  int M, K, N, g, R;  // K2: R = 0 without oweight
 };
 
-// x[m0:m0+64, kx0:kx0+g] as 16-byte chunks, zero past M and past `rows`
-__device__ __forceinline__ void load_x(uint4 (&a)[kG_A_PER], const bf16* __restrict__ x, int m0,
-                                       int M, int K, int kx0, int g, int rows, int tid) {
-  const int chunks = g / 8;
-#pragma unroll
-  for (int i = 0; i < kG_A_PER; ++i) {
-    const int idx = tid + i * kG_THREADS;
-    const int m = idx / chunks, ch = idx - m * chunks;
-    a[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (m < kG_BM && m0 + m < M && ch * 8 < rows)
-      a[i] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K + kx0) + ch);
+// TMA descriptors of the operands: the activations (K2: x [M, K]; K7: g
+// [M, N], 128-byte swizzled boxes of [BM][64]), the words seen as [g/8, G,
+// N], scales and zero points [G, N], and K2's oweight [R, N]
+struct GemmMaps {
+  CUtensorMap a, w, s, z, o;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c (0..7) of row r of a swizzled tile
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * kM_ROW + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-__device__ __forceinline__ void store_x(const uint4 (&a)[kG_A_PER], bf16* As, int g, int tid) {
-  const int chunks = g / 8, lda = g + 8;
+// TMA: a box of tensor map `map` at coordinates (c0, c1[, c2]) into shared
+// memory at `dst`, completion counted in bytes on mbarrier `bar`
+__device__ __forceinline__ void tma2(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                     uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma3(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                     uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// this thread's shared-memory writes, visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma descriptor of a K-major, 128-byte-swizzled operand at shared address
+// `addr`: 8-row atoms 1,024 bytes apart (SBO); LBO unused for this layout
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void gmma_arrive() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void gmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across the async MMAs
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < kG_A_PER; ++i) {
-    const int idx = tid + i * kG_THREADS;
-    const int m = idx / chunks, ch = idx - m * chunks;
-    if (m < kG_BM) *reinterpret_cast<uint4*>(As + m * lda + ch * 8) = a[i];
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x N] += A[64 x 16] * B[16 x N], bf16 in, f32 accumulators
+template <int N>
+struct Gmma;
+
+template <>
+struct Gmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Gmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// code * s, then + z, in f32 (mul then add, as the plain version rounds)
+__device__ __forceinline__ float dq(uint32_t w, int p, float s, float z) {
+  return __fadd_rn(__fmul_rn(nibble(w, p), s), z);
+}
+
+// two floats as a bf16 pair, the first at the lower address
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  const bf162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The steps of a K2 split: (groups of the split) x (g/64 steps of 64 K rows
+// each), then, in the last split, ceil(R/32) weak-column steps of 32 rows.
+struct K2Steps {
+  int gb, nq, hpg;
+};
+
+// K2 step t, issued by one thread: the x tile [BM][64] (128-byte swizzled)
+// and, at a group's first step, the group's words [g/8][128], scales and
+// zero points [128] each; or, for a weak step, x[:, K-R+w0 ..] and oweight
+// rows [32][128].  TMA zero-fills what lies past M, N, K or R.
+template <int BM>
+__device__ __forceinline__ void k2_issue(const GemmArgs& p, const GemmMaps& mp, const K2Steps& ks,
+                                         int t, int m0, int n0, unsigned char* st, uint32_t bar) {
+  const uint32_t A = smem_u32(st), W = A + BM * kM_ROW, SZ = W + 16 * kM_BN * 4;
+  if (t < ks.nq) {
+    const int gi = ks.gb + t / ks.hpg, h = t % ks.hpg;
+    mbar_expect(bar, BM * kM_ROW + (h == 0 ? (p.g / 8) * kM_BN * 4 + 2 * kM_BN * 2 : 0));
+    tma2(A, &mp.a, gi * p.g + h * 64, m0, bar);
+    if (h == 0) {  // the group's second step reads them from this stage
+      tma3(W, &mp.w, n0, gi, 0, bar);
+      tma2(SZ, &mp.s, n0, gi, bar);
+      tma2(SZ + kM_BN * 2, &mp.z, n0, gi, bar);
+    }
+  } else {
+    const int w0 = (t - ks.nq) * kM_WEAK;
+    mbar_expect(bar, BM * kM_ROW + kM_WEAK * kM_BN * 2);
+    tma2(A, &mp.a, p.K - p.R + w0, m0, bar);
+    tma2(W, &mp.o, n0, w0, bar);
   }
 }
 
-__device__ __forceinline__ void load_group(GroupRegs& r, const bf16* __restrict__ x,
-                                           const int32_t* __restrict__ qw,
-                                           const bf16* __restrict__ sc,
-                                           const bf16* __restrict__ sz, int tile, int m0, int M,
-                                           int K, int N, int g, int n, bool col_ok, int tid) {
-  const int n_groups = K / g, hh = g / 8;
-  load_x(r.a, x, m0, M, K, tile * g, g, g, tid);
+// K2's B tile of step t, K-major: row n holds the step's 64 K rows of
+// column n.  Word row jj, nibble pl of the group is K row pl*(g/8) + jj, so
+// a thread holding word rows jj0..jj0+7 of column n writes 8 consecutive K
+// rows of a plane as one 16-byte chunk: at g = 128 a thread takes 8 word
+// rows and the step's 4 planes, at g = 64 all 8 word rows and 4 of the 8
+// planes.  A weak step copies oweight across (32 rows: chunks 0..3).
+// The words of a group's second step (g = 128) are in the previous step's
+// stage, `prev`: that stage is refilled only after this dequantization.
+template <int BM>
+__device__ __forceinline__ void k2_dequant(const GemmArgs& p, const K2Steps& ks, int t,
+                                           const unsigned char* st, const unsigned char* prev,
+                                           unsigned char* B, int tid) {
+  if (t < ks.nq) {
+    const unsigned char* W = (t % ks.hpg ? prev : st) + BM * kM_ROW;
+    const int32_t* words = reinterpret_cast<const int32_t*>(W);
+    const bf16* S = reinterpret_cast<const bf16*>(W + 16 * kM_BN * 4);
+    const int hh = p.g / 8, h = t % ks.hpg, n = tid % kM_BN, r = tid / kM_BN;
+    const int jj0 = hh == 16 ? r * 8 : 0, pl0 = hh == 16 ? 4 * h : 4 * r;
+    uint32_t w[8];
 #pragma unroll
-  for (int i = 0; i < kG_B_PER; ++i) {
-    const int jj = tid / kG_BN + i * (kG_THREADS / kG_BN);
-    r.b[i] = (col_ok && jj < hh) ? (uint32_t)__ldg(qw + (size_t)(jj * n_groups + tile) * N + n)
-                                 : 0u;
-  }
-  r.s = col_ok ? bf2f(sc[(size_t)tile * N + n]) : 0.f;
-  r.z = col_ok ? bf2f(sz[(size_t)tile * N + n]) : 0.f;
-}
-
-// A as it is; B dequantized: word row jj, nibble p is K-row p*hh + jj of the group
-__device__ __forceinline__ void store_group(const GroupRegs& r, bf16* As, bf16* Bs, int g, int c,
-                                            int tid) {
-  const int hh = g / 8;
-  store_x(r.a, As, g, tid);
+    for (int i = 0; i < 8; ++i) w[i] = (uint32_t)words[(jj0 + i) * kM_BN + n];
+    const float s = bf2f(S[n]), z = bf2f(S[kM_BN + n]);
 #pragma unroll
-  for (int i = 0; i < kG_B_PER; ++i) {
-    const int jj = tid / kG_BN + i * (kG_THREADS / kG_BN);
-    if (jj >= hh) break;
+    for (int i = 0; i < 4; ++i) {
+      const int pl = pl0 + i, kr = pl * hh + jj0 - 64 * h;
+      uint32_t v[4];
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      // mul then add, not an FMA: the same rounding as the plain version
-      const float wv = __fadd_rn(__fmul_rn(nibble(r.b[i], p), r.s), r.z);
-      Bs[(p * hh + jj) * kG_LDB + c] = f2bf(wv);
+      for (int j = 0; j < 4; ++j)
+        v[j] = pack_bf2(dq(w[2 * j], pl, s, z), dq(w[2 * j + 1], pl, s, z));
+      *reinterpret_cast<uint4*>(B + swz(n, kr >> 3)) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    const uint16_t* O = reinterpret_cast<const uint16_t*>(st + BM * kM_ROW);  // [32][128] bf16
+    for (int u = tid; u < kM_BN * kM_WEAK / 8; u += kM_THREADS) {
+      const int n = u % kM_BN, c = u / kM_BN;
+      uint32_t v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = (uint32_t)O[(c * 8 + 2 * j) * kM_BN + n] |
+               ((uint32_t)O[(c * 8 + 2 * j + 1) * kM_BN + n] << 16);
+      *reinterpret_cast<uint4*>(B + swz(n, c)) = make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// K7 step t: contraction columns t*64 .. +64 of N.  The g tile [BM][64]
+// (swizzled); the words of the block's 128 output columns k0.. (nb = 128/g
+// groups of g/8 word rows) as [g/8][nb][64]; scales and zeros [nb][64].
+template <int BM>
+__device__ __forceinline__ void k7_issue(const GemmArgs& p, const GemmMaps& mp, int t, int m0,
+                                         int k0, unsigned char* st, uint32_t bar) {
+  const uint32_t A = smem_u32(st), W = A + BM * kM_ROW, SZ = W + 16 * 64 * 4;
+  const int n0 = t * 64, nb = kM_BN / p.g, gi = k0 / p.g;
+  mbar_expect(bar, BM * kM_ROW + 16 * 64 * 4 + 2 * nb * 64 * 2);
+  tma2(A, &mp.a, n0, m0, bar);
+  tma3(W, &mp.w, n0, gi, 0, bar);
+  tma2(SZ, &mp.s, n0, gi, bar);
+  tma2(SZ + kM_BN * 2, &mp.z, n0, gi, bar);
+}
 
-__device__ __forceinline__ void mma_step(AccFrag (&acc)[2][2], const bf16* As, const bf16* Bs,
-                                         int g, int wm, int wn) {
-  const int lda = g + 8;
-  for (int kk = 0; kk < g; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+// K7's B tile, K-major in the contraction N: row k (the block's output
+// column b*g + pl*(g/8) + jj) holds W_deq[k, n0 .. n0+64].  A thread takes 8
+// consecutive words of one word row (8 contraction columns) and writes one
+// 16-byte chunk for each of 4 planes.
+template <int BM>
+__device__ __forceinline__ void k7_dequant(const GemmArgs& p, const unsigned char* st,
+                                           unsigned char* B, int tid) {
+  const unsigned char* W = st + BM * kM_ROW;
+  const bf16* S = reinterpret_cast<const bf16*>(W + 16 * 64 * 4);
+  const int hh = p.g / 8, nb = kM_BN / p.g;
+  const int n8 = tid & 7, ph = (tid >> 3) & 1, rr = tid >> 4, b = rr / hh, jj = rr - b * hh;
+  const uint4* wv = reinterpret_cast<const uint4*>(W + ((jj * nb + b) * 64 + n8 * 8) * 4);
+  const uint4 w0 = wv[0], w1 = wv[1];
+  const uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  float s[8], z[8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * lda + kk, lda);
+  for (int i = 0; i < 8; ++i) {
+    s[i] = bf2f(S[b * 64 + n8 * 8 + i]);
+    z[i] = bf2f(S[kM_BN + b * 64 + n8 * 8 + i]);
+  }
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(b[j], Bs + kk * kG_LDB + wn * 32 + j * 16, kG_LDB);
+  for (int i = 0; i < 4; ++i) {
+    const int pl = ph * 4 + i, col = b * p.g + pl * hh + jj;
+    uint32_t v[4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    for (int j = 0; j < 4; ++j)
+      v[j] = pack_bf2(dq(w[2 * j], pl, s[2 * j], z[2 * j]),
+                      dq(w[2 * j + 1], pl, s[2 * j + 1], z[2 * j + 1]));
+    *reinterpret_cast<uint4*>(B + swz(col, n8)) = make_uint4(v[0], v[1], v[2], v[3]);
   }
 }
 
-__global__ void __launch_bounds__(kG_THREADS)
-qgemm_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ qw,
-             const bf16* __restrict__ sc, const bf16* __restrict__ sz,
-             const bf16* __restrict__ ow, const bf16* __restrict__ res,
-             bf16* __restrict__ out, float* __restrict__ ws, int M, int K, int N, int g, int R) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);    // [BM][g + 8]
-  bf16* Bs = As + kG_BM * (g + 8);             // [g][BN + 8]
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][BN + 4], after the K loop
+// The main loop.  One thread issues step t's TMA loads S - 1 steps ahead
+// into a ring of S stages, each with its mbarrier; all 256 threads
+// dequantize step t + 1 into the other of two B tiles while the tensor cores
+// run step t's wgmmas, which read the activations straight from the ring.
+// K2's blockIdx.z is its split of the quantization groups (the weak columns
+// go with the last).
+template <bool T7, int BM, int S>
+__global__ void __launch_bounds__(kM_THREADS, 2)
+qmm_gemm_kernel(const GemmArgs p, const __grid_constant__ GemmMaps mp) {
+  constexpr int NW = BM;  // columns of a warpgroup: 128 at BM = 128, 64 at BM = 64
+  constexpr int NREG = NW / 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
-  const int n_groups = K / g;
-  const int m0 = blockIdx.y * kG_BM, n0 = blockIdx.x * kG_BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int c = tid % kG_BN;
-  const int n = n0 + c;
-  const bool col_ok = n < N;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t a_off = BM == 128 ? wg * 64 * kM_ROW : 0;
+  const uint32_t b_off = BM == 128 ? 0 : wg * 64 * kM_ROW;
+  const int m0 = blockIdx.y * BM, c0 = blockIdx.x * kM_BN;
 
-  AccFrag acc[2][2];
+  int T;
+  K2Steps ks{0, 0, 1};
+  if (T7) {
+    T = (p.N + 63) / 64;
+  } else {
+    const int n_groups = p.K / p.g, per = (n_groups + gridDim.z - 1) / gridDim.z;
+    ks.gb = blockIdx.z * per;
+    ks.hpg = p.g / 64;
+    ks.nq = (min(n_groups, ks.gb + per) - ks.gb) * ks.hpg;
+    T = ks.nq + (blockIdx.z == gridDim.z - 1 ? (p.R + kM_WEAK - 1) / kM_WEAK : 0);
+  }
+
+  auto stage = [&](int t) { return smem + 2 * kM_BTILE + (t % S) * stage_bytes<T7, BM>(); };
+  auto btile = [&](int t) { return smem + (t & 1) * kM_BTILE; };
+  auto bar = [&](int t) { return smem_u32(&full[t % S]); };
+  auto issue = [&](int t) {
+    if constexpr (T7) k7_issue<BM>(p, mp, t, m0, c0, stage(t), bar(t));
+    else k2_issue<BM>(p, mp, ks, t, m0, c0, stage(t), bar(t));
+  };
+  auto dequant = [&](int t) {
+    mbar_wait(bar(t), (t / S) & 1);
+    if constexpr (T7) k7_dequant<BM>(p, stage(t), btile(t), tid);
+    else k2_dequant<BM>(p, ks, t, stage(t), stage(t + S - 1), btile(t), tid);
+    fence_async_proxy();
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(smem_u32(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < S - 1 && s < T; ++s) issue(s);
+
+  float acc[NREG];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int i = 0; i < NREG; ++i) acc[i] = 0.f;
+  dequant(0);
+  __syncthreads();
 
-  // this split's groups, the next one's loads in flight during each step
-  const int per = (n_groups + gridDim.z - 1) / gridDim.z;
-  const int t_begin = blockIdx.z * per;
-  const int t_end = min(n_groups, t_begin + per);
-  GroupRegs r;
-  if (t_begin < t_end) load_group(r, x, qw, sc, sz, t_begin, m0, M, K, N, g, n, col_ok, tid);
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    __syncthreads();  // the previous step's fragments are loaded
-    store_group(r, As, Bs, g, c, tid);
+  for (int t = 0; t < T; ++t) {
+    const int nkk = (T7 || t < ks.nq) ? 4 : kM_WEAK / 16;  // k16 slices of the step
+    const uint32_t A = smem_u32(stage(t)), Bt = smem_u32(btile(t));
+    fence_regs(acc);
+    gmma_arrive();
+    for (int kk = 0; kk < nkk; ++kk)
+      Gmma<NW>::mma(acc, gmma_desc(A + a_off + kk * 32), gmma_desc(Bt + b_off + kk * 32));
+    gmma_commit();
+    fence_regs(acc);
+    gmma_wait<1>();  // step t - 1's wgmmas are done: its stage and B tile are free
+    fence_regs(acc);
     __syncthreads();
-    if (tile + 1 < t_end) load_group(r, x, qw, sc, sz, tile + 1, m0, M, K, N, g, n, col_ok, tid);
-    mma_step(acc, As, Bs, g, wm, wn);
-  }
-
-  // weak columns, in the last split: x[:, K-R:] against oweight, g rows a step
-  if (ow != nullptr && blockIdx.z == gridDim.z - 1) {
-    for (int t0 = 0; t0 < R; t0 += g) {
-      const int rows = min(g, R - t0);
-      uint4 a[kG_A_PER], b[kG_A_PER];
-      load_x(a, x, m0, M, K, K - R + t0, g, rows, tid);
-#pragma unroll
-      for (int i = 0; i < kG_A_PER; ++i) {  // oweight rows as 8 chunks of 8 columns
-        const int idx = tid + i * kG_THREADS;
-        const int row = idx >> 3, ch = idx & 7;
-        b[i] = make_uint4(0u, 0u, 0u, 0u);
-        if (row < rows && n0 + ch * 8 < N)
-          b[i] = __ldg(reinterpret_cast<const uint4*>(ow + (size_t)(t0 + row) * N + n0) + ch);
-      }
+    if (tid == 0 && t + S - 1 < T) issue(t + S - 1);
+    if (t + 1 < T) {
+      dequant(t + 1);
       __syncthreads();
-      store_x(a, As, g, tid);
-#pragma unroll
-      for (int i = 0; i < kG_A_PER; ++i) {
-        const int idx = tid + i * kG_THREADS;
-        const int row = idx >> 3, ch = idx & 7;
-        if (row < g) *reinterpret_cast<uint4*>(Bs + row * kG_LDB + ch * 8) = b[i];
-      }
-      __syncthreads();
-      mma_step(acc, As, Bs, g, wm, wn);
     }
   }
+  gmma_wait<0>();
+  fence_regs(acc);
 
-  __syncthreads();
+  // accumulator i: row (warp % 4)*16 + lane/4 + 8*((i/2) & 1), column
+  // 8*(i/4) + 2*(lane % 4) + (i & 1) of the warpgroup's 64 x NW tile
+  const int lane = tid & 31;
+  const int row0 = m0 + (BM == 128 ? wg * 64 : 0) + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int col0 = c0 + (BM == 128 ? 0 : wg * 64) + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < NW / 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kG_LDC + wn * 32 + j * 16, acc[i][j],
-                              kG_LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < kG_BM * kG_BN; i += kG_THREADS) {
-    const int m = i / kG_BN, cc = i - m * kG_BN;
-    const int gm = m0 + m, gn = n0 + cc;
-    if (gm < M && gn < N) {
-      float y = Cs[m * kG_LDC + cc];
-      if (ws != nullptr) {
-        ws[((size_t)blockIdx.z * M + gm) * N + gn] = y;
-      } else {
-        if (res != nullptr) y += bf2f(res[(size_t)gm * N + gn]);
-        out[(size_t)gm * N + gn] = f2bf(y);
+    for (int r = 0; r < 2; ++r) {
+      const int gm = row0 + 8 * r, col = col0 + 8 * j;
+      float y0 = acc[4 * j + 2 * r], y1 = acc[4 * j + 2 * r + 1];
+      if (T7) {
+        if (gm < p.M && col < p.K) {
+          const int kt = p.K - p.R;
+          if (p.tail != nullptr) {
+            if (col >= kt) y0 += p.tail[(size_t)gm * p.R + (col - kt)];
+            if (col + 1 >= kt) y1 += p.tail[(size_t)gm * p.R + (col + 1 - kt)];
+          }
+          *reinterpret_cast<uint32_t*>(p.out + (size_t)gm * p.K + col) = pack_bf2(y0, y1);
+        }
+      } else if (gm < p.M && col < p.N) {
+        const size_t o = (size_t)gm * p.N + col;
+        if (p.ws != nullptr) {
+          *reinterpret_cast<float2*>(p.ws + (size_t)blockIdx.z * p.M * p.N + o) =
+              make_float2(y0, y1);
+        } else {
+          if (p.res != nullptr) {
+            const float2 rv = __bfloat1622float2(*reinterpret_cast<const bf162*>(p.res + o));
+            y0 += rv.x;
+            y1 += rv.y;
+          }
+          *reinterpret_cast<uint32_t*>(p.out + o) = pack_bf2(y0, y1);
+        }
       }
     }
   }
+}
+
+template <bool T7, int BM, int S>
+cudaError_t launch_gemm(const GemmArgs& a, const GemmMaps& m, dim3 grid, cudaStream_t stream) {
+  constexpr int smem = gemm_smem<T7, BM, S>();
+  static bool opted = false;  // more than the default 48 KB of shared memory, once
+  if (!opted) {
+    cudaError_t e = cudaFuncSetAttribute(qmm_gemm_kernel<T7, BM, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(qmm_gemm_kernel<T7, BM, S>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (e != cudaSuccess) return e;
+    opted = true;
+  }
+  qmm_gemm_kernel<T7, BM, S><<<grid, kM_THREADS, smem, stream>>>(a, m);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a tensor map over `rank` dims (innermost first) with the row strides in
+// bytes; `swizzle`: the 128-byte swizzle of the wgmma operands
+bool tensor_map(CUtensorMap* m, CUtensorMapDataType type, int rank, const void* base,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                bool swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(m, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the maps of the packed operand shared by K2 and K7: words [g/8, G, N] in
+// boxes of [g/8][nb][cols], scales and zero points [G, N] in boxes [nb][cols]
+bool packed_maps(GemmMaps& mp, const void* qw, const void* sc, const void* sz, int K, int N,
+                 int g, int cols, int nb) {
+  const cuuint64_t G = K / g;
+  const cuuint64_t wd[3] = {(cuuint64_t)N, G, (cuuint64_t)g / 8};
+  const cuuint64_t ws[2] = {(cuuint64_t)N * 4, G * N * 4};
+  const cuuint32_t wb[3] = {(cuuint32_t)cols, (cuuint32_t)nb, (cuuint32_t)g / 8};
+  const cuuint64_t sd[2] = {(cuuint64_t)N, G};
+  const cuuint64_t ss[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t sb[2] = {(cuuint32_t)cols, (cuuint32_t)nb};
+  return tensor_map(&mp.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, qw, wd, ws, wb, false) &&
+         tensor_map(&mp.s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, sc, sd, ss, sb, false) &&
+         tensor_map(&mp.z, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, sz, sd, ss, sb, false);
+}
+
+// the activations [rows, cols] in swizzled boxes of [bm][64]
+bool act_map(CUtensorMap* m, const void* a, int rows, int cols, int bm) {
+  const cuuint64_t d[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t s[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t b[2] = {64, (cuuint32_t)bm};
+  return tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, d, s, b, true);
 }
 
 // sum of the split-K partial tiles in split order, plus the residual
@@ -589,148 +918,6 @@ __global__ void qgemm_reduce_kernel(const float* __restrict__ ws, const bf16* __
     if (res != nullptr) y += bf2f(res[i]);
     out[i] = f2bf(y);
   }
-}
-
-// ----------------------------------------------------------------- K7
-
-constexpr int kT_BM = 64, kT_BN = 64, kT_THREADS = 128;  // M tile, N chunk, 4 warps
-constexpr int kT_LD = kT_BN + 8;                          // bf16 per shared g / W row
-constexpr int kT_A_PER = kT_BM * kT_BN / 8 / kT_THREADS;  // 16-byte g chunks a thread
-constexpr int kT_B_PER = (kG_MAXG / 8) * kT_BN / kT_THREADS;  // words a thread
-
-__host__ __device__ inline size_t qgemm_t_smem(int g) {
-  const size_t ab = (size_t)(kT_BM + g) * kT_LD * 2;
-  const size_t c = (size_t)kT_BM * (g + 4) * 4;
-  return ab > c ? ab : c;
-}
-
-// one N chunk's operands, held in registers between its load and its store
-struct ChunkRegs {
-  uint4 a[kT_A_PER];
-  uint32_t b[kT_B_PER];
-  float s, z;
-};
-
-__device__ __forceinline__ void load_chunk(ChunkRegs& r, const bf16* __restrict__ gy,
-                                           const int32_t* __restrict__ qw,
-                                           const bf16* __restrict__ sc,
-                                           const bf16* __restrict__ sz, int gi, int n0, int m0,
-                                           int M, int N, int n_groups, int hh, int tid) {
-#pragma unroll
-  for (int i = 0; i < kT_A_PER; ++i) {  // g[m0:m0+64, n0:n0+64], zero past M and N
-    const int idx = tid + i * kT_THREADS;
-    const int m = idx >> 3, ch = idx & 7;
-    r.a[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + m < M && n0 + ch * 8 < N)
-      r.a[i] = __ldg(reinterpret_cast<const uint4*>(gy + (size_t)(m0 + m) * N + n0) + ch);
-  }
-  const int n = n0 + (tid & (kT_BN - 1));
-  const bool col_ok = n < N;
-#pragma unroll
-  for (int i = 0; i < kT_B_PER; ++i) {
-    const int jj = tid / kT_BN + i * (kT_THREADS / kT_BN);
-    r.b[i] = (col_ok && jj < hh) ? (uint32_t)__ldg(qw + (size_t)(jj * n_groups + gi) * N + n)
-                                 : 0u;
-  }
-  r.s = col_ok ? bf2f(sc[(size_t)gi * N + n]) : 0.f;
-  r.z = col_ok ? bf2f(sz[(size_t)gi * N + n]) : 0.f;
-}
-
-// g as it is; W dequantized as [k][n]: word row jj, nibble p is K column p*hh + jj
-__device__ __forceinline__ void store_chunk(const ChunkRegs& r, bf16* As, bf16* Bs, int hh,
-                                            int tid) {
-#pragma unroll
-  for (int i = 0; i < kT_A_PER; ++i) {
-    const int idx = tid + i * kT_THREADS;
-    *reinterpret_cast<uint4*>(As + (idx >> 3) * kT_LD + (idx & 7) * 8) = r.a[i];
-  }
-  const int c = tid & (kT_BN - 1);
-#pragma unroll
-  for (int i = 0; i < kT_B_PER; ++i) {
-    const int jj = tid / kT_BN + i * (kT_THREADS / kT_BN);
-    if (jj >= hh) break;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      // mul then add, not an FMA: the same rounding as K2 and the plain version
-      const float wv = __fadd_rn(__fmul_rn(nibble(r.b[i], p), r.s), r.z);
-      Bs[(p * hh + jj) * kT_LD + c] = f2bf(wv);
-    }
-  }
-}
-
-// FK = g / 16 accumulator fragments a warp: its 16 rows by the group's g columns
-template <int FK>
-__global__ void __launch_bounds__(kT_THREADS)
-qgemm_t_kernel(const bf16* __restrict__ gy, const int32_t* __restrict__ qw,
-               const bf16* __restrict__ sc, const bf16* __restrict__ sz,
-               const float* __restrict__ tail, bf16* __restrict__ out, int M, int K, int N,
-               int R) {
-  constexpr int g = FK * 16, hh = g / 8, ldc = g + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);    // [BM][BN + 8], the g tile
-  bf16* Bs = As + kT_BM * kT_LD;               // [g][BN + 8], W^T column-major
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][g + 4], after the N loop
-
-  const int n_groups = K / g;
-  const int gi = blockIdx.x, m0 = blockIdx.y * kT_BM;
-  const int tid = threadIdx.x, warp = tid >> 5;
-
-  AccFrag acc[FK];
-#pragma unroll
-  for (int j = 0; j < FK; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int n_chunks = (N + kT_BN - 1) / kT_BN;
-  ChunkRegs r;
-  load_chunk(r, gy, qw, sc, sz, gi, 0, m0, M, N, n_groups, hh, tid);
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    __syncthreads();  // the previous chunk's fragments are loaded
-    store_chunk(r, As, Bs, hh, tid);
-    __syncthreads();
-    if (ci + 1 < n_chunks)
-      load_chunk(r, gy, qw, sc, sz, gi, (ci + 1) * kT_BN, m0, M, N, n_groups, hh, tid);
-#pragma unroll
-    for (int kk = 0; kk < kT_BN; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, As + warp * 16 * kT_LD + kk, kT_LD);
-#pragma unroll
-      for (int j = 0; j < FK; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, Bs + j * 16 * kT_LD + kk, kT_LD);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < FK; ++j)
-    wmma::store_matrix_sync(Cs + warp * 16 * ldc + j * 16, acc[j], ldc, wmma::mem_row_major);
-  __syncthreads();
-  const int k_tail = K - R;
-  for (int i = tid; i < kT_BM * g; i += kT_THREADS) {
-    const int m = i / g, kc = i - m * g;
-    const int gm = m0 + m, k = gi * g + kc;
-    if (gm < M) {
-      float y = Cs[m * ldc + kc];
-      if (tail != nullptr && k >= k_tail) y += tail[(size_t)gm * R + (k - k_tail)];
-      out[(size_t)gm * K + k] = f2bf(y);
-    }
-  }
-}
-
-template <int FK>
-cudaError_t launch_qgemm_t(const bf16* gy, const int32_t* qw, const bf16* sc, const bf16* sz,
-                           const float* tail, bf16* out, int M, int K, int N, int R,
-                           cudaStream_t stream) {
-  const size_t smem = qgemm_t_smem(FK * 16);
-  if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
-    cudaError_t e = cudaFuncSetAttribute(qgemm_t_kernel<FK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid(K / (FK * 16), (M + kT_BM - 1) / kT_BM);
-  qgemm_t_kernel<FK><<<grid, kT_THREADS, smem, stream>>>(gy, qw, sc, sz, tail, out, M, K, N, R);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -796,28 +983,35 @@ extern "C" int qgemv(const void* x, const void* qweight, const void* scales, con
                           N, g, R, 0.f, 0, stream);
 }
 
-// ws: f32 [splits, M, N] scratch when splits > 1 (else unused)
+// bm: rows of a block (64 or 128); ws: f32 [splits, M, N] scratch when
+// splits > 1 (else unused)
 extern "C" int qgemm(const void* x, const void* qweight, const void* scales, const void* szeros,
                      const void* ow, const void* res, void* out, void* ws, int M, int K, int N,
-                     int g, int R, int splits, void* stream) {
-  if (M < 1 || K <= 0 || N <= 0 || N % 8 || g <= 0 || g > kG_MAXG || g % 16 || K % g ||
-      R < 0 || R > K || R % 8 || splits < 1 || splits > K / g || (splits > 1 && ws == nullptr))
+                     int g, int R, int bm, int splits, void* stream) {
+  if (M < 1 || K <= 0 || N <= 0 || N % 8 || (g != 64 && g != 128) || K % g || R < 0 || R > K ||
+      R % 8 || (bm != 64 && bm != 128) || (M + bm - 1) / bm > 65535 || splits < 1 ||
+      splits > K / g || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = qgemm_smem(g);
-  if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
-    cudaError_t e = cudaFuncSetAttribute(qgemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = splits > 1 ? static_cast<float*>(ws) : nullptr;
-  dim3 grid((N + kG_BN - 1) / kG_BN, (M + kG_BM - 1) / kG_BM, splits);
-  qgemm_kernel<<<grid, kG_THREADS, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const int32_t*>(qweight),
-      static_cast<const bf16*>(scales), static_cast<const bf16*>(szeros),
-      static_cast<const bf16*>(ow), static_cast<const bf16*>(res), static_cast<bf16*>(out), w, M,
-      K, N, g, ow ? R : 0);
-  cudaError_t e = cudaGetLastError();
+  const int r = ow ? R : 0;
+  GemmMaps mp;
+  if (!act_map(&mp.a, x, M, K, bm) ||
+      !packed_maps(mp, qweight, scales, szeros, K, N, g, kM_BN, 1))
+    return (int)cudaErrorInvalidValue;
+  mp.o = mp.s;  // read only by weak steps, which need r > 0
+  if (r > 0) {
+    const cuuint64_t d[2] = {(cuuint64_t)N, (cuuint64_t)r};
+    const cuuint64_t s[1] = {(cuuint64_t)N * 2};
+    const cuuint32_t b[2] = {kM_BN, kM_WEAK};
+    if (!tensor_map(&mp.o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ow, d, s, b, false))
+      return (int)cudaErrorInvalidValue;
+  }
+  const GemmArgs a{static_cast<const bf16*>(res), nullptr, static_cast<bf16*>(out), w,
+                   M, K, N, g, r};
+  dim3 grid((N + kM_BN - 1) / kM_BN, (M + bm - 1) / bm, splits);
+  cudaError_t e = bm == 128 ? launch_gemm<false, 128, 3>(a, mp, grid, st)
+                            : launch_gemm<false, 64, 4>(a, mp, grid, st);
   if (e != cudaSuccess || w == nullptr) return (int)e;
   const size_t mn = (size_t)M * N;
   const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
@@ -826,28 +1020,24 @@ extern "C" int qgemm(const void* x, const void* qweight, const void* scales, con
   return (int)cudaGetLastError();
 }
 
-// tail: f32 [M, R] added to the last R columns of dx before rounding, or NULL
+// tail: f32 [M, R] added to the last R columns of dx before rounding, or
+// NULL; bm: rows of a block (64 or 128)
 extern "C" int qgemm_t(const void* g, const void* qweight, const void* scales, const void* szeros,
-                       const void* tail, void* out, int M, int K, int N, int group, int R,
+                       const void* tail, void* out, int M, int K, int N, int group, int R, int bm,
                        void* stream) {
-  if (M < 1 || (M + kT_BM - 1) / kT_BM > 65535 || K <= 0 || N <= 0 || N % 8 || group <= 0 ||
-      group > kG_MAXG || group % 16 || K % group || R < 0 || R > K ||
+  if (M < 1 || (bm != 64 && bm != 128) || (M + bm - 1) / bm > 65535 || K <= 0 || N <= 0 ||
+      N % 8 || (group != 64 && group != 128) || K % group || R < 0 || R > K ||
       (tail != nullptr && R == 0))
     return (int)cudaErrorInvalidValue;
-  const bf16* gy = static_cast<const bf16*>(g);
-  const int32_t* qw = static_cast<const int32_t*>(qweight);
-  const bf16* sc = static_cast<const bf16*>(scales);
-  const bf16* sz = static_cast<const bf16*>(szeros);
-  const float* tl = static_cast<const float*>(tail);
-  bf16* y = static_cast<bf16*>(out);
+  GemmMaps mp;
+  if (!act_map(&mp.a, g, M, N, bm) ||
+      !packed_maps(mp, qweight, scales, szeros, K, N, group, 64, kM_BN / group))
+    return (int)cudaErrorInvalidValue;
+  mp.o = mp.s;  // K7 has no oweight operand
+  const GemmArgs a{nullptr, static_cast<const float*>(tail), static_cast<bf16*>(out), nullptr,
+                   M, K, N, group, tail ? R : 0};
+  dim3 grid((K + kM_BN - 1) / kM_BN, (M + bm - 1) / bm);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (group / 16) {
-#define QEFT_CASE(FK) \
-  case FK:            \
-    return (int)launch_qgemm_t<FK>(gy, qw, sc, sz, tl, y, M, K, N, tl ? R : 0, st);
-    QEFT_CASE(1) QEFT_CASE(2) QEFT_CASE(3) QEFT_CASE(4)
-    QEFT_CASE(5) QEFT_CASE(6) QEFT_CASE(7) QEFT_CASE(8)
-#undef QEFT_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)(bm == 128 ? launch_gemm<true, 128, 3>(a, mp, grid, st)
+                         : launch_gemm<true, 64, 4>(a, mp, grid, st));
 }

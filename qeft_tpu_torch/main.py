@@ -20,6 +20,7 @@ synchronisation, with the streaming PPL of those steps.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -103,6 +104,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--benchmark", type=int, default=0, help="tokens to decode")
     args = parser.parse_args(argv)
 
+    if os.environ.get("QEFT_QUANT_LMHEAD", "0") not in ("0", "", "false"):
+        # qeft_tpu/main.py packs the lm_head to RTN int4 under this variable;
+        # serving the bf16 head instead would change the logits silently
+        raise NotImplementedError(
+            "QEFT_QUANT_LMHEAD is set: the port has no packed lm_head yet (ROADMAP A6: "
+            "rtn_pack_linear and a packed head); unset it or set it to 0")
     device = resolve_device(args.device)
     params, cfg, family = load_model(args.load, device=device)
     params = fuse_packed_stages(params, get_model_meta(family))

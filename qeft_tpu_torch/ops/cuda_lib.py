@@ -54,12 +54,12 @@ _ENTRY_POINTS = {
     ]),
     "qgemm": ("qmm.cu", [
         _P, _P, _P, _P, _P, _P, _P, _P,  # x qweight scales szeros ow res out workspace
-        _I, _I, _I, _I, _I, _I,  # M K N group_size R splits
+        _I, _I, _I, _I, _I, _I, _I,  # M K N group_size R bm splits
         _P,  # stream
     ]),
     "qgemm_t": ("qmm.cu", [
         _P, _P, _P, _P, _P, _P,  # g qweight scales szeros tail out
-        _I, _I, _I, _I, _I,  # M K N group_size R
+        _I, _I, _I, _I, _I, _I,  # M K N group_size R bm
         _P,  # stream
     ]),
     "flash_window_attention": ("flash.cu", [

@@ -40,7 +40,7 @@ from qeft_tpu_torch.ops.packing import QLinearParams, dequantize_weight
 # more rows take the GEMM (K2).  The choice changes which kernel runs, not the
 # math.
 DECODE_MAX_TOKENS = 8
-GEMM_TILE = 64  # output tile edge of the GEMM kernel (csrc/qmm.cu kG_BM, kG_BN)
+GEMM_BN = 128  # output columns of a GEMM block (csrc/qmm.cu kM_BN), K2 and K7
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -142,12 +142,22 @@ def _check_act(t: torch.Tensor, name: str, shape) -> torch.Tensor:
     return cuda_lib.aligned(t)
 
 
-def gemm_splits(m: int, n: int, n_groups: int, sms: int) -> int:
-    """Split-K factor of `qgemm`: enough (split, tile) blocks for about two
-    per SM, each split at least one quantization group."""
-    tiles = -(-m // GEMM_TILE) * -(-n // GEMM_TILE)
-    splits = max(1, min(n_groups, -(-2 * sms // tiles)))
-    return -(-n_groups // -(-n_groups // splits))  # no empty split
+def gemm_rows(m: int) -> int:
+    """Rows of a `qgemm` / `qgemm_t` block: one warpgroup's 64-row wgmma tile
+    for at most 64 rows (prefill windows), else two (128 rows, so each
+    dequantized weight tile is reused 128 times)."""
+    return 64 if m <= 64 else 128
+
+
+def gemm_plan(m: int, n: int, n_groups: int, sms: int):
+    """(rows of a block, split-K factor) of `qgemm`: at least about two
+    (split, tile) blocks per SM, each split at least one quantization group,
+    no split empty."""
+    bm = gemm_rows(m)
+    tiles = -(-m // bm) * -(-n // GEMM_BN)
+    want = max(1, min(n_groups, -(-2 * sms // tiles)))
+    per = n_groups // want  # groups of a split: at least `want` splits, none empty
+    return bm, -(-n_groups // per)
 
 
 def _decode_rows(x: torch.Tensor, p: QLinearParams, layer: Optional[int]):
@@ -237,14 +247,14 @@ def qgemm(x: torch.Tensor, p: QLinearParams,
     x2 = _check_act(x.reshape(m, k), "x", (m, k))
     res = None if residual is None else _check_act(residual.reshape(m, n), "residual", (m, n))
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
-    splits = gemm_splits(m, n, k // p.group_size, cuda_lib.sm_count(x.device))
+    bm, splits = gemm_plan(m, n, k // p.group_size, cuda_lib.sm_count(x.device))
     ws = (torch.empty(splits, m, n, dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     cuda_lib.launch(
         "qgemm",
         cuda_lib.ptr(x2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
         cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight), cuda_lib.ptr(res),
-        cuda_lib.ptr(out), cuda_lib.ptr(ws), m, k, n, p.group_size, p.n_outlier, splits,
+        cuda_lib.ptr(out), cuda_lib.ptr(ws), m, k, n, p.group_size, p.n_outlier, bm, splits,
     )
     return out.reshape(*lead, n)
 
@@ -273,6 +283,6 @@ def qgemm_t(g: torch.Tensor, p: QLinearParams,
         "qgemm_t",
         cuda_lib.ptr(g2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
         cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(tail), cuda_lib.ptr(out),
-        m, k, n, p.group_size, r,
+        m, k, n, p.group_size, r, gemm_rows(m),
     )
     return out.reshape(*lead, k)

@@ -68,6 +68,9 @@ def measure(device, k8: int = K8, n: int = N, seed: int = 0) -> dict:
         t["cold_GBps"] = qw.numel() * 4 / (t["cold_ms"] * 1e-3) / 1e9
         out[f"bn{bn}"] = t
     out["plain_ms"] = common.time_ms(lambda i: dma_tile_plain(copies[i % len(copies)], s))
+    # one PyTorch call for the same function (int32 + f32 promotes to f32);
+    # it reads the 8 rows the result depends on, the kernel streams all K8
+    out["library_ms"] = common.time_ms(lambda i: torch.add(copies[i % len(copies)][:8], s))
     return out
 
 

@@ -2,8 +2,10 @@
 versions on the card, at small shapes that reach every branch: 1..8 decode
 rows, 86 quantization groups, no weak columns, the gemma norm, GEMM rows past
 one tile, GQA, window offsets and per-sequence positions, split decode
-chunks; the transposed GEMM (K7) at 1 to 2048 rows, with and without the
-weak-column addend, and the autograd linear's gradients; the plain decode
+chunks; the GEMM (K2) at 9 to 2048 rows, both block heights, split-K and
+ragged M and N, bit-identical from call to call; the transposed GEMM (K7)
+at 1 to 2048 rows and 86 groups, with and without the weak-column addend,
+and the autograd linear's gradients; the plain decode
 matvec (K6) at 1..8 rows; int8 decode attention (K4q) and the stacked-cache
 decode attention (K8, bf16 and int8, slots >= pos poisoned); the unstacked
 decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes with and without
@@ -92,18 +94,27 @@ def test_fused_decode_matvec(gen, m, k, n, g, r, norm, one_offset):
     _close(got, want)
 
 
-@pytest.mark.parametrize("m", [9, 64, 130])
+@pytest.mark.parametrize("m", [9, 63, 64, 65, 128, 129, 130, 257, 2048])
 @pytest.mark.parametrize("k,n,g,r,residual", [
     (512, 96, 128, 16, True),
     (768, 200, 64, 24, False),
     (1024, 128, 128, 0, True),
+    (11008, 200, 128, 128, True),  # 86 groups, N not a multiple of the 128-column tile
+    (1024, 4096, 64, 128, False),
 ])
 def test_qgemm(gen, m, k, n, g, r, residual):
+    """Both block heights (64 rows up to M = 64, 128 above), split-K and
+    ragged M and N; one launch a call, and a second call on the same inputs
+    bit-identical (the split-K partial tiles are summed in split order)."""
     p = _packed(gen, 1, k, n, g, r).layer(0)
     x = _randn(gen, m, k)
     res = _randn(gen, m, n, scale=4.0) if residual else None
+    before = cuda_lib.launches["qgemm"]
     got = qmm.qgemm(x, p, residual=res)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["qgemm"] == before + 1
     _close(got, qmm.qgemm_plain(_f32(x), _f32(p), residual=_f32(res)))
+    assert torch.equal(qmm.qgemm(x, p, residual=res), got)
 
 
 @pytest.mark.parametrize("b,s,h,hkv,d,s_k,pos", [
@@ -139,11 +150,12 @@ def test_decode_attention(gen, pos, h, hkv, d):
     _close(got, attention.decode_attention_plain(_f32(q), _f32(k), _f32(v), pos))
 
 
-@pytest.mark.parametrize("m", [1, 9, 64, 100, 2048])
+@pytest.mark.parametrize("m", [1, 9, 64, 100, 129, 2048])
 @pytest.mark.parametrize("g", [64, 128])
 @pytest.mark.parametrize("r", [0, 8, 128])
-def test_qgemm_t(gen, m, g, r):
-    k, n = 1024, 200  # 16 or 8 groups; N not a multiple of the 64-column chunk
+@pytest.mark.parametrize("k", [1024, 11008])
+def test_qgemm_t(gen, m, g, r, k):
+    n = 200  # N not a multiple of the 64-column step; 11008 = 86 groups at g = 128
     p = _packed(gen, 1, k, n, g, 0).layer(0)
     gy = _randn(gen, m, n)
     tail = torch.randn(m, r, generator=gen, device="cuda") if r else None
@@ -152,6 +164,7 @@ def test_qgemm_t(gen, m, g, r):
     torch.cuda.synchronize()
     assert cuda_lib.launches["qgemm_t"] == before + 1
     _close(got, qmm.qgemm_t_plain(_f32(gy), _f32(p), tail))
+    assert torch.equal(qmm.qgemm_t(gy, p, tail), got)
 
 
 @pytest.mark.parametrize("m", [4, 300])
@@ -182,8 +195,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         qmm.qgemv_stacked_fused(torch.zeros(1, 256, device="cuda"), p, 0)
     with pytest.raises(ValueError):
         qmm.qgemv_stacked_fused(_randn(gen, 9, 256), p, 0)
-    with pytest.raises(RuntimeError):  # group size 8: the kernel takes multiples of 16
+    with pytest.raises(RuntimeError):  # group size 8: the kernel takes 64 and 128
         qmm.qgemm_t(_randn(gen, 4, 64), _packed(gen, 1, 256, 64, 8, 0).layer(0))
+    with pytest.raises(RuntimeError):  # group size 32 likewise, in K2 too
+        qmm.qgemm(_randn(gen, 16, 256), _packed(gen, 1, 256, 64, 32, 0).layer(0))
     with pytest.raises(IndexError):
         attention.decode_attention(_randn(gen, 1, 4, 64), _randn(gen, 1, 4, 8, 64),
                                    _randn(gen, 1, 4, 8, 64), 8)

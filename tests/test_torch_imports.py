@@ -86,6 +86,22 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_p
         torch_main.main(["--load", str(tmp_path / "absent"), "--eval"])
 
 
+@pytest.mark.parametrize("value,raises", [("1", True), ("true", True), ("yes", True),
+                                          ("0", False), ("", False), ("false", False)])
+def test_main_refuses_quant_lmhead_it_cannot_honour(monkeypatch, tmp_path, value, raises):
+    """``QEFT_QUANT_LMHEAD`` set as qeft_tpu/main.py reads it (any value but
+    "0", "" and "false") asks for an RTN int4 lm_head, which the port does
+    not have yet: main raises before it reads the checkpoint, naming A6."""
+    monkeypatch.setenv("QEFT_QUANT_LMHEAD", value)
+    argv = ["--load", str(tmp_path / "absent"), "--device", "cpu", "--eval"]
+    if raises:
+        with pytest.raises(NotImplementedError, match="A6"):
+            torch_main.main(argv)
+    else:  # past the check: the absent checkpoint is what fails
+        with pytest.raises(FileNotFoundError):
+            torch_main.main(argv)
+
+
 def test_training_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = LLAMA_PRESETS["tiny"]

@@ -176,12 +176,17 @@ def test_rms_norm_matches_jax():
 
 @pytest.mark.parametrize("m,n,n_groups", [(64, 12288, 32), (64, 4096, 32), (64, 4096, 86),
                                           (64, 22016, 32), (512, 4096, 86), (9, 96, 4),
-                                          (130, 200, 12), (1, 64, 1)])
+                                          (130, 200, 12), (1, 64, 1), (2048, 12288, 32),
+                                          (2047, 4096, 86), (257, 22016, 32)])
 def test_gemm_split_k_covers_every_group_once(m, n, n_groups):
-    """The GEMM's split-K factor leaves no split empty and fills the card
-    (about two blocks per SM of 132) where the groups allow it."""
-    splits = qmm.gemm_splits(m, n, n_groups, sms=132)
+    """The GEMM's block rows (one 64-row warpgroup tile up to 64 rows, two
+    above) and split-K factor: no split empty, the card filled (about two
+    blocks per SM of 132) where the groups allow it, no split at M = 2048."""
+    bm, splits = qmm.gemm_plan(m, n, n_groups, sms=132)
+    assert bm == qmm.gemm_rows(m) == (64 if m <= 64 else 128)
     per = -(-n_groups // splits)  # groups per split, as csrc/qmm.cu cuts them
     assert 1 <= splits <= n_groups and (splits - 1) * per < n_groups <= splits * per
-    tiles = -(-m // qmm.GEMM_TILE) * -(-n // qmm.GEMM_TILE)
+    tiles = -(-m // bm) * -(-n // qmm.GEMM_BN)
     assert tiles * splits >= min(2 * 132, tiles * n_groups) or splits == n_groups
+    if m >= 2047:
+        assert splits == 1
