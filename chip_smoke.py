@@ -41,8 +41,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    wct_final --eval --benchmark`` on a 4-layer model of full width, written
    with ``save_packed``; the tuned model is served through K1-K4;
 14. serving kernels: K4q (int8 decode attention), K8 (stacked-cache decode
-   attention, bf16 and int8, slots >= pos poisoned) and K6 (the plain
-   decode matvec at M = 1, 4, 8) against their plain versions, timed;
+   attention, bf16 and int8, slots >= pos poisoned) and K6 (the
+   tensor-core decode matvec) against their plain versions, timed, K6 at
+   M = 1, 4 and 8 with its share of the bound and the library's time;
 15. int8 generate: 64 + 256 greedy over an int8 cache (K4q 32 x 255 times),
    teacher-forced through the bf16-cache path;
 16. stacked generate: the same with QEFT_ATTN_STACKED=1 over bf16 and int8
@@ -68,7 +69,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at the six OPT-6.7B stage shapes, M = 1 and 8, with and without bias,
    timed beside its bound and ``torch.addmm`` on a pre-dequantized weight;
    every linear of layer 0 with its bias through K5 (M = 1) and K2 (M = 64);
-   K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (staged in bands);
+   K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (K1 staged in
+   bands);
 23. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
    with launch counts checked (K5 for every decode linear, K2 for the
    prefill, nothing else), a profiled decode step and prefill, and the
@@ -1014,26 +1016,37 @@ def phase_serving_kernels(cfg, params, bw, rows):
     layers = params["layers"]
     log(f"[serving-kernels] K6 qgemv_stacked vs plain, M in (1, 4, {ENGINE_SLOTS}), layer "
         "rotating over 32 (cold weights)")
+    by_m = {m: Row("qgemv_stacked", "", "", True) for m in (1, 4)}  # merged into the row below
+    by_m[ENGINE_SLOTS] = k6
     for name in ("qkv", "o", "upgate", "down"):
         p = layers[name]
         k, n, r = p.in_features, p.out_features, p.n_outlier
         w = dense_linear(_one_layer(p, 0))[0]
-        for m in (1, 4, ENGINE_SLOTS):
+        for m, row in by_m.items():
             x = randn(m, k)
             err = check(f"K6 {name} {k}->{n} M={m}", qmm.qgemv_stacked(x, p, 3),
                         qmm.qgemv_stacked_plain(f32(x), f32(p), 3))
-            k6.d["max_abs_err"] = max(k6.d["max_abs_err"], err)
-        ms = time_ms(lambda i: qmm.qgemv_stacked(x, p, i % n_layers))
-        plain = time_ms(lambda i: qmm.qgemv_stacked_plain(x, p, i % n_layers), inner=2, reps=3)
-        lib = time_ms(lambda i: torch.matmul(x, w))
+            ms = time_ms(lambda i: qmm.qgemv_stacked(x, p, i % n_layers))
+            plain = (time_ms(lambda i: qmm.qgemv_stacked_plain(x, p, i % n_layers), inner=2,
+                             reps=3) if m == ENGINE_SLOTS else 0.0)
+            lib = time_ms(lambda i: torch.matmul(x, w))
+            nbytes = k * n // 2 + 4 * (k // p.group_size) * n + 2 * r * n + 2 * m * (k + n)
+            b = row.add(err, ms, plain, lib, nbytes, 2 * m * (k + r) * n, bw)
+            log(f"    M={m}: kernel {ms * 1e3:.1f} us ({b[0] / ms:.1%} of the bound), "
+                + (f"plain {plain * 1e3:.1f} us, " if plain else "")
+                + f"torch.matmul on the dequantized weight {lib * 1e3:.1f} us, bound "
+                f"{b[0] * 1e3:.2f} us ({b[1]})")
         del w
-        nbytes = (k * n // 2 + 4 * (k // p.group_size) * n + 2 * r * n
-                  + 2 * ENGINE_SLOTS * (k + n))
-        b = k6.add(0.0, ms, plain, lib, nbytes, 2 * ENGINE_SLOTS * (k + r) * n, bw)
-        log(f"    M={ENGINE_SLOTS}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
-            f"torch.matmul on the dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us "
-            f"({b[1]})")
-    k6.d["per"] = f"one engine decode layer: qkv + o + upgate + down at M={ENGINE_SLOTS}"
+    k6.d["per"] = (f"one engine decode layer: qkv + o + upgate + down at M={ENGINE_SLOTS} "
+                   "(m1_*, m4_*: M = 1, 4; no plain time)")
+    for m in (1, 4):
+        for key in ("ms", "bound_ms", "library_ms"):
+            k6.d[f"m{m}_{key}"] = by_m[m].d[key]
+        k6.d["max_abs_err"] = max(k6.d["max_abs_err"], by_m[m].d["max_abs_err"])
+    log("[serving-kernels] K6 per Llama-2-7B layer: " + ", ".join(
+        f"M={m} {r.d['ms'] * 1e3:.1f} us ({r.d['bound_ms'] / r.d['ms']:.1%} of the bound "
+        f"{r.d['bound_ms'] * 1e3:.2f}; torch.matmul {r.d['library_ms'] * 1e3:.1f})"
+        for m, r in sorted(by_m.items())))
 
 
 def _counted_generate(cfg, params, prompt, name, quantized=False):
@@ -1582,18 +1595,18 @@ def phase_family_kernels(cfg, params, bw, rows):
             lib = time_ms(lambda i: torch.addmm(bias[0], x, w))
             nbytes = k * n // 2 + 4 * (k // p.group_size) * n + 2 * r * n + 2 * n + 2 * m * (k + n)
             b = row.add(err, ms, plain, lib, nbytes, 2 * m * (k + r) * n, bw)
-            log(f"    M={m}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, torch.addmm on "
-                f"the dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]}: "
-                f"{nbytes} B)")
+            log(f"    M={m}: kernel {ms * 1e3:.1f} us ({b[0] / ms:.1%} of the bound), plain "
+                f"{plain * 1e3:.1f} us, torch.addmm on the dequantized weight {lib * 1e3:.1f} us, "
+                f"bound {b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
         del w
     k5.d["per"] = "one OPT-6.7B decode layer: q + k + v + o + fc1 + fc2 at M=1, bias on (m8_*: M=8)"
     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
         k5.d[f"m8_{key}"] = k5_m8.d[key]
     k5.d["max_abs_err"] = max(k5.d["max_abs_err"], k5_m8.d["max_abs_err"])
-    log(f"[family-kernels] K5 per OPT layer: M=1 {k5.d['ms'] * 1e3:.1f} us (bound "
-        f"{k5.d['bound_ms'] * 1e3:.2f}, torch.addmm {k5.d['library_ms'] * 1e3:.1f}), M=8 "
-        f"{k5_m8.d['ms'] * 1e3:.1f} us (bound {k5_m8.d['bound_ms'] * 1e3:.2f}, torch.addmm "
-        f"{k5_m8.d['library_ms'] * 1e3:.1f})")
+    log("[family-kernels] K5 per OPT layer: " + ", ".join(
+        f"M={m} {r.d['ms'] * 1e3:.1f} us ({r.d['bound_ms'] / r.d['ms']:.1%} of the bound "
+        f"{r.d['bound_ms'] * 1e3:.2f}; torch.addmm {r.d['library_ms'] * 1e3:.1f})"
+        for m, r in ((1, k5), (8, k5_m8))))
     _check_layer0("opt-6.7b", layers, rows)
 
     n = 4096

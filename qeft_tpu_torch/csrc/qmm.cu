@@ -37,18 +37,50 @@
 //
 // qgemv_stacked (K6) replaces pallas_qmm.py::qgemv_stacked
 //   (_qmm_kernel_stacked): the INT4 matvec of layer `layer` of a stacked
-//   linear plus its weak-column slab, with no norm and no residual -- the
-//   linear of the ragged window forward that continuous batching and
-//   speculative drafting run.  It is K1's kernel with the norm prologue and
-//   the residual epilogue compiled out (template flag FUSED = false); same
-//   bound, same design, same dequantization.
-//
-// qgemv (K5) replaces pallas_qmm.py::qgemv (_run_qmm at bm = 8): the INT4
-//   matvec of one unstacked linear for 1..8 rows, the weak-column slab and an
-//   optional bias [N], summed in f32 and rounded to bf16 once (the TPU path
-//   adds slab and bias outside its kernel, rounding after each).  It is K6's
-//   kernel at layer 0 with the bias added in the epilogue: the linear of
-//   every OPT, Phi, Bloom and Falcon layer at decode.
+//   linear plus its weak-column slab, for 1..8 token rows, with no norm and
+//   no residual -- the linear of the ragged window forward that continuous
+//   batching and speculative drafting run.
+// qgemv (K5) replaces pallas_qmm.py::qgemv (_run_qmm at bm = 8): the same
+//   on one unstacked linear, plus an optional bias [N], summed in f32 and
+//   rounded to bf16 once (the TPU path adds slab and bias outside its kernel,
+//   rounding after each): every OPT, Phi, Bloom and Falcon linear at decode.
+//   Both are one kernel, qgemv_mma_kernel (K5 is layer 0 with a bias).
+//   Bound: HBM bytes, as K1 (K*N/2 bytes of codes, 4*(K/g)*N of scales and
+//   zero points, 2*r*N of oweight); 2*M*K*N operations are a few µs of
+//   tensor-core time.
+//   Design (tensor cores): mma.sync m16n8k16 with the weights as A (16
+//   output columns x 16 K rows) and the <= 8 token rows as B's 8 columns, f32
+//   accumulators.  A nibble plus 128 is exact in bf16, so one shift and one
+//   mask-or turn a word's nibbles (q, q + 4) into an A register as it stands;
+//   each group's MMAs start from zero and fold into the f32 result as
+//   s_g * part + (z_g - 128 s_g) * sum_g(x) -- K1's factoring, kept instead of
+//   a sub.bf16x2 to 0..15 to spend no instruction on it.  The MMA sums over
+//   its 16 K rows in any order, so the order is the words' (mma_k_row): a
+//   lane takes one word row of 4 consecutive columns (a 16-byte load) and
+//   feeds two k16 steps of two column pairs.
+//   What this does about the faults of the CUDA-core version it replaces:
+//   (1) the multiply-adds ran on CUDA cores, about 136 instructions a word
+//   at 8 rows: now about 12 (seven logic ops, half an MMA, the fold, the
+//   loads' addresses); (2) every block of 32 columns re-staged all M x K
+//   activations as 2-byte stores and recomputed the group sums: now a block
+//   of 256 columns stages only its split's K range, 16-byte stores in MMA
+//   order (8-byte loads transposed with byte permutes), one sum per (unit,
+//   token); (3) one 16-warp block per SM at wide K: now 8-warp blocks, two
+//   an SM, 43 KB of static shared memory, the activations staged in chunks
+//   of 64 units (2,048 K rows at g = 128) at any K; (4) a warp loaded a unit
+//   and then computed it: now each lane loads the next step's 16 words and
+//   scales into registers (64 bytes, coalesced as they stand: 128 bytes a
+//   word row across a warp) while it computes the current step.  (A
+//   lane-private cp.async ring three steps deep measured slower on the
+//   H100: the kernel is bound by the latency of its dependent instruction
+//   chains and its fixed costs, not by bytes in flight.)  N = 4096 has 16
+//   tiles of 256 columns for 132 SMs, so the groups are split over up to 8
+//   blocks (blockIdx.y), one thread block cluster; the splits' partial
+//   tiles are summed in rank order through the cluster's distributed shared
+//   memory (no atomics, no second pass, no workspace): two calls on the same
+//   inputs are bit-identical.  The weak columns are k16 steps of oweight
+//   (two rows per A register, byte permutes) against x[:, K-r:], spread over
+//   the splits, loaded with the first words.
 //
 // qgemm (K2) replaces pallas_qmm.py::qgemm (_run_qmm / _qmm_kernel): the
 //   W4A16 GEMM for more rows (prefill, PPL windows, the training forward),
@@ -95,6 +127,7 @@
 //   each weight is dequantized 16 times (once per 128 rows), against 32
 //   before.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 
 #include "common.cuh"
@@ -199,21 +232,19 @@ __device__ __forceinline__ bf16 normed(bf16 v, bf16 w, float rs, int one_offset)
   return f2bf(nrm * wl);
 }
 
-// FUSED = false compiles the norm prologue and the residual epilogue out (K6,
-// K5).  The row is staged in bands of GB quantization groups (K columns
-// g0*g .. (g0+GB)*g, contiguous in x): each band is written to shared memory
-// in band-local packed-word order, its units are consumed, and the
-// accumulators stay in registers across bands.  When the whole row fits,
-// GB = K/g and there is one band.  The weak-column tail x[:, K-R:] is staged
-// once, in its own buffer, before the bands.
-template <int MT, bool FUSED>
+// The row is staged in bands of GB quantization groups (K columns g0*g ..
+// (g0+GB)*g, contiguous in x): each band is written to shared memory in
+// band-local packed-word order, its units are consumed, and the accumulators
+// stay in registers across bands.  When the whole row fits, GB = K/g and
+// there is one band.  The weak-column tail x[:, K-R:] is staged once, in its
+// own buffer, before the bands.
+template <int MT>
 __global__ void __launch_bounds__(kV_THREADS)
 qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
                    const int32_t* __restrict__ qw, const bf16* __restrict__ sc,
                    const bf16* __restrict__ sz, const bf16* __restrict__ ow,
-                   const bf16* __restrict__ res, const bf16* __restrict__ bias,
-                   bf16* __restrict__ out, int K, int N, int g, int R, int GB, float eps,
-                   int one_offset) {
+                   const bf16* __restrict__ res, bf16* __restrict__ out, int K, int N, int g,
+                   int R, int GB, float eps, int one_offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_groups = K / g;
   const int hh = g / 8;
@@ -227,7 +258,7 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   __shared__ float rstd[MT];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool norm = FUSED && lnw != nullptr;
+  const bool norm = lnw != nullptr;
 
   // 1. RMS statistics of each whole row (f32), as rms_norm computes them
   if (norm) {
@@ -329,7 +360,7 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
     }
   }
 
-  // 7. reduce the warps' partial sums, add the residual or the bias, store bf16
+  // 7. reduce the warps' partial sums, add the residual, store bf16
 #pragma unroll
   for (int m = 0; m < MT; ++m) part[(warp * MT + m) * kV_COLS + lane] = acc[m];
   __syncthreads();
@@ -339,8 +370,7 @@ qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
     if (nn < N) {
       float y = 0.f;
       for (int wp = 0; wp < kV_WARPS; ++wp) y += part[(wp * MT + m) * kV_COLS + col];
-      if (FUSED && res != nullptr) y += bf2f(res[(size_t)m * N + nn]);
-      if (bias != nullptr) y += bf2f(bias[nn]);
+      if (res != nullptr) y += bf2f(res[(size_t)m * N + nn]);
       out[(size_t)m * N + nn] = f2bf(y);
     }
   }
@@ -374,23 +404,317 @@ int band_groups(int n_groups, int g, int R, size_t& smem) {
   return gb;
 }
 
-template <int MT, bool FUSED>
+template <int MT>
 cudaError_t launch_qgemv(const bf16* x, const bf16* lnw, const int32_t* qw, const bf16* sc,
-                         const bf16* sz, const bf16* ow, const bf16* res, const bf16* bias,
-                         bf16* out, int K, int N, int g, int R, float eps, int one_offset,
-                         cudaStream_t stream) {
+                         const bf16* sz, const bf16* ow, const bf16* res, bf16* out, int K,
+                         int N, int g, int R, float eps, int one_offset, cudaStream_t stream) {
   size_t smem = 0;
   const int gb = band_groups<MT>(K / g, g, R, smem);
   if (gb == 0) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
-    cudaError_t e = cudaFuncSetAttribute(qgemv_fused_kernel<MT, FUSED>,
+    cudaError_t e = cudaFuncSetAttribute(qgemv_fused_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((N + kV_COLS - 1) / kV_COLS);
-  qgemv_fused_kernel<MT, FUSED><<<grid, kV_THREADS, smem, stream>>>(
-      x, lnw, qw, sc, sz, ow, res, bias, out, K, N, g, R, gb, eps, one_offset);
+  qgemv_fused_kernel<MT><<<grid, kV_THREADS, smem, stream>>>(x, lnw, qw, sc, sz, ow, res, out, K,
+                                                            N, g, R, gb, eps, one_offset);
   return cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- K6, K5
+
+// A block is kD_WARPS warps over kD_BN output columns and a split of the
+// quantization groups (blockIdx.y, one block of a cluster of the splits).
+// Warp w owns 32 columns -- lane (gid, t) = (lane / 4, lane % 4) the four
+// columns 4*gid .. 4*gid + 3 of them -- and every group of the split.  A
+// unit is 4 word rows (jj0 .. jj0 + 3) of one group: 32 K rows.
+// A warp step is kD_STEP_UNITS units (one group at g = 128, two at g = 64):
+// each lane loads its words, scales and zero points of the next step into
+// registers while it computes the current one.
+constexpr int kD_WARPS = 8;
+constexpr int kD_THREADS = kD_WARPS * 32;
+constexpr int kD_BN = kD_WARPS * 32;
+constexpr int kD_CHUNK = 64;        // units of activations staged at once (32 KB)
+constexpr int kD_UNIT = 8 * 32;     // staged bf16 of a unit: 8 token rows x 32 K rows
+constexpr int kD_STEP_UNITS = 4;
+constexpr int kD_MAX_SPLITS = 8;     // the portable cluster size
+constexpr int kD_BLOCKS_PER_SM = 2;
+
+// The contraction order of the tensor-core decode matvec.  Element j (0..7)
+// of lane t's activation chunk of the unit at word row jj0 is K row
+// mma_k_row(hh, jj0, t, j) of its group: word row jj0 + t, nibble j/2 + 4*(j%2).
+// The mask-or pair q of that word holds nibbles (q, q + 4), elements
+// (2q, 2q + 1), so chunk word q and pair q meet in one MMA register: pair 2s
+// is A register a0 / a1 and pair 2s + 1 is a2 / a3 of k16 step s (0, 1),
+// chunk words 2s and 2s + 1 are B registers b0 and b1.  Over the units and
+// both steps this is a permutation of the group's g K rows
+// (qeft_tpu_torch/ops/qmm.py:mma_k_row is its twin, for the CPU tests).
+__host__ __device__ constexpr int mma_k_row(int hh, int jj0, int t, int j) {
+  return ((j >> 1) + 4 * (j & 1)) * hh + jj0 + t;
+}
+
+// d += A * B: m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// mask-or pair q of a word: the bf16 pair (128 + nibble q, 128 + nibble q + 4)
+__device__ __forceinline__ uint32_t code_pair(uint32_t w, int q) {
+  return ((w >> (4 * q)) & 0x000F000Fu) | kBF16_128;
+}
+
+// the low (hi = false) or high bf16 halves of a and b as one pair (a's first)
+__device__ __forceinline__ uint32_t halves(uint32_t a, uint32_t b, bool hi) {
+  return __byte_perm(a, b, hi ? 0x7632 : 0x5410);
+}
+
+struct GemvArgs {
+  const bf16* x;       // [M, K]
+  const int32_t* qw;   // [K/8, N], word row jj*G + gi
+  const bf16* sc;      // [G, N]
+  const bf16* sz;      // [G, N]
+  const bf16* ow;      // [R, N] or null
+  const bf16* bias;    // [N] or null
+  bf16* out;           // [M, N]
+  int M, K, N, R;
+};
+
+template <int UPG>
+__global__ void __launch_bounds__(kD_THREADS, kD_BLOCKS_PER_SM)
+qgemv_mma_kernel(const GemvArgs p) {
+  constexpr int HH = UPG * 4, GROUP = HH * 8, GPB = kD_STEP_UNITS / UPG;
+  __shared__ __align__(16) bf16 xs[kD_CHUNK * kD_UNIT];   // [unit][token][32], chunk order
+  __shared__ __align__(8) float psum[kD_CHUNK * 8];       // [unit][token]: its 32 values
+  __shared__ __align__(16) float red[8 * kD_BN];           // [token][column]
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int M = p.M, K = p.K, N = p.N, G = K / GROUP;
+  const int S = gridDim.y, rank = blockIdx.y;
+  const int gb0 = rank * G / S, gb1 = (rank + 1) * G / S;  // this split's groups
+  const int n4 = blockIdx.x * kD_BN + warp * 32 + 4 * gid;  // this lane's 4 columns
+  const bool col_ok = n4 < N;                              // N % 4 == 0
+
+  // the words (4 columns, word row jj0 + t), scales and zero points of
+  // groups gi .. gi + GPB - 1; zeros past the split
+  auto load = [&](int gi, uint4 (&w)[kD_STEP_UNITS], uint2 (&s)[GPB], uint2 (&z)[GPB]) {
+#pragma unroll
+    for (int b = 0; b < GPB; ++b) {
+      const int gg = gi + b;
+      const bool ok = col_ok && gg < gb1;
+#pragma unroll
+      for (int u = 0; u < UPG; ++u)
+        w[b * UPG + u] = ok ? __ldcs(reinterpret_cast<const uint4*>(
+                                  p.qw + ((size_t)(4 * u + t) * G + gg) * N + n4))
+                            : make_uint4(0u, 0u, 0u, 0u);
+      s[b] = ok ? __ldcs(reinterpret_cast<const uint2*>(p.sc + (size_t)gg * N + n4))
+                : make_uint2(0u, 0u);
+      z[b] = ok ? __ldcs(reinterpret_cast<const uint2*>(p.sz + (size_t)gg * N + n4))
+                : make_uint2(0u, 0u);
+    }
+  };
+
+  uint4 w[kD_STEP_UNITS], w_next[kD_STEP_UNITS];
+  uint2 s[GPB], z[GPB], s_next[GPB], z_next[GPB];
+  int gi = gb0;
+  load(gi, w, s, z);
+
+  float acc[2][4];  // [tile j][i]: column n4 + 2j + i/2, token 2t + i%2
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  // 1. the first of this split's weak-column steps (k16 steps over
+  //    x[:, K-R:] in natural order, zero past R, and oweight, spread over
+  //    the splits), loaded while the words are in flight and computed once
+  //    the activations are staged
+  const int R = p.R, weak_steps = p.ow != nullptr ? (R + 15) / 16 : 0;
+  const bf16* xt = p.x + (size_t)gid * K + (K - R);
+  auto xpair = [&](int i) -> uint32_t {  // x[gid, K-R+i .. +1] as a bf16 pair
+    if (gid >= M) return 0u;
+    const uint32_t lo = i < R ? __bfloat16_as_ushort(xt[i]) : 0u;
+    const uint32_t hi = i + 1 < R ? __bfloat16_as_ushort(xt[i + 1]) : 0u;
+    return lo | (hi << 16);
+  };
+  auto orow = [&](int i) -> uint2 {  // oweight[i, n4 .. n4 + 3]
+    return col_ok && i < R ? __ldg(reinterpret_cast<const uint2*>(p.ow + (size_t)i * N + n4))
+                           : make_uint2(0u, 0u);
+  };
+  uint2 wr[4];  // oweight rows i0, i0 + 1, i0 + 8, i0 + 9 of step ws
+  uint32_t wb[2];
+  auto load_weak = [&](int ws) {
+    const int i0 = ws * 16 + 2 * t;
+    wr[0] = orow(i0);
+    wr[1] = orow(i0 + 1);
+    wr[2] = orow(i0 + 8);
+    wr[3] = orow(i0 + 9);
+    wb[0] = xpair(i0);
+    wb[1] = xpair(i0 + 8);
+  };
+  int ws = rank;
+  if (ws < weak_steps) load_weak(ws);
+
+  for (int c0 = gb0; c0 < gb1; c0 += kD_CHUNK / UPG) {
+    const int c1 = min(gb1, c0 + kD_CHUNK / UPG);
+    if (c0 > gb0) __syncthreads();  // the previous chunk's MMAs are done
+
+    // 2. the chunk's activations in MMA order, 16 bytes per (unit, token,
+    //    lane t), and each (unit, token)'s sum for the zero points
+    for (int idx = tid; idx < (c1 - c0) * UPG * 8; idx += kD_THREADS) {
+      const int u = idx >> 3, m = idx & 7, jj0 = 4 * (u % UPG);
+      uint2 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = m < M ? __ldg(reinterpret_cast<const uint2*>(
+                           p.x + (size_t)m * K + (size_t)(c0 + u / UPG) * GROUP +
+                           mma_k_row(HH, jj0, 0, j)))
+                     : make_uint2(0u, 0u);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += (lo_bf16(v[j].x) + hi_bf16(v[j].x)) + (lo_bf16(v[j].y) + hi_bf16(v[j].y));
+      psum[idx] = sum;
+      uint4* dst = reinterpret_cast<uint4*>(xs + (size_t)idx * 32);
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        uint32_t c[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          c[q] = halves(tt < 2 ? v[2 * q].x : v[2 * q].y, tt < 2 ? v[2 * q + 1].x : v[2 * q + 1].y,
+                        tt & 1);
+        dst[tt] = make_uint4(c[0], c[1], c[2], c[3]);
+      }
+    }
+    __syncthreads();
+    if (c0 == gb0) {
+      // the weak-column steps, their loads issued before the staging
+      for (; ws < weak_steps; ws += S) {
+        mma_bf16(acc[0], halves(wr[0].x, wr[1].x, false), halves(wr[0].x, wr[1].x, true),
+                 halves(wr[2].x, wr[3].x, false), halves(wr[2].x, wr[3].x, true), wb[0], wb[1]);
+        mma_bf16(acc[1], halves(wr[0].y, wr[1].y, false), halves(wr[0].y, wr[1].y, true),
+                 halves(wr[2].y, wr[3].y, false), halves(wr[2].y, wr[3].y, true), wb[0], wb[1]);
+        if (ws + S < weak_steps) load_weak(ws + S);
+      }
+    }
+
+    // 3. the warp's groups of the chunk, the next step's words in flight
+    for (; gi < c1; gi += GPB) {
+      load(gi + GPB, w_next, s_next, z_next);
+#pragma unroll
+      for (int b = 0; b < GPB; ++b) {
+        const int gl = gi + b - c0;  // the group within the chunk
+        if (gi + b >= c1) break;
+        float part[2][4];  // sum over the group of x * (128 + code), from zero
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+        float sx0 = 0.f, sx1 = 0.f;  // the group's sums of tokens 2t, 2t + 1
+#pragma unroll
+        for (int u = 0; u < UPG; ++u) {
+          const int cu = gl * UPG + u;
+          const uint4 xb = *reinterpret_cast<const uint4*>(xs + (size_t)(cu * 8 + gid) * 32 + t * 8);
+          const float2 ps = *reinterpret_cast<const float2*>(psum + cu * 8 + 2 * t);
+          sx0 += ps.x;
+          sx1 += ps.y;
+          const uint4 wv = w[b * UPG + u];
+          const uint32_t cw[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t e = cw[2 * j], o = cw[2 * j + 1];  // columns 2j, 2j + 1
+            mma_bf16(part[j], code_pair(e, 0), code_pair(o, 0), code_pair(e, 1), code_pair(o, 1),
+                     xb.x, xb.y);
+            mma_bf16(part[j], code_pair(e, 2), code_pair(o, 2), code_pair(e, 3), code_pair(o, 3),
+                     xb.z, xb.w);
+          }
+        }
+        // acc += s * part + (z - 128 s) * sum(x): the codes above carry +128
+        const uint2 sv = s[b], zv = z[b];
+        const uint32_t sp[2] = {sv.x, sv.y}, zp[2] = {zv.x, zv.y};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float s0 = lo_bf16(sp[j]), s1 = hi_bf16(sp[j]);
+          const float z0 = lo_bf16(zp[j]) - 128.f * s0, z1 = hi_bf16(zp[j]) - 128.f * s1;
+          acc[j][0] += s0 * part[j][0] + z0 * sx0;
+          acc[j][1] += s0 * part[j][1] + z0 * sx1;
+          acc[j][2] += s1 * part[j][2] + z1 * sx0;
+          acc[j][3] += s1 * part[j][3] + z1 * sx1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kD_STEP_UNITS; ++i) w[i] = w_next[i];
+#pragma unroll
+      for (int b = 0; b < GPB; ++b) {
+        s[b] = s_next[b];
+        z[b] = z_next[b];
+      }
+    }
+  }
+
+  // 4. the splits' partial tiles, summed in rank order through the cluster's
+  //    shared memory; each block writes its share of the tile (+ bias), bf16
+  const int cl = warp * 32 + 4 * gid;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[(2 * t + (i & 1)) * kD_BN + cl + 2 * j + (i >> 1)] = acc[j][i];
+  cluster.sync();
+  const int per = (8 * kD_BN + S - 1) / S, end = min(8 * kD_BN, (rank + 1) * per);
+  for (int idx = rank * per + tid; idx < end; idx += kD_THREADS) {
+    const int m = idx / kD_BN, nn = blockIdx.x * kD_BN + idx % kD_BN;
+    if (m >= M || nn >= N) continue;
+    float y = 0.f;
+    for (int r = 0; r < S; ++r) y += cluster.map_shared_rank(red, r)[idx];
+    if (p.bias != nullptr) y += bf2f(p.bias[nn]);
+    p.out[(size_t)m * N + nn] = f2bf(y);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// splits of the groups: the largest power of two (at most the cluster size
+// and the group count) that keeps the grid within the blocks resident at once
+int gemv_splits(int tiles, int n_groups) {
+  const int cap = kD_BLOCKS_PER_SM * sm_count();
+  int s = 1;
+  while (2 * s <= kD_MAX_SPLITS && 2 * s <= n_groups && tiles * 2 * s <= cap) s *= 2;
+  return s;
+}
+
+template <int UPG>
+cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
+  const int tiles = (a.N + kD_BN - 1) / kD_BN, splits = gemv_splits(tiles, a.K / (UPG * 32));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, splits);
+  cfg.blockDim = dim3(kD_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- K2, K7
@@ -924,12 +1248,10 @@ __global__ void qgemm_reduce_kernel(const float* __restrict__ ws, const bf16* __
 
 namespace {
 
-// layer `layer` of the stacked buffers (K1, K6; 0 for K5), then the MT instance
-template <bool FUSED>
+// K1: layer `layer` of the stacked buffers, then the MT instance
 int run_qgemv(const void* x, const void* lnw, const void* qweight, const void* scales,
-              const void* szeros, const void* ow, const void* res, const void* bias, void* out,
-              int layer, int M, int K, int N, int g, int R, float eps, int one_offset,
-              void* stream) {
+              const void* szeros, const void* ow, const void* res, void* out, int layer, int M,
+              int K, int N, int g, int R, float eps, int one_offset, void* stream) {
   if (M < 1 || M > 8 || K <= 0 || N <= 0 || g <= 0 || g % 8 || K % g || R < 0 || R > K ||
       layer < 0)
     return (int)cudaErrorInvalidValue;
@@ -941,19 +1263,39 @@ int run_qgemv(const void* x, const void* lnw, const void* qweight, const void* s
   const bf16* xx = static_cast<const bf16*>(x);
   const bf16* ln = static_cast<const bf16*>(lnw);
   const bf16* rs = static_cast<const bf16*>(res);
-  const bf16* bs = static_cast<const bf16*>(bias);
   bf16* y = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (M) {
-#define QEFT_CASE(MT)                                                                    \
-  case MT:                                                                               \
-    return (int)launch_qgemv<MT, FUSED>(xx, ln, qw, sc, sz, o, rs, bs, y, K, N, g, o ? R : 0, \
-                                        eps, one_offset, st);
+#define QEFT_CASE(MT)                                                                     \
+  case MT:                                                                                \
+    return (int)launch_qgemv<MT>(xx, ln, qw, sc, sz, o, rs, y, K, N, g, o ? R : 0, eps, \
+                                 one_offset, st);
     QEFT_CASE(1) QEFT_CASE(2) QEFT_CASE(3) QEFT_CASE(4)
     QEFT_CASE(5) QEFT_CASE(6) QEFT_CASE(7) QEFT_CASE(8)
 #undef QEFT_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K6 and K5: layer `layer` of the stacked buffers (0 for K5); group sizes 64
+// and 128, N a multiple of 4 (16-byte word loads)
+int run_gemv(const void* x, const void* qweight, const void* scales, const void* szeros,
+             const void* ow, const void* bias, void* out, int layer, int M, int K, int N, int g,
+             int R, void* stream) {
+  if (M < 1 || M > 8 || K <= 0 || N <= 0 || N % 4 || (g != 64 && g != 128) || K % g || R < 0 ||
+      R > K || layer < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t n_groups = K / g;
+  const GemvArgs a{static_cast<const bf16*>(x),
+                   static_cast<const int32_t*>(qweight) + (size_t)layer * (K / 8) * N,
+                   static_cast<const bf16*>(scales) + (size_t)layer * n_groups * N,
+                   static_cast<const bf16*>(szeros) + (size_t)layer * n_groups * N,
+                   ow ? static_cast<const bf16*>(ow) + (size_t)layer * R * N : nullptr,
+                   static_cast<const bf16*>(bias),
+                   static_cast<bf16*>(out),
+                   M, K, N, ow ? R : 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(g == 128 ? launch_gemv<4>(a, st) : launch_gemv<2>(a, st));
 }
 
 }  // namespace
@@ -962,16 +1304,15 @@ extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* q
                                    const void* scales, const void* szeros, const void* ow,
                                    const void* res, void* out, int layer, int M, int K, int N,
                                    int g, int R, float eps, int one_offset, void* stream) {
-  return run_qgemv<true>(x, lnw, qweight, scales, szeros, ow, res, nullptr, out, layer, M, K, N,
-                         g, R, eps, one_offset, stream);
+  return run_qgemv(x, lnw, qweight, scales, szeros, ow, res, out, layer, M, K, N, g, R, eps,
+                   one_offset, stream);
 }
 
-// K6: K1 without the norm and the residual; the weak columns stay inside
+// K6: the tensor-core decode matvec of layer `layer`, weak columns inside
 extern "C" int qgemv_stacked(const void* x, const void* qweight, const void* scales,
                              const void* szeros, const void* ow, void* out, int layer, int M,
                              int K, int N, int g, int R, void* stream) {
-  return run_qgemv<false>(x, nullptr, qweight, scales, szeros, ow, nullptr, nullptr, out, layer,
-                          M, K, N, g, R, 0.f, 0, stream);
+  return run_gemv(x, qweight, scales, szeros, ow, nullptr, out, layer, M, K, N, g, R, stream);
 }
 
 // K5: K6's kernel on one unstacked linear, with an optional bias [N] added
@@ -979,8 +1320,7 @@ extern "C" int qgemv_stacked(const void* x, const void* qweight, const void* sca
 extern "C" int qgemv(const void* x, const void* qweight, const void* scales, const void* szeros,
                      const void* ow, const void* bias, void* out, int M, int K, int N, int g,
                      int R, void* stream) {
-  return run_qgemv<false>(x, nullptr, qweight, scales, szeros, ow, nullptr, bias, out, 0, M, K,
-                          N, g, R, 0.f, 0, stream);
+  return run_gemv(x, qweight, scales, szeros, ow, bias, out, 0, M, K, N, g, R, stream);
 }
 
 // bm: rows of a block (64 or 128); ws: f32 [splits, M, N] scratch when

@@ -11,11 +11,12 @@ Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
   ``layer`` straight out of the stacked ``[L, ...]`` buffers.
 - `qgemv_stacked` replaces ``pallas_qmm.py::qgemv_stacked``: the same
   matvec of layer ``layer`` with its weak-column slab, without the norm and
-  the residual (K1's kernel with both compiled out).
+  the residual, on the tensor cores (``mma.sync``, the packed codes as A
+  operands as they stand, in the contraction order `mma_k_row`).
 - `qgemv` replaces ``pallas_qmm.py::qgemv``: the decode matvec of one
   unstacked linear, its weak-column slab and an optional bias, rounded once
-  (K6's kernel at layer 0 with a bias epilogue) -- every linear of the OPT,
-  Phi, Bloom and Falcon blocks at decode.
+  (K6's kernel at layer 0 with the bias in its epilogue) -- every linear of
+  the OPT, Phi, Bloom and Falcon blocks at decode.
 - `qgemm` replaces ``pallas_qmm.py::qgemm``: the W4A16 GEMM for more rows,
   with the weak-column slab and an optional residual in its epilogue.
 - `qgemm_t` replaces ``pallas_qmm.py::qgemm_t``: ``dx = g @ W_deq^T`` from
@@ -140,6 +141,18 @@ def _check_act(t: torch.Tensor, name: str, shape) -> torch.Tensor:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     return cuda_lib.aligned(t)
+
+
+def mma_k_row(hh: int, jj0: int, t: int, j: int) -> int:
+    """K row, within its quantization group, of element ``j`` (0..7) of lane
+    ``t``'s activation chunk of the unit at word row ``jj0`` in the
+    contraction order of K5/K6's tensor-core kernel: word row ``jj0 + t``,
+    nibble ``j // 2 + 4 * (j % 2)`` (``hh`` = g / 8 word rows a group).
+    Chunk words 2s and 2s + 1 are the B registers of k16 step s, the
+    word's mask-or pairs 2s and 2s + 1 its A registers.  Twin of
+    ``csrc/qmm.cu::mma_k_row`` for the CPU tests; the kernel does not call
+    it."""
+    return ((j >> 1) + 4 * (j & 1)) * hh + jj0 + t
 
 
 def gemm_rows(m: int) -> int:

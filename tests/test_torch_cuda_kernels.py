@@ -5,13 +5,15 @@ one tile, GQA, window offsets and per-sequence positions, split decode
 chunks; the GEMM (K2) at 9 to 2048 rows, both block heights, split-K and
 ragged M and N, bit-identical from call to call; the transposed GEMM (K7)
 at 1 to 2048 rows and 86 groups, with and without the weak-column addend,
-and the autograd linear's gradients; the plain decode
-matvec (K6) at 1..8 rows; int8 decode attention (K4q) and the stacked-cache
+and the autograd linear's gradients; the tensor-core decode matvec (K6) at
+every M from 1 to 8; int8 decode attention (K4q) and the stacked-cache
 decode attention (K8, bf16 and int8, slots >= pos poisoned); the unstacked
-decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes with and without
-a bias, and the autograd linear's K5 / K2 dispatch with ``reorder_ids``; K1
-and K6 at eight rows of K up to 28,672 (staged in bands); and the wrappers'
-refusals.  They need an NVIDIA GPU and ``nvcc`` and skip elsewhere:
+decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes, every M from 1
+to 8, with and without a bias; K5 and K6 one launch a call and bit-identical
+from call to call; the autograd linear's K5 / K2 dispatch with
+``reorder_ids``; K1 (staged in bands) and K6 at eight rows of K up to
+28,672; and the wrappers' refusals.  They need an NVIDIA GPU and ``nvcc``
+and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -204,7 +206,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                                    _randn(gen, 1, 4, 8, 64), 8)
 
 
-@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("m", range(1, 9))
 @pytest.mark.parametrize("k,n,g,r", [(512, 96, 128, 16), (11008, 64, 128, 128),
                                      (1024, 200, 64, 0)])
 def test_plain_decode_matvec(gen, m, k, n, g, r):
@@ -294,8 +296,8 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
 @pytest.mark.parametrize("k", [13824, 16384, 18176, 28672])
 def test_decode_matvecs_at_eight_rows_of_wide_k(gen, k):
     """K1 (norm and residual) and K6 at M = 8 where eight whole rows need
-    more than the 227 KB of shared memory a block may have: the row is
-    staged in bands of groups."""
+    more than the 227 KB of shared memory a block may have: K1 stages the
+    row in bands of groups, K6 its split's K range in chunks."""
     n = 96
     p = _packed(gen, 2, k, n, 128, 128)
     x = _randn(gen, 8, k)
@@ -309,7 +311,7 @@ def test_decode_matvecs_at_eight_rows_of_wide_k(gen, k):
 
 
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("m", range(1, 9))
 @pytest.mark.parametrize("k,n,g,r", [
     (4096, 4096, 128, 128),   # OPT-6.7B q/k/v/o
     (16384, 512, 128, 128),   # OPT-6.7B fc2's K (two bands at M = 8)
@@ -386,6 +388,33 @@ def test_unstacked_decode_matvec_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError):  # K1 and K6 take no bias
         qmm.qgemv_stacked(x, dataclasses.replace(_packed(gen, 2, 256, 64, 64, 8),
                                                  bias=_randn(gen, 2, 64)), 0)
+    with pytest.raises(RuntimeError):  # group size 32: K5 and K6 take 64 and 128
+        qmm.qgemv(x, _packed(gen, 1, 256, 64, 32, 0).layer(0))
+    with pytest.raises(RuntimeError):  # N not a multiple of 4 (16-byte word loads)
+        qmm.qgemv_stacked(x, _packed(gen, 2, 256, 66, 64, 0), 0)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n,g,r", [
+    (4096, 4096, 128, 128),   # 32 column tiles: the groups split over a cluster of 8
+    (11008, 4096, 128, 128),  # 86 groups over 8 splits
+    (4096, 22016, 128, 128),  # 172 tiles: one split
+    (4544, 4672, 64, 128),
+])
+def test_decode_matvecs_bit_identical_and_one_launch(gen, m, k, n, g, r):
+    """K6 and K5 (with a bias): each call one launch, and a second call on
+    the same inputs bit-identical (the splits are summed in rank order)."""
+    p = _packed(gen, 2, k, n, g, r)
+    x = _randn(gen, m, k)
+    lin = dataclasses.replace(p.layer(1), bias=_randn(gen, n, scale=0.5))
+    for name, call in (("qgemv_stacked", lambda: qmm.qgemv_stacked(x, p, 1)),
+                       ("qgemv", lambda: qmm.qgemv(x, lin))):
+        before = cuda_lib.launches[name]
+        first = call()
+        torch.cuda.synchronize()
+        assert cuda_lib.launches[name] == before + 1, name
+        assert torch.equal(call(), first), name
+    _close(first, qmm.qgemv_plain(_f32(x), _f32(lin)))
 
 
 # ---------------------------------------------------------------------------

@@ -154,3 +154,21 @@ def quantized_family(name, seed=5):
     packed = pack_model(qparams, quantizers, cfg, meta, dtype=jnp.float32)
     return (packed, to_port(packed, family), cfg,
             dataclasses.replace(tpresets[name], dtype=torch.float32), family)
+
+
+def random_packed_linear(seed, layers, k, n, g, r):
+    """A stacked ``[layers, ...]`` packed linear of the port in f32: codes,
+    scales, zero points and an oweight of ``r`` rows (none at 0) drawn with
+    numpy from ``seed``, the codes packed by the JAX package's
+    ``pack_codes`` (the checkpoint format)."""
+    from qeft_tpu.ops.packing import pack_codes
+    from qeft_tpu_torch.ops.packing import QLinearParams
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 16, size=(layers, k, n)).astype(np.int32)
+    qw = np.stack([np.array(pack_codes(jnp.asarray(c), g)) for c in codes])
+    sc = (rng.random((layers, k // g, n)) * 0.02 + 0.01).astype(np.float32)
+    sz = (-rng.random((layers, k // g, n)) * 0.16).astype(np.float32)
+    ow = (rng.normal(size=(layers, r, n)) * 0.02).astype(np.float32) if r else None
+    return QLinearParams(torch.from_numpy(qw), torch.from_numpy(sc), torch.from_numpy(sz),
+                         oweight=None if ow is None else torch.from_numpy(ow), group_size=g)
