@@ -9,78 +9,85 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3. model: a random packed Llama-2-7B (w4/g128/r128, full width and depth) built
    on the card from a seed; the HBM copy rate measured with a 1 GiB
    device-to-device copy;
-4. kernels: each kernel against its plain PyTorch version at the main path's
-   shapes (bf16), with its time, the plain version's time, one PyTorch
+4. kernels: K1 and K2 against their plain PyTorch versions at the main path's
+   shapes (bf16), with their time, the plain version's time, one PyTorch
    library call's time as a yardstick (never used by the port) and the bound;
-5. probes: P2 (dma_only, unpack_only), P3 (dma_tile at bn 256, 512, 1024)
+5. attention: K3 at the S = 64 prefill, the engine's W = 1 windows (B = 8,
+   positions 64..191, 200 slots) and an S = 512 window without a cache; K4,
+   K4q and K8 at the main path's last position, each with its SDPA
+   yardstick timed hot (one layer's cache) and rotating over a 32-layer
+   cache; K4, K4q and K8 each one CUDA kernel a call in the profiler
+   (``--only attention`` runs this phase alone, after device and build, and
+   prints its rows with the profiler's kernels a call in place of launch
+   counts, since no main path runs);
+6. probes: P2 (dma_only, unpack_only), P3 (dma_tile at bn 256, 512, 1024)
    and P4 (gemv_ablation, nine variants at the down and qkv shapes) against
    their plain versions, timed hot (one buffer) and cold (rotating over
    copies past 200 MB), with K6 at P4's shapes;
-6. main path: ``generate`` -- prefill 64 tokens, greedy-decode 256 over a
+7. main path: ``generate`` -- prefill 64 tokens, greedy-decode 256 over a
    320-slot bf16 cache, the decode loop as replays of one captured CUDA
    graph -- with launch counts checked per kernel, then the per-token
    protocol of ``main.benchmark``;
-7. profile: device busy time and idle share of an eager decode step and of
+8. profile: device busy time and idle share of an eager decode step and of
    the prefill, with the kernels that take it (torch.profiler);
-8. oracle: the same model dequantized into a dense bf16 model that runs plain
+9. oracle: the same model dequantized into a dense bf16 model that runs plain
    PyTorch; the generated tokens teacher-forced through both paths (max logit
    difference per step, bounded), PPL of both on synthetic windows, greedy
    agreement;
-9. train kernels: K7 (transposed INT4 GEMM of the backward) and K2 at the
+10. train kernels: K7 (transposed INT4 GEMM of the backward) and K2 at the
    training shapes (M = 4 x 512 rows) against their plain versions, timed
    beside their bounds and a ``torch.matmul`` yardstick, each one's share of
    its bound printed; both again at a ragged M = 2047;
-10. train grad: the autograd linear's ``dx`` and ``dow`` on the full upgate
+11. train grad: the autograd linear's ``dx`` and ``dow`` on the full upgate
    stage against autograd through the plain version in f32;
-11. train oracle: loss and weak-column gradients of one 4 x 512 batch through
+12. train oracle: loss and weak-column gradients of one 4 x 512 batch through
    the kernel path and through the dense bf16 model, layers 0, 15 and 31;
-12. train: the WCT main path -- 6 ``make_train_step`` steps at full depth with
+13. train: the WCT main path -- 6 ``make_train_step`` steps at full depth with
    run_finetune's defaults -- with launch counts checked per step, step
    times, tokens/s, peak memory and the device's idle share;
-13. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
+14. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
    wct_final --eval --benchmark`` on a 4-layer model of full width, written
    with ``save_packed``; the tuned model is served through K1-K4;
-14. serving kernels: K4q (int8 decode attention), K8 (stacked-cache decode
-   attention, bf16 and int8, slots >= pos poisoned) and K6 (the
-   tensor-core decode matvec) against their plain versions, timed, K6 at
-   M = 1, 4 and 8 with its share of the bound and the library's time;
-15. int8 generate: 64 + 256 greedy over an int8 cache (K4q 32 x 255 times),
+15. serving kernels: K6 (the tensor-core decode matvec) against its plain
+   version, timed at M = 1, 4 and 8 with its share of the bound and the
+   library's time;
+16. int8 generate: 64 + 256 greedy over an int8 cache (K4q 32 x 255 times),
    teacher-forced through the bf16-cache path;
-16. stacked generate: the same with QEFT_ATTN_STACKED=1 over bf16 and int8
+17. stacked generate: the same with QEFT_ATTN_STACKED=1 over bf16 and int8
    caches (K8 32 x 255 times, K4 and K4q never);
-17. graph: P1 (``probes.entry_overhead``) -- [A] the cost of one kernel
+18. graph: P1 (``probes.entry_overhead``) -- [A] the cost of one kernel
    entry eagerly and in a graph, [B] each K1 stage in a graph, [C] the
    decode step as graph replays and as the eager loop -- then each Llama
    ``generate`` above against the eager loop (tokens identical), with the
    graph step's host clock, busy time and idle share (OPT-6.7B and the
    families likewise in their phases);
-18. engine: ``measure_engine_throughput`` with its defaults (8 slots, 16
+19. engine: ``measure_engine_throughput`` with its defaults (8 slots, 16
    requests of 64 + 128, burst 16) over bf16 and int8 caches, then one
    counted serve -- launches per tick, every request checked against the
-   single-sequence path;
-19. spec: ``SpecEngine`` with an 8-layer self-draft (gamma 4) over the same
+   single-sequence path -- and a profiled burst with K3's share of the tick;
+20. spec: ``SpecEngine`` with an 8-layer self-draft (gamma 4) over the same
    requests and ``speculative_generate_batched`` at B = 4, checked against
    the target's greedy choice under teacher forcing;
-20. serving cli: ``run_benchmark --method engine`` and ``--method
+21. serving cli: ``run_benchmark --method engine`` and ``--method
    spec-batch --draft_layers 8``;
-21. opt model: the Llama model freed, a random packed OPT-6.7B (w4/g128/r128,
+22. opt model: the Llama model freed, a random packed OPT-6.7B (w4/g128/r128,
    full width and depth) built on the card;
-22. family kernels: K5 (the unstacked decode matvec) against its plain version
+23. family kernels: K5 (the unstacked decode matvec) against its plain version
    at the six OPT-6.7B stage shapes, M = 1 and 8, with and without bias,
    timed beside its bound and ``torch.addmm`` on a pre-dequantized weight;
    every linear of layer 0 with its bias through K5 (M = 1) and K2 (M = 64);
    K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (K1 staged in
    bands);
-23. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
+24. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
    with launch counts checked (K5 for every decode linear, K2 for the
    prefill, nothing else), a profiled decode step and prefill, and the
    dense-model oracle (teacher-forced logits, greedy agreement);
-24. families: Phi-2, Bloom-7b1 (per-linear ``reorder_ids``) and Falcon-7b
+25. families: Phi-2, Bloom-7b1 (per-linear ``reorder_ids``) and Falcon-7b
    (g = 64) at full width and 2 layers: every linear of layer 0 on its
    gathered input, with its bias, through K5 (M = 1) and K2 (M = 64)
    against the plain versions; prefill 64 + 32 greedy each, launch counts
    and the dense-model oracle;
-25. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
+26. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
    ``run_benchmark --method qeft --load`` as subprocesses.
 
 Each main path runs with the launch counts set to 0 just before it and read
@@ -93,6 +100,7 @@ Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -225,14 +233,19 @@ def phase_model():
     nbytes += sum(t.numel() * t.element_size() for t in (params["final_ln"], params["lm_head"]))
     log(f"[model] random packed llama2-7b (32 layers, w4/g128/r128) on the card in "
         f"{time.perf_counter() - tick:.1f} s; {nbytes} bytes of layers, final norm and lm_head")
+    return cfg, params, nbytes, copy_rate()
+
+
+def copy_rate() -> float:
+    """The card's copy rate (bytes/s, read + write) of a 1 GiB
+    device-to-device copy."""
     src = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
     copy_ms = time_ms(lambda i: dst.copy_(src), inner=5, reps=5)
     bw = 2 * src.numel() / (copy_ms * 1e-3)
-    del src, dst
     log(f"[model] device-to-device copy of 1 GiB: {copy_ms:.3f} ms -> {bw / 1e9:.1f} GB/s "
         f"(read + write; data-sheet peak {PEAK_HBM / 1e9:.0f} GB/s)")
-    return cfg, params, nbytes, bw
+    return bw
 
 
 def _leaves(tree):
@@ -246,7 +259,7 @@ def _leaves(tree):
 
 
 def phase_kernels(cfg, params, bw):
-    from qeft_tpu_torch.ops import attention, flash, qmm
+    from qeft_tpu_torch.ops import qmm
     from qeft_tpu_torch.testing import dense_linear
 
     gen = torch.Generator(device="cuda")
@@ -259,10 +272,6 @@ def phase_kernels(cfg, params, bw):
         "qgemv_stacked_fused": Row("qgemv_stacked_fused", "qeft_tpu_torch/csrc/qmm.cu",
                                    "qeft_tpu/ops/pallas_qmm.py:439", True),
         "qgemm": Row("qgemm", "qeft_tpu_torch/csrc/qmm.cu", "qeft_tpu/ops/pallas_qmm.py:608", True),
-        "flash_window_attention": Row("flash_window_attention", "qeft_tpu_torch/csrc/flash.cu",
-                                      "qeft_tpu/ops/pallas_flash.py:46", True),
-        "decode_attention": Row("decode_attention", "qeft_tpu_torch/csrc/decode_attention.cu",
-                                "qeft_tpu/ops/pallas_attention.py:62", True),
     }
     layers = params["layers"]
     n_layers = cfg.num_layers
@@ -333,58 +342,318 @@ def phase_kernels(cfg, params, bw):
         f"{d['bound_ms'] * 1e3:.2f} us ({d['bound_ms'] / d['ms']:.1%}), torch.matmul "
         f"{d['library_ms'] * 1e3:.1f} us")
 
-    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    log(f"[kernels] K3 flash_window_attention vs plain, S={PROMPT} against a {CACHE}-slot cache")
+    return rows
+
+
+def _kernels_a_call(fn, calls: int = 16):
+    """The CUDA kernels that ``calls`` calls of ``fn(i)`` ran, as
+    torch.profiler records them after one unprofiled call: (their distinct
+    names, kernel records a call).  One kernel a call shows as one name at
+    no more than one record a call; the profiler may drop records of short
+    kernels, so the records alone do not count the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return sorted(e.key[:60] for e in events), sum(e.count for e in events) / calls
+
+
+def _hot_and_rotating(fn, lib_inputs, lib, n_layers):
+    """``fn(layer)`` and ``lib(*lib_inputs[layer])`` timed rotating over the
+    ``n_layers`` layers, as the decode step reads them, and hot (layer 0
+    again and again: one layer's cache stays in the 50 MB L2); every layer's
+    library inputs were built before the timing.  Returns (rotating ms,
+    rotating library ms, hot ms, hot library ms)."""
+    return (time_ms(lambda i: fn(i % n_layers)), time_ms(lambda i: lib(*lib_inputs[i % n_layers])),
+            time_ms(lambda i: fn(0)), time_ms(lambda i: lib(*lib_inputs[0])))
+
+
+def phase_attention_kernels(cfg, bw, rows):
+    """K3, K4, K4q and K8 against their plain versions evaluated in f32 at the
+    shapes the paths give them, timed beside their bounds and SDPA on the
+    same inputs (never called by the port).
+
+    K3 at three shapes: the S = 64 prefill against the 320-slot cache, the
+    engine's W = 1 windows (B = 8, one position per sequence in 64..191, 200
+    slots; SDPA with a boolean mask) and an S = 512 full window without a
+    cache (``eval_ppl``).  K4, K4q and K8 at the last decode position of the
+    main path, each with its SDPA yardstick timed hot (one layer's cache
+    again and again: it stays in the 50 MB L2) and rotating over the 32
+    layers of a cache, as the decode step reads it -- the yardstick's
+    per-layer inputs built before the timing; the rotating times are the
+    row's.  K4 and K4q also at pos 4095 of 4096 slots (one cache).  Returns the CUDA kernels a call of K4, K4q and K8 takes in the
+    profiler."""
+    from qeft_tpu_torch.ops import attention, flash
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def int8_cache(*shape):
+        codes = torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
+        return codes, torch.rand(shape[:-1], generator=gen, device="cuda") * 0.03 + 0.005
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hq, hkv, dh, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    rep = hq // hkv
+    main_pos = CACHE - 2  # the last decode position of the main path
+    src, attn = "qeft_tpu_torch/csrc/decode_attention.cu", "qeft_tpu/ops/pallas_attention.py"
+    k3 = rows["flash_window_attention"] = Row(
+        "flash_window_attention", "qeft_tpu_torch/csrc/flash.cu", "qeft_tpu/ops/pallas_flash.py:46",
+        True)
+    k4 = rows["decode_attention"] = Row("decode_attention", src, f"{attn}:62", True)
+    k4q = rows["decode_attention_int8"] = Row("decode_attention_int8", src, f"{attn}:86", True)
+    k8 = rows["decode_attention_stacked"] = Row("decode_attention_stacked", src, f"{attn}:202",
+                                                True)
+
+    def keep_err(row, err):
+        row.d["max_abs_err"] = max(row.d["max_abs_err"], err)
+
+    # ---- K3
+    log(f"[attention] K3 flash_window_attention vs plain: S={PROMPT} prefill against a "
+        f"{CACHE}-slot cache, W=1 engine windows, S=512 full window")
     for label, h, kvh, main in (("llama2-7b heads 32/32", hq, hkv, True),
                                 ("GQA heads 32/8", 32, 8, False)):
         q = randn(1, PROMPT, h, dh)
         kc, vc = randn(1, kvh, CACHE, dh), randn(1, kvh, CACHE, dh)
         kc[:, :, PROMPT:] = 0  # slots past the prompt are still empty in prefill
         vc[:, :, PROMPT:] = 0
-        err = check(f"K3 {label}", flash.flash_window_attention(q, kc, vc, 0),
+        err = check(f"K3 S={PROMPT} {label}", flash.flash_window_attention(q, kc, vc, 0),
                     flash.flash_window_attention_plain(f32(q), f32(kc), f32(vc), 0))
         if not main:
-            rows["flash_window_attention"].d["max_abs_err"] = max(
-                rows["flash_window_attention"].d["max_abs_err"], err)
+            keep_err(k3, err)
             continue
         ms = time_ms(lambda i: flash.flash_window_attention(q, kc, vc, 0))
         plain = time_ms(lambda i: flash.flash_window_attention_plain(q, kc, vc, 0))
-        rep = h // kvh  # SDPA gets the kv heads expanded, outside the timing
-        qh = q.transpose(1, 2)
-        kh, vh = (t[:, :, :PROMPT].repeat_interleave(rep, 1) for t in (kc, vc))
-        lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True))
+        qh = q.transpose(1, 2)  # SDPA gets the kv heads expanded, outside the timing
+        kh, vh = (t[:, :, :PROMPT].repeat_interleave(h // kvh, 1) for t in (kc, vc))
+        lib = time_ms(lambda i: sdpa(qh, kh, vh, is_causal=True))
         nbytes = 2 * (2 * PROMPT * h * dh + 2 * kvh * PROMPT * dh)
         flops = 4 * h * dh * PROMPT * (PROMPT + 1) // 2
-        b = rows["flash_window_attention"].add(err, ms, plain, lib, nbytes, flops, bw)
-        log(f"    kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, SDPA (causal, valid "
-            f"prefix) {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]})")
-    rows["flash_window_attention"].d["per"] = f"one prefill layer, S={PROMPT}, {CACHE} slots"
+        b = k3.add(err, ms, plain, lib, nbytes, flops, bw)
+        log(f"    S={PROMPT}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, SDPA (causal, "
+            f"valid prefix) {lib * 1e3:.2f} us, bound {b[0] * 1e3:.2f} us ({b[1]})")
 
-    log("[kernels] K4 decode_attention vs plain")
-    main_pos = CACHE - 2  # the last decode position of the main path
+    slots = -(-(ENGINE_CTX + ENGINE_GEN + 1) // 8) * 8  # the engine's cache (Engine rounds to 8)
+    for label, h, kvh in (("heads 32/32", hq, hkv), ("GQA heads 32/8", 32, 8)):
+        pos = torch.linspace(ENGINE_CTX, ENGINE_CTX + ENGINE_GEN - 1, ENGINE_SLOTS,
+                             device="cuda").long()
+        q = randn(ENGINE_SLOTS, 1, h, dh)
+        kc, vc = randn(ENGINE_SLOTS, kvh, slots, dh), randn(ENGINE_SLOTS, kvh, slots, dh)
+        past = torch.arange(slots, device="cuda") > pos[:, None]  # [B, slots]
+        kc[past[:, None, :, None].expand_as(kc)] = 1e4  # a read past the row's frontier shows
+        vc[past[:, None, :, None].expand_as(vc)] = 1e4
+        err = check(f"K3 W=1 B={ENGINE_SLOTS} {label} positions {pos.tolist()}",
+                    flash.flash_window_attention(q, kc, vc, pos),
+                    flash.flash_window_attention_plain(f32(q), f32(kc), f32(vc), pos))
+        keep_err(k3, err)
+        if kvh != hkv:
+            continue
+        ms = time_ms(lambda i: flash.flash_window_attention(q, kc, vc, pos))
+        plain = time_ms(lambda i: flash.flash_window_attention_plain(q, kc, vc, pos))
+        qh = q.transpose(1, 2)
+        kh, vh = (t.repeat_interleave(h // kvh, 1) for t in (kc, vc))
+        mask = ~past[:, None, None, :]
+        lib = time_ms(lambda i: sdpa(qh, kh, vh, attn_mask=mask))
+        n_keys = int((pos + 1).sum())
+        nbytes = 2 * (2 * ENGINE_SLOTS * h * dh) + 2 * kvh * n_keys * dh * 2
+        b = bound_ms(nbytes, 4 * h * dh * n_keys)
+        k3.d.update(w1_ms=ms, w1_plain_ms=plain, w1_library_ms=lib, w1_bound_ms=b[0])
+        log(f"    W=1, B={ENGINE_SLOTS}, {slots} slots: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.1f} us, SDPA (boolean mask) {lib * 1e3:.2f} us, bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+
+    s_full = 512
+    for label, h, kvh in (("heads 32/32", hq, hkv), ("GQA heads 32/8", 32, 8)):
+        q = randn(1, s_full, h, dh)
+        kc, vc = randn(1, kvh, s_full, dh), randn(1, kvh, s_full, dh)
+        err = check(f"K3 S={s_full} full window, no cache, {label}",
+                    flash.flash_window_attention(q, kc, vc, 0),
+                    flash.flash_window_attention_plain(f32(q), f32(kc), f32(vc), 0))
+        keep_err(k3, err)
+        if kvh != hkv:
+            continue
+        ms = time_ms(lambda i: flash.flash_window_attention(q, kc, vc, 0))
+        plain = time_ms(lambda i: flash.flash_window_attention_plain(q, kc, vc, 0),
+                        inner=2, reps=3)
+        qh = q.transpose(1, 2)
+        kh, vh = (t.repeat_interleave(h // kvh, 1) for t in (kc, vc))
+        lib = time_ms(lambda i: sdpa(qh, kh, vh, is_causal=True))
+        nbytes = 2 * (2 * s_full * h * dh + 2 * kvh * s_full * dh)
+        b = bound_ms(nbytes, 4 * h * dh * s_full * (s_full + 1) // 2)
+        k3.d.update(s512_ms=ms, s512_plain_ms=plain, s512_library_ms=lib, s512_bound_ms=b[0])
+        log(f"    S={s_full}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, SDPA "
+            f"(causal) {lib * 1e3:.2f} us, bound {b[0] * 1e3:.2f} us ({b[1]})")
+    k3.d["per"] = (f"one prefill layer, S={PROMPT}, {CACHE} slots (w1_*: the engine's W=1 windows, "
+                   f"B={ENGINE_SLOTS}, {slots} slots; s512_*: an S=512 window without a cache)")
+
+    # ---- K4
+    log("[attention] K4 decode_attention vs plain")
     for slots, h, kvh in ((CACHE, hq, hkv), (4096, hq, hkv), (CACHE, 32, 8)):
         q = randn(1, h, dh)
         kc, vc = randn(1, kvh, slots, dh), randn(1, kvh, slots, dh)
         for pos in sorted({0, 255, 256, slots // 2, main_pos if slots == CACHE else slots - 1}):
-            err = check(f"K4 {slots} slots heads {h}/{kvh} pos {pos}",
-                        attention.decode_attention(q, kc, vc, pos),
-                        attention.decode_attention_plain(f32(q), f32(kc), f32(vc), pos))
-            r = rows["decode_attention"]
-            r.d["max_abs_err"] = max(r.d["max_abs_err"], err)
-            if slots == CACHE and kvh == hkv and pos == main_pos:
-                ms = time_ms(lambda i: attention.decode_attention(q, kc, vc, pos))
-                plain = time_ms(lambda i: attention.decode_attention_plain(q, kc, vc, pos))
-                qh = q[:, :, None]
-                kh, vh = (t[:, :, : pos + 1].repeat_interleave(h // kvh, 1) for t in (kc, vc))
-                lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
-                nbytes = 2 * (2 * h * dh + 2 * kvh * (pos + 1) * dh)
-                flops = 4 * h * (pos + 1) * dh
-                b = r.add(0.0, ms, plain, lib, nbytes, flops, bw)
-                log(f"    kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, SDPA over "
-                    f"the valid prefix {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]})")
-    rows["decode_attention"].d["per"] = f"one decode layer at pos {main_pos}, {CACHE} slots"
-    return rows
+            keep_err(k4, check(f"K4 {slots} slots heads {h}/{kvh} pos {pos}",
+                               attention.decode_attention(q, kc, vc, pos),
+                               attention.decode_attention_plain(f32(q), f32(kc), f32(vc), pos)))
+        if slots != 4096:
+            continue
+        pos = slots - 1
+        ms = time_ms(lambda i: attention.decode_attention(q, kc, vc, pos))
+        plain = time_ms(lambda i: attention.decode_attention_plain(q, kc, vc, pos))
+        kh, vh = (t[:, :, : pos + 1].repeat_interleave(rep, 1) for t in (kc, vc))
+        lib = time_ms(lambda i: sdpa(q[:, :, None], kh, vh))
+        nbytes = 2 * (2 * h * dh) + 2 * kvh * (pos + 1) * dh * 2
+        b = bound_ms(nbytes, 4 * h * (pos + 1) * dh)
+        k4.d.update(ms_4096=ms, plain_ms_4096=plain, library_ms_4096=lib, bound_ms_4096=b[0])
+        log(f"    4096 slots pos {pos} (one cache): kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.1f} us, SDPA over the valid prefix {lib * 1e3:.2f} us, "
+            f"bound {b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+        del kh, vh
+    pos = main_pos
+    q = randn(1, hq, dh)
+    kc, vc = randn(n_layers, 1, hkv, CACHE, dh), randn(n_layers, 1, hkv, CACHE, dh)
+    plain = time_ms(lambda i: attention.decode_attention_plain(q, kc[0], vc[0], pos))
+    lib_in = [(q[:, :, None], *(t[l, :, :, : pos + 1].repeat_interleave(rep, 1) for t in (kc, vc)))
+              for l in range(n_layers)]
+    ms, lib, hot, hot_lib = _hot_and_rotating(
+        lambda l: attention.decode_attention(q, kc[l], vc[l], pos), lib_in, sdpa, n_layers)
+    k4.d.update(hot_ms=hot, hot_library_ms=hot_lib)
+    nbytes = 2 * (2 * hq * dh + 2 * hkv * (pos + 1) * dh)
+    b = k4.add(0.0, ms, plain, lib, nbytes, 4 * hq * (pos + 1) * dh, bw)
+    log(f"    pos {pos}, {CACHE} slots, rotating over {n_layers} layers: kernel {ms * 1e3:.2f} us, "
+        f"SDPA over the valid prefix {lib * 1e3:.2f} us; hot (one layer): kernel "
+        f"{hot * 1e3:.2f} us, SDPA {hot_lib * 1e3:.2f} us; plain {plain * 1e3:.1f} us, bound "
+        f"{b[0] * 1e3:.2f} us ({b[1]})")
+    per_call = {"decode_attention": _kernels_a_call(
+        lambda i: attention.decode_attention(q, kc[i % n_layers], vc[i % n_layers], pos))}
+    del kc, vc, lib_in
+    k4.d["per"] = (f"one decode layer at pos {main_pos}, {CACHE} slots, rotating over {n_layers} "
+                   "layers (hot_*: one layer; *_4096: pos 4095 of 4096, one cache)")
+
+    # ---- K4q
+    log("[attention] K4q decode_attention_int8 vs plain (int8 codes, f32 scales)")
+    for slots, h, kvh in ((CACHE, hq, hkv), (4096, hq, hkv), (CACHE, 32, 8), (4096, 32, 8)):
+        q = randn(1, h, dh)
+        (kc, ks), (vc, vs) = int8_cache(1, kvh, slots, dh), int8_cache(1, kvh, slots, dh)
+        for pos in sorted({0, 255, 256, slots // 2, main_pos if slots == CACHE else slots - 1}):
+            keep_err(k4q, check(f"K4q {slots} slots heads {h}/{kvh} pos {pos}",
+                                attention.decode_attention(q, kc, vc, pos, k_scale=ks, v_scale=vs),
+                                attention.decode_attention_plain(f32(q), kc, vc, pos, ks, vs)))
+        if slots != 4096 or kvh != hkv:
+            continue
+        pos = slots - 1
+        ms = time_ms(lambda i: attention.decode_attention(q, kc, vc, pos, k_scale=ks, v_scale=vs))
+        plain = time_ms(lambda i: attention.decode_attention_plain(q, kc, vc, pos, ks, vs))
+        kh, vh = (_dequant(c[:, :, : pos + 1], s[:, :, : pos + 1]).repeat_interleave(rep, 1)
+                  for c, s in ((kc, ks), (vc, vs)))
+        lib = time_ms(lambda i: sdpa(q[:, :, None], kh, vh))
+        nbytes = 2 * (2 * h * dh) + 2 * kvh * (pos + 1) * (dh + 4)
+        b = bound_ms(nbytes, 4 * h * (pos + 1) * dh)
+        k4q.d.update(ms_4096=ms, plain_ms_4096=plain, library_ms_4096=lib, bound_ms_4096=b[0])
+        log(f"    4096 slots pos {pos} (one cache): kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.1f} us, SDPA over the dequantized valid prefix {lib * 1e3:.2f} us, "
+            f"bound {b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+        del kh, vh
+    pos = main_pos
+    q = randn(1, hq, dh)
+    (kc, ks), (vc, vs) = (int8_cache(n_layers, 1, hkv, CACHE, dh) for _ in range(2))
+    plain = time_ms(lambda i: attention.decode_attention_plain(q, kc[0], vc[0], pos, ks[0], vs[0]))
+    lib_in = [(q[:, :, None], *(_dequant(c[l, :, :, : pos + 1], s[l, :, :, : pos + 1])
+                                .repeat_interleave(rep, 1) for c, s in ((kc, ks), (vc, vs))))
+              for l in range(n_layers)]
+    ms, lib, hot, hot_lib = _hot_and_rotating(
+        lambda l: attention.decode_attention(q, kc[l], vc[l], pos, k_scale=ks[l], v_scale=vs[l]),
+        lib_in, sdpa, n_layers)
+    k4q.d.update(hot_ms=hot, hot_library_ms=hot_lib)
+    nbytes = 2 * (2 * hq * dh) + 2 * hkv * (pos + 1) * (dh + 4)
+    b = k4q.add(0.0, ms, plain, lib, nbytes, 4 * hq * (pos + 1) * dh, bw)
+    log(f"    pos {pos}, {CACHE} slots, rotating over {n_layers} layers: kernel {ms * 1e3:.2f} us, "
+        f"SDPA over the dequantized valid prefix {lib * 1e3:.2f} us; hot (one layer): kernel "
+        f"{hot * 1e3:.2f} us, SDPA {hot_lib * 1e3:.2f} us; plain {plain * 1e3:.1f} us, bound "
+        f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+    per_call["decode_attention_int8"] = _kernels_a_call(
+        lambda i: attention.decode_attention(q, kc[i % n_layers], vc[i % n_layers], pos,
+                                             k_scale=ks[i % n_layers], v_scale=vs[i % n_layers]))
+    del kc, vc, ks, vs, lib_in
+    k4q.d["per"] = (f"one decode layer at pos {main_pos}, {CACHE} slots, rotating over {n_layers} "
+                    "layers (hot_*: one layer; *_4096: pos 4095 of 4096, one cache)")
+
+    # ---- K8
+    log(f"[attention] K8 decode_attention_stacked vs plain, the stacked {n_layers}-layer cache "
+        f"of {CACHE} slots, slots >= pos poisoned")
+    for quantized in (False, True):
+        shape = (n_layers, 1, hkv, CACHE, dh)
+        q, kn, vn = randn(1, hq, dh), randn(1, hkv, dh), randn(1, hkv, dh)
+        if quantized:
+            (kc, ks), (vc, vs) = int8_cache(*shape), int8_cache(*shape)
+            scales = dict(k_scale=ks, v_scale=vs)
+        else:
+            kc, vc = randn(*shape), randn(*shape)
+            scales = {}
+        label = "int8" if quantized else "bf16"
+        for pos in (0, 1, 256, main_pos):
+            kp, vp = kc.clone(), vc.clone()
+            sp = {k: v.clone() for k, v in scales.items()}
+            poison = 127 if quantized else 1e4
+            kp[:, :, :, pos:] = poison
+            vp[:, :, :, pos:] = poison
+            for v in sp.values():
+                v[:, :, :, pos:] = 1e3
+            for layer in (0, n_layers - 1):
+                want = attention.decode_attention_stacked_plain(
+                    f32(q), kp if quantized else f32(kp), vp if quantized else f32(vp), layer,
+                    pos, f32(kn), f32(vn), **sp)
+                keep_err(k8, check(
+                    f"K8 {label} layer {layer} pos {pos}",
+                    attention.decode_attention_stacked(q, kp, vp, layer, pos, kn, vn, **sp), want))
+            del kp, vp, sp
+        pos = main_pos
+        plain = time_ms(lambda i: attention.decode_attention_stacked_plain(
+            q, kc, vc, i % n_layers, pos, kn, vn, **scales))
+        lib_in = []
+        for l in range(n_layers):
+            if quantized:
+                kh, vh = (_dequant(c[l, :, :, :pos], s[l, :, :, :pos]) for c, s in ((kc, ks), (vc, vs)))
+            else:
+                kh, vh = kc[l, :, :, :pos], vc[l, :, :, :pos]
+            lib_in.append((q[:, :, None], *(torch.cat([t, t_new[:, :, None]], 2)
+                                            .repeat_interleave(rep, 1)
+                                            for t, t_new in ((kh, kn), (vh, vn)))))
+        ms, lib, hot, hot_lib = _hot_and_rotating(
+            lambda l: attention.decode_attention_stacked(q, kc, vc, l, pos, kn, vn, **scales),
+            lib_in, sdpa, n_layers)
+        per_slot = dh + 4 if quantized else 2 * dh
+        nbytes = 2 * (2 * hq * dh) + 2 * hkv * pos * per_slot + 2 * (2 * hkv * dh)
+        flops = 4 * hq * (pos + 1) * dh
+        if quantized:
+            b = bound_ms(nbytes, flops)
+            k8.d.update(int8_ms=ms, int8_plain_ms=plain, int8_library_ms=lib, int8_bound_ms=b[0],
+                        int8_hot_ms=hot, int8_hot_library_ms=hot_lib)
+        else:
+            b = k8.add(0.0, ms, plain, lib, nbytes, flops, bw)
+            k8.d.update(hot_ms=hot, hot_library_ms=hot_lib)
+        log(f"    {label}, pos {pos}, rotating over {n_layers} layers: kernel {ms * 1e3:.2f} us, "
+            f"SDPA over the dequantized prefix and the new token {lib * 1e3:.2f} us; hot (layer 0): "
+            f"kernel {hot * 1e3:.2f} us, SDPA {hot_lib * 1e3:.2f} us; plain {plain * 1e3:.1f} us, "
+            f"bound {b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+        per_call[f"decode_attention_stacked {label}"] = _kernels_a_call(
+            lambda i: attention.decode_attention_stacked(q, kc, vc, i % n_layers, pos, kn, vn,
+                                                         **scales))
+        del kc, vc, scales, lib_in
+    k8.d["per"] = (f"one decode layer at pos {main_pos}, {CACHE} slots, bf16 cache, rotating over "
+                   f"{n_layers} layers (hot_*: layer 0 only; int8_*: the int8 cache)")
+    log(f"[attention] the CUDA kernels of a call in the profiler (names, records a call): "
+        f"{per_call}")
+    return per_call
 
 
 def _one_layer(p, l):
@@ -899,11 +1168,10 @@ def _dequant(codes, scales):
 
 
 def phase_serving_kernels(cfg, params, bw, rows):
-    """K4q, K8 and K6 against their plain versions evaluated in f32, at the
-    shapes the serving paths give them, timed beside their bounds and one
-    PyTorch yardstick each (SDPA over the dequantized valid prefix; a
-    ``torch.matmul`` on a pre-dequantized weight)."""
-    from qeft_tpu_torch.ops import attention, qmm
+    """K6 against its plain version evaluated in f32 at M = 1, 4 and 8 (the
+    engine's slots), timed beside its bound and ``torch.matmul`` on a
+    pre-dequantized weight."""
+    from qeft_tpu_torch.ops import qmm
     from qeft_tpu_torch.testing import dense_linear
 
     gen = torch.Generator(device="cuda")
@@ -912,105 +1180,7 @@ def phase_serving_kernels(cfg, params, bw, rows):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
-    def int8_cache(*shape):
-        codes = torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
-        return codes, torch.rand(shape[:-1], generator=gen, device="cuda") * 0.03 + 0.005
-
-    hq, hkv, dh, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
-    main_pos = CACHE - 2
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    k4q = rows["decode_attention_int8"] = Row(
-        "decode_attention_int8", "qeft_tpu_torch/csrc/decode_attention.cu",
-        "qeft_tpu/ops/pallas_attention.py:86", True)
-    log("[serving-kernels] K4q decode_attention_int8 vs plain (int8 codes, f32 scales)")
-    for slots, h, kvh in ((CACHE, hq, hkv), (4096, hq, hkv), (CACHE, 32, 8), (4096, 32, 8)):
-        q = randn(1, h, dh)
-        (kc, ks), (vc, vs) = int8_cache(1, kvh, slots, dh), int8_cache(1, kvh, slots, dh)
-        for pos in sorted({0, 255, 256, slots // 2, main_pos if slots == CACHE else slots - 1}):
-            err = check(f"K4q {slots} slots heads {h}/{kvh} pos {pos}",
-                        attention.decode_attention(q, kc, vc, pos, k_scale=ks, v_scale=vs),
-                        attention.decode_attention_plain(f32(q), kc, vc, pos, ks, vs))
-            k4q.d["max_abs_err"] = max(k4q.d["max_abs_err"], err)
-        if kvh != hkv:
-            continue
-        pos = main_pos if slots == CACHE else slots - 1
-        ms = time_ms(lambda i: attention.decode_attention(q, kc, vc, pos, k_scale=ks, v_scale=vs))
-        plain = time_ms(lambda i: attention.decode_attention_plain(q, kc, vc, pos, ks, vs))
-        kh, vh = (_dequant(c[:, :, : pos + 1], s[:, :, : pos + 1]).repeat_interleave(h // kvh, 1)
-                  for c, s in ((kc, ks), (vc, vs)))
-        lib = time_ms(lambda i: sdpa(q[:, :, None], kh, vh))
-        nbytes = 2 * (2 * h * dh) + 2 * kvh * (pos + 1) * (dh + 4)
-        flops = 4 * h * (pos + 1) * dh
-        if slots == CACHE:
-            b = k4q.add(0.0, ms, plain, lib, nbytes, flops, bw)
-        else:
-            b = bound_ms(nbytes, flops)
-            k4q.d.update(ms_4096=ms, plain_ms_4096=plain, library_ms_4096=lib, bound_ms_4096=b[0])
-        log(f"    {slots} slots pos {pos}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, "
-            f"SDPA over the dequantized valid prefix {lib * 1e3:.2f} us, bound {b[0] * 1e3:.2f} us "
-            f"({b[1]}: {nbytes} B)")
-    k4q.d["per"] = f"one decode layer at pos {main_pos}, {CACHE} slots (ms_4096: pos 4095 of 4096)"
-
-    k8 = rows["decode_attention_stacked"] = Row(
-        "decode_attention_stacked", "qeft_tpu_torch/csrc/decode_attention.cu",
-        "qeft_tpu/ops/pallas_attention.py:202", True)
-    log(f"[serving-kernels] K8 decode_attention_stacked vs plain, the stacked {n_layers}-layer "
-        f"cache of {CACHE} slots, slots >= pos poisoned, layer rotating")
-    for quantized in (False, True):
-        shape = (n_layers, 1, hkv, CACHE, dh)
-        q, kn, vn = randn(1, hq, dh), randn(1, hkv, dh), randn(1, hkv, dh)
-        if quantized:
-            (kc, ks), (vc, vs) = int8_cache(*shape), int8_cache(*shape)
-            scales = dict(k_scale=ks, v_scale=vs)
-        else:
-            kc, vc = randn(*shape), randn(*shape)
-            scales = {}
-        label = "int8" if quantized else "bf16"
-        for pos in (0, 1, 256, main_pos):
-            kp, vp = kc.clone(), vc.clone()
-            sp = {k: v.clone() for k, v in scales.items()}
-            poison = 127 if quantized else 1e4
-            kp[:, :, :, pos:] = poison
-            vp[:, :, :, pos:] = poison
-            for v in sp.values():
-                v[:, :, :, pos:] = 1e3
-            for layer in (0, n_layers - 1):
-                want = attention.decode_attention_stacked_plain(
-                    f32(q), kp if quantized else f32(kp), vp if quantized else f32(vp), layer,
-                    pos, f32(kn), f32(vn), **sp)
-                err = check(f"K8 {label} layer {layer} pos {pos}",
-                            attention.decode_attention_stacked(q, kp, vp, layer, pos, kn, vn, **sp),
-                            want)
-                k8.d["max_abs_err"] = max(k8.d["max_abs_err"], err)
-            del kp, vp, sp
-        pos = main_pos
-        ms = time_ms(lambda i: attention.decode_attention_stacked(q, kc, vc, i % n_layers, pos,
-                                                                  kn, vn, **scales))
-        plain = time_ms(lambda i: attention.decode_attention_stacked_plain(
-            q, kc, vc, i % n_layers, pos, kn, vn, **scales))
-        if quantized:
-            kh, vh = _dequant(kc[0, :, :, :pos], ks[0, :, :, :pos]), _dequant(vc[0, :, :, :pos],
-                                                                             vs[0, :, :, :pos])
-        else:
-            kh, vh = kc[0, :, :, :pos], vc[0, :, :, :pos]
-        kh, vh = (torch.cat([t, t_new[:, :, None]], 2).repeat_interleave(hq // hkv, 1)
-                  for t, t_new in ((kh, kn), (vh, vn)))
-        lib = time_ms(lambda i: sdpa(q[:, :, None], kh, vh))
-        per_slot = dh + 4 if quantized else 2 * dh
-        nbytes = 2 * (2 * hq * dh) + 2 * hkv * pos * per_slot + 2 * (2 * hkv * dh)
-        flops = 4 * hq * (pos + 1) * dh
-        if quantized:
-            b = bound_ms(nbytes, flops)
-            k8.d.update(int8_ms=ms, int8_plain_ms=plain, int8_library_ms=lib, int8_bound_ms=b[0])
-        else:
-            b = k8.add(0.0, ms, plain, lib, nbytes, flops, bw)
-        log(f"    {label}, pos {pos}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, SDPA "
-            f"over the dequantized prefix and the new token {lib * 1e3:.2f} us, bound "
-            f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
-        del kc, vc, scales
-    k8.d["per"] = (f"one decode layer at pos {main_pos}, {CACHE} slots, bf16 cache (int8_*: the "
-                   "int8 cache)")
-
+    n_layers = cfg.num_layers
     k6 = rows["qgemv_stacked"] = Row("qgemv_stacked", "qeft_tpu_torch/csrc/qmm.cu",
                                      "qeft_tpu/ops/pallas_qmm.py:258", True)
     layers = params["layers"]
@@ -1421,7 +1591,10 @@ def _profile_burst(cfg, params, prompts, label):
         "top kernels per tick:")
     for name, ms in kernels[:8]:
         log(f"    {ms * 1e3:9.1f} us  {ms / busy:6.1%}  {name[:90]}")
-    return dict(tick_wall_ms=wall, tick_busy_ms=busy)
+    k3 = sum(ms for name, ms in kernels if "flash" in name)
+    log(f"[{label}] K3 (flash_window_attention, 32 launches a tick): {k3 * 1e3:.1f} us per tick, "
+        f"{k3 / busy:.1%} of the device busy time, {k3 / wall:.1%} of the host clock")
+    return dict(tick_wall_ms=wall, tick_busy_ms=busy, tick_k3_ms=k3)
 
 
 def phase_spec(cfg, params):
@@ -1782,7 +1955,12 @@ def phase_family_cli(cfg):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
+    ap.add_argument("--only", choices=["attention"], default=None,
+                    help="run only the device, build and attention-kernel phases (for an A/B of "
+                    "the attention kernels against another checkout's)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1797,8 +1975,24 @@ def main() -> int:
 
     name, smi = timed(phase_device)
     timed(phase_build)
+    if args.only == "attention":  # the attention kernels alone, no model
+        from qeft_tpu_torch.models.llama import LLAMA_PRESETS
+
+        rows = {}
+        per_call = timed(phase_attention_kernels, LLAMA_PRESETS["llama2-7b"], copy_rate(), rows)
+        log(f"[done] {time.perf_counter() - tick:.1f} s; seconds by phase {seconds}")
+        # no main path ran, so the rows carry no launch count; the profiler's
+        # kernels a call stand beside them instead
+        print(json.dumps({"attention_kernels": [{k: v for k, v in r.d.items() if k != "launches"}
+                                                for r in rows.values()],
+                          "kernels_a_call": per_call}))
+        print(smi)
+        return 0
     cfg, params, nbytes, bw = timed(phase_model)
     rows = timed(phase_kernels, cfg, params, bw)
+    per_call = timed(phase_attention_kernels, cfg, bw, rows)
+    if any(len(names) != 1 or not 0 < n <= 1 for names, n in per_call.values()):
+        raise AssertionError(f"K4, K4q and K8 must each be one kernel a call: {per_call}")
     timed(phase_serving_kernels, cfg, params, bw, rows)
     timed(phase_probes, bw, rows)
     prompt, tokens, main_res = timed(phase_main, cfg, params, nbytes)

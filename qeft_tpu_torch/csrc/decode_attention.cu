@@ -18,31 +18,47 @@
 //   [L, B, Hkv, S, D] (bf16, or int8 codes with [L, B, Hkv, S] scales),
 //   reached by pointer arithmetic -- no slice is copied.  Slot pos is stale,
 //   so only slots < pos are read; the current token's unquantized k_new /
-//   v_new [B, Hkv, D] enter as one extra softmax term in the combine pass
-//   (when pos == 0 it is the only term).  Bound: as K4 or K4q over pos
-//   slots, plus the new vectors.
+//   v_new [B, Hkv, D] enter as one extra softmax term that seeds the
+//   combination (when pos == 0 it is the only term).  Bound: as K4 or K4q
+//   over pos slots, plus the new vectors.
 //
-// Design, shared by the three: split-K ("flash decoding").  The valid
-// prefix is cut into n_split chunks of at most 256 keys so that enough
-// blocks stream the cache at once; block (chunk, sequence*head) has one
-// thread per key for the scores (a D-element row each, 16-byte loads all
-// issued together), an f32 block softmax over its chunk, then threads split
-// (key stride, dim pair) for P.V with coalesced loads, eight keys' loads in
-// flight per thread.  Each block leaves its (max, sum, unnormalised
-// accumulator) in f32 scratch; a second small pass rescales and combines the
-// chunks (and K8's new-token term).  Slots past the valid prefix are never
-// read.
+// Design, one template for the three: split-K ("flash decoding") in one
+// launch.  The kC blocks that split one (sequence, kv head)'s valid keys form
+// a thread block cluster; each takes a chunk of ceil(len / kC) keys rounded
+// up to a multiple of 16, from key 0 -- the chunks depend on the valid length
+// only, so a device position and a host int cut the same chunks.  A block
+// serves the query heads of its kv head, up to 4 a pass (a GQA cache is read
+// once at up to 4 query heads a kv head), and streams its chunk's K and V rows
+// (and, int8, their scale ranges) into shared memory with one bulk
+// asynchronous copy each per tile (a chunk of a head-major [S, D] slab is one
+// contiguous range): tiles of 16 KB of K rows, one tile, or a two-stage ring
+// where a chunk of the cache's capacity needs more, each stage completing on
+// its mbarrier; thread 0 issues them first thing.  The arithmetic is f32 on
+// CUDA cores from shared memory, as the JAX kernel computes in f32 (one query
+// a head gives the tensor cores nothing): the score pass gives each key D/16
+// lanes of 16 elements (neighbouring lanes on neighbouring 16-byte chunks,
+// conflict-free; each lane's q elements in registers; int8 codes turned
+// into floats by a byte permute and one add), an online softmax carries
+// (max, sum) per head from tile to tile, and P.V gives each thread 8 dims of
+// every NG-th key.  Each block pushes its (max, sum, unnormalised
+// accumulator) into its slot of rank 0's shared memory (distributed shared
+// memory stores), and rank 0 combines the slots in rank order, seeded with
+// K8's new-token term, and writes the output: two cluster barriers, split
+// into arrive and wait, no remote load.  A block whose chunk is empty (len <
+// kC * 16; K8 at pos 0) takes part in every barrier, with max -inf and sum
+// 0.  No scratch, no second kernel, and every call sums in the same order
+// (bit-identical calls).
 //
 // Position on the device (pos_dev, an int64 scalar; NULL: the host int
 // pos).  A decode step captured once as a CUDA graph and replayed at every
-// position reads its position from the device.  The launch then has the
-// split count of the cache's full length; each block computes the valid
-// length and the split count the host-int launch would have used (the same
-// formula), blocks past it exit at once, and the combine pass reads only
-// those splits -- so chunk bounds and summation order, and hence the
-// output, are bit-identical to the host-int launch at the same position.
-// The range check of such a position is the caller's (once per loop); the
-// kernels clamp it into the cache, so a bad one reads no memory outside.
+// position reads its position from the device; the grid is the same at
+// every position, and each block derives the chunk from the valid length it
+// reads -- so the output is bit-identical to the host-int launch at the same
+// position.  The range check of such a position is the caller's (once per
+// loop); the kernel clamps it into the cache, so a bad one reads no memory
+// outside.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -52,272 +68,506 @@ using namespace qeft;
 
 namespace {
 
-constexpr int kD_THREADS = 256;  // = keys per chunk at most
+namespace cg = cooperative_groups;
 
-// the valid slots at the device position (pos + len_off, clamped into the
-// cache) and the split count a host-int launch gives them
-__device__ __forceinline__ int valid_len(const long long* pos_dev, int len_off, int S) {
-  return (int)min(max(*pos_dev + len_off, 0LL), (long long)S);
-}
-__device__ __forceinline__ int splits_of(int len) {
-  return max(1, (len + kD_THREADS - 1) / kD_THREADS);
-}
+constexpr int kC = 8;          // blocks of a cluster: the splits of one (sequence, kv head)
+constexpr int kAlign = 16;     // chunks start at multiples of 16 keys
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxStages = 2;  // tiles of the ring
 
 // element type of the cache: bf16, or int8 codes when Q8
 template <bool Q8>
 using kv_t = typename std::conditional<Q8, int8_t, bf16>::type;
 
-// q . row over D elements, q in shared memory as f32
-template <int D, bool Q8>
-__device__ __forceinline__ float dot_row(const float* qs, const kv_t<Q8>* row) {
-  float dot = 0.f;
-  constexpr int VEC = 16 / sizeof(kv_t<Q8>);  // elements a 16-byte load
-#pragma unroll
-  for (int d0 = 0; d0 < D; d0 += VEC) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + d0);
-    if constexpr (Q8) {
-      const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) dot = fmaf(qs[d0 + t], (float)c[t], dot);
-    } else {
-      const bf162* k2 = reinterpret_cast<const bf162*>(&raw);
-#pragma unroll
-      for (int t = 0; t < VEC / 2; ++t) {
-        const float2 f = __bfloat1622float2(k2[t]);
-        dot = fmaf(qs[d0 + 2 * t], f.x, dot);
-        dot = fmaf(qs[d0 + 2 * t + 1], f.y, dot);
-      }
-    }
-  }
-  return dot;
+// keys a split: ceil(len / kC), rounded up to a multiple of kAlign
+// (qeft_tpu_torch/ops/attention.py:split_chunk is its twin)
+__host__ __device__ constexpr int split_chunk(int len) {
+  return ((len + kC - 1) / kC + kAlign - 1) / kAlign * kAlign;
 }
 
-// elements (2*dp, 2*dp + 1) of a row as floats
+struct Args {
+  const bf16* q;            // [B, H, D]
+  const void* k;            // [B, Hkv, S, D] of the layer
+  const void* v;
+  const float* ks;          // [B, Hkv, S], int8 only
+  const float* vs;
+  const bf16* k_new;        // [B, Hkv, D], K8 only
+  const bf16* v_new;
+  bf16* out;                // [B, H, D]
+  const long long* pos_dev;  // NULL: `len` holds
+  int len_off;              // valid keys = *pos_dev + len_off
+  int H, Hkv, S, len;
+  int stages;               // tiles of the ring: 1, or kMaxStages
+};
+
+// shared memory of one block, in bytes from a 16-byte aligned base: the
+// fixed part, then the ring of `stages` tiles
+template <int D, bool Q8, int HB>
+struct Smem {
+  static constexpr int KT = 16384 / (D * (int)sizeof(kv_t<Q8>));  // keys a tile: 16 KB of K rows
+  static constexpr int ROWS = KT * D * (int)sizeof(kv_t<Q8>);
+  static constexpr int SCALES = Q8 ? KT * 4 : 0;
+  static constexpr int STAGE = 2 * ROWS + 2 * SCALES;         // K, V, K scales, V scales
+  static constexpr int RED = 0;                               // [kWarps][HB][D] f32
+  static constexpr int ACC = RED + kWarps * HB * D * 4;       // [kC][HB][D] f32: the splits'
+  static constexpr int P = ACC + kC * HB * D * 4;             // [HB][KT] f32 scores, probs
+  static constexpr int Q = P + HB * KT * 4;                   // [HB][D] f32
+  static constexpr int ML = Q + HB * D * 4;                   // m, l, alpha, s_new: [4][HB]
+  static constexpr int CML = ML + 4 * HB * 4;                 // the splits' m, l: [2][kC][HB]
+  static constexpr int BAR = (CML + 2 * kC * HB * 4 + 7) / 8 * 8;  // kMaxStages mbarriers
+  static constexpr int RING = (BAR + 8 * kMaxStages + 15) / 16 * 16;
+  static int bytes(int stages) { return RING + stages * STAGE; }
+  // one tile where every chunk of an S-slot cache fits one, else a ring
+  static int stages_for(int S) { return split_chunk(S) > KT ? kMaxStages : 1; }
+};
+
+// one bulk asynchronous copy of `bytes` (a multiple of 16) from global
+// `src` to shared `dst`, both 16-byte aligned, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the 4 int8 of a word as exact floats: each biased byte (c + 128) is
+// permuted into the mantissa of 2^23, and 2^23 + 128 subtracted (no
+// integer-to-float conversion, which issues at a fraction of an FADD's rate)
+__device__ __forceinline__ void i8x4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+}
+
+// 8 bf16 of a 16-byte word as floats
+__device__ __forceinline__ void bf16x8(const uint4& raw, float* f) {
+  const bf162* p = reinterpret_cast<const bf162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(p[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
+
+// a lane's 16 elements of a row in shared memory as floats: bf16 16-byte
+// chunks c0 and c1, or the int8 chunk c0
 template <bool Q8>
-__device__ __forceinline__ float2 load_pair(const kv_t<Q8>* row, int dp) {
+__device__ __forceinline__ void row16(const kv_t<Q8>* row, int c0, int c1, float (&f)[16]) {
   if constexpr (Q8) {
-    const char2 c = *reinterpret_cast<const char2*>(row + 2 * dp);
-    return make_float2((float)c.x, (float)c.y);
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + 16 * c0);
+    i8x4(raw.x, f);
+    i8x4(raw.y, f + 4);
+    i8x4(raw.z, f + 8);
+    i8x4(raw.w, f + 12);
   } else {
-    return __bfloat1622float2(*reinterpret_cast<const bf162*>(row + 2 * dp));
+    bf16x8(*reinterpret_cast<const uint4*>(row + 8 * c0), f);
+    bf16x8(*reinterpret_cast<const uint4*>(row + 8 * c1), f + 8);
   }
 }
 
-// k, v (and ks, vs when Q8) point at the [B, Hkv, S, ...] cache of one
-// layer; `len` slots from slot 0 are valid
-template <int D, bool Q8>
-__global__ void __launch_bounds__(kD_THREADS)
-decode_split_kernel(const bf16* __restrict__ q, const kv_t<Q8>* __restrict__ k,
-                    const kv_t<Q8>* __restrict__ v, const float* __restrict__ ks,
-                    const float* __restrict__ vs, float* __restrict__ part_acc,
-                    float* __restrict__ part_m, float* __restrict__ part_l,
-                    const long long* __restrict__ pos_dev, int len_off,
-                    int BH, int H, int Hkv, int S, int len, int n_split) {
-  constexpr int HALF = D / 2;                 // dim pairs
-  constexpr int GROUPS = kD_THREADS / HALF;   // key strides of the P.V pass
-  __shared__ __align__(16) float qs[D];
-  __shared__ float ps[kD_THREADS];
-  __shared__ float accs[GROUPS * D];
-  __shared__ float red[32];
-
-  const int split = blockIdx.x, bh = blockIdx.y;
-  if (pos_dev != nullptr) {
-    len = valid_len(pos_dev, len_off, S);
-    n_split = splits_of(len);
-    if (split >= n_split) return;
+// dims d0..d0+7 of a V row from shared memory as floats
+template <bool Q8>
+__device__ __forceinline__ void row8(const kv_t<Q8>* row, int d0, float (&f)[8]) {
+  if constexpr (Q8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(row + d0);
+    i8x4(raw.x, f);
+    i8x4(raw.y, f + 4);
+  } else {
+    bf16x8(*reinterpret_cast<const uint4*>(row + d0), f);
   }
-  const int b = bh / H, h = bh - b * H;
-  const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int chunk = (len + n_split - 1) / n_split;
-  const int k0 = split * chunk;
-  const int k1 = min(k0 + chunk, len);
+}
+
+// barrier.cluster in two halves: the arrival (releasing this thread's
+// writes, or relaxed) and the wait for every thread of the cluster
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// q . k over a lane's 16 elements, four partial sums
+__device__ __forceinline__ float dot16(const float (&q)[16], const float (&k)[16]) {
+  float s[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = q[i] * k[i];
+#pragma unroll
+  for (int e = 4; e < 16; ++e) s[e & 3] = fmaf(q[e], k[e], s[e & 3]);
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// grid (kC, B * Hkv), clusters of kC along x; HB query heads a pass (a
+// divisor of H / Hkv, at most 4: their q slices stay in registers)
+template <int D, bool Q8, int HB>
+__global__ void __launch_bounds__(kThreads) decode_cluster_kernel(const Args a) {
+  using T = kv_t<Q8>;
+  using L = Smem<D, Q8, HB>;
+  constexpr int KT = L::KT;
+  constexpr int LPK = D / 16;          // lanes a key in the score pass
+  constexpr int KPP = kThreads / LPK;  // keys a score pass
+  constexpr int TPR = D / 8;           // threads a row in P.V
+  constexpr int NG = kThreads / TPR;   // key strides of P.V
+  constexpr int KPL = KT / 32;         // keys a lane in the softmax
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem + L::RED);
+  float* cacc = reinterpret_cast<float*>(smem + L::ACC);
+  float* sp = reinterpret_cast<float*>(smem + L::P);
+  float* qs = reinterpret_cast<float*>(smem + L::Q);
+  float* m_run = reinterpret_cast<float*>(smem + L::ML);
+  float* l_run = m_run + HB;
+  float* alpha = l_run + HB;
+  float* s_new = alpha + HB;
+  float* cm = reinterpret_cast<float*>(smem + L::CML);
+  float* cl = cm + kC * HB;
+  const uint32_t bar0 = smem_u32(smem + L::BAR);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int head = blockIdx.y;  // b * Hkv + kv head
+  const int b = head / a.Hkv, hk = head - b * a.Hkv;
+  const int rep = a.H / a.Hkv, stages = a.stages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float scale = rsqrtf((float)D);
 
-  for (int d = tid; d < D; d += blockDim.x) qs[d] = bf2f(q[(size_t)bh * D + d]);
-  __syncthreads();
+  const int len = a.pos_dev != nullptr
+                      ? (int)min(max(*a.pos_dev + a.len_off, 0LL), (long long)a.S)
+                      : a.len;
+  const int chunk = split_chunk(len);
+  const int k0 = min(rank * chunk, len), k1 = min(k0 + chunk, len);
+  const int n_tiles = (k1 - k0 + KT - 1) / KT;
+  const int steps = (rep / HB) * n_tiles;  // a pass over the chunk for each HB heads
 
-  const size_t head = (size_t)b * Hkv + hk;
-  const kv_t<Q8>* kb = k + head * S * D;
-  const kv_t<Q8>* vb = v + head * S * D;
-  const int j = k0 + tid;
-  float s = -CUDART_INF_F;
-  if (j < k1) {
-    s = dot_row<D, Q8>(qs, kb + (size_t)j * D) * scale;
-    if constexpr (Q8) s *= ks[head * S + j];
-  }
-  const float m = block_max(s, red);
-  const float p = (j < k1) ? expf(s - m) : 0.f;
-  float pv = p;  // the probability as the P.V product takes it
-  if constexpr (Q8) {
-    if (j < k1) pv *= vs[head * S + j];
-  }
-  ps[tid] = pv;
-  const float l = block_sum(p, red);  // unscaled; its barriers also publish ps
+  const T* kg = static_cast<const T*>(a.k) + (size_t)head * a.S * D;
+  const T* vg = static_cast<const T*>(a.v) + (size_t)head * a.S * D;
+  const float* ksg = Q8 ? a.ks + (size_t)head * a.S : nullptr;
+  const float* vsg = Q8 ? a.vs + (size_t)head * a.S : nullptr;
 
-  // P.V: thread -> (key stride group, dim pair), eight keys a batch
-  {
-    const int gq = tid / HALF, dp = tid - gq * HALF;
-    const int n_keys = k1 - k0;
-    float a0 = 0.f, a1 = 0.f;
-    for (int j0 = gq; j0 < n_keys; j0 += 8 * GROUPS) {
-      float pj[8];
-      float2 f[8];
+  auto stage = [&](int st) { return smem + L::RING + st * L::STAGE; };
+  // scales of keys past the bulk-copied multiple of 4 (or of a range that
+  // is not 16-byte aligned) come from global memory
+  auto bulk_scales = [&](int j0, int n) {
+    if constexpr (!Q8) return 0;
+    const uintptr_t at = reinterpret_cast<uintptr_t>(ksg + j0) | reinterpret_cast<uintptr_t>(vsg + j0);
+    return (at & 15) ? 0 : (n & ~3);
+  };
+  auto issue = [&](int step) {
+    const int st = step % stages, j0 = k0 + (step % n_tiles) * KT, n = min(KT, k1 - j0);
+    const int n4 = bulk_scales(j0, n);
+    const uint32_t row_bytes = (uint32_t)n * D * sizeof(T), bar = bar0 + 8 * st;
+    unsigned char* s = stage(st);
+    mbar_expect(bar, (int)(2 * row_bytes + 8u * n4));
+    bulk_load(smem_u32(s), kg + (size_t)j0 * D, row_bytes, bar);
+    bulk_load(smem_u32(s + L::ROWS), vg + (size_t)j0 * D, row_bytes, bar);
+    if (n4 > 0) {
+      bulk_load(smem_u32(s + 2 * L::ROWS), ksg + j0, 4u * n4, bar);
+      bulk_load(smem_u32(s + 2 * L::ROWS + L::SCALES), vsg + j0, 4u * n4, bar);
+    }
+  };
+
+  // the ring's copies leave first; the barrier below publishes the
+  // mbarriers.  The cluster's first phase completes once every block runs:
+  // then rank 0's shared memory may be written.
+  cluster_arrive_relaxed();
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < stages && s < steps; ++s) issue(s);
+  }
+
+  const int grp = tid / LPK, li = tid - grp * LPK;    // score pass: key, lane of the key
+  const int g = tid / TPR, d0 = (tid - g * TPR) * 8;  // P.V: key stride, dims
+  // the score pass's elements of a row: bf16 chunks c0, c1 (D = 64: odd
+  // keys -- odd lane groups, KPP being even -- read their upper half
+  // first, so that a quarter warp covers 128 contiguous bytes), int8 chunk c0
+  const int swap = (!Q8 && D == 64) ? (grp & 1) * LPK : 0;
+  const int c0 = Q8 ? li : (li + swap) % (2 * LPK), c1 = (li + LPK + swap) % (2 * LPK);
+  const int e0 = Q8 ? 16 * c0 : 8 * c0, e1 = Q8 ? 16 * c0 + 8 : 8 * c1;
+
+  for (int hc = 0; hc < rep / HB; ++hc) {
+    const int h0 = hk * rep + hc * HB;  // the first query head of the pass
+    for (int i = tid; i < HB * D; i += kThreads) qs[i] = bf2f(a.q[((size_t)b * a.H + h0) * D + i]);
+    if (tid < HB) {
+      m_run[tid] = -CUDART_INF_F;
+      l_run[tid] = 0.f;
+    }
+    float acc[HB][8];
+#pragma unroll
+    for (int hh = 0; hh < HB; ++hh)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[hh][e] = 0.f;
+    __syncthreads();
+    float qv[HB][16];  // this lane's q elements of each head
+#pragma unroll
+    for (int hh = 0; hh < HB; ++hh)
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const int jj = j0 + e * GROUPS;
-        pj[e] = 0.f;
-        f[e] = make_float2(0.f, 0.f);
-        if (jj < n_keys) {
-          pj[e] = ps[jj];
-          f[e] = load_pair<Q8>(vb + (size_t)(k0 + jj) * D, dp);
+        qv[hh][e] = qs[hh * D + e0 + e];
+        qv[hh][8 + e] = qs[hh * D + e1 + e];
+      }
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int step = hc * n_tiles + t, st = step % stages;
+      const int j0 = k0 + t * KT, n = min(KT, k1 - j0);
+      const int n4 = bulk_scales(j0, n);
+      const T* Kt = reinterpret_cast<const T*>(stage(st));
+      const T* Vt = reinterpret_cast<const T*>(stage(st) + L::ROWS);
+      const float* kst = reinterpret_cast<const float*>(stage(st) + 2 * L::ROWS);
+      const float* vst = kst + KT;
+      mbar_wait(bar0 + 8 * st, (step / stages) & 1);
+
+      // scores: D/16 lanes a key, 16 elements each, f32; the passes up to
+      // the tile's last key
+#pragma unroll
+      for (int p = 0; p < KT / KPP; ++p) {
+        if (p * KPP >= n) break;
+        const int j = p * KPP + grp;
+        float kf[16];
+        row16<Q8>(Kt + (size_t)j * D, c0, c1, kf);
+        float ksc = 1.f;
+        if constexpr (Q8) {
+          if (li == 0 && j < n) ksc = j < n4 ? kst[j] : __ldg(ksg + j0 + j);
+        }
+#pragma unroll
+        for (int hh = 0; hh < HB; ++hh) {
+          float dot = dot16(qv[hh], kf);
+#pragma unroll
+          for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          if (li == 0) sp[hh * KT + j] = j < n ? dot * scale * ksc : -CUDART_INF_F;
         }
       }
+      __syncthreads();
+
+      // online softmax over the tile: one warp a head
+      for (int hh = warp; hh < HB; hh += kWarps) {
+        float s[KPL], mt = -CUDART_INF_F;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        a0 = fmaf(pj[e], f[e].x, a0);
-        a1 = fmaf(pj[e], f[e].y, a1);
+        for (int e = 0; e < KPL; ++e) {
+          s[e] = e * 32 + lane < n ? sp[hh * KT + e * 32 + lane] : -CUDART_INF_F;
+          mt = fmaxf(mt, s[e]);
+        }
+        mt = warp_max(mt);
+        const float mo = m_run[hh], mn = fmaxf(mo, mt);  // finite: key j0 is valid
+        const float al = mo == -CUDART_INF_F ? 0.f : expf(mo - mn);
+        float ps = 0.f;
+#pragma unroll
+        for (int e = 0; e < KPL; ++e) {
+          const int j = e * 32 + lane;
+          const float p = j < n ? expf(s[e] - mn) : 0.f;
+          ps += p;
+          float pv = p;  // the probability as the P.V product takes it
+          if constexpr (Q8) {
+            if (j < n) pv *= j < n4 ? vst[j] : __ldg(vsg + j0 + j);
+          }
+          sp[hh * KT + j] = pv;
+        }
+        ps = warp_sum(ps);  // unscaled
+        if (lane == 0) {
+          m_run[hh] = mn;
+          l_run[hh] = l_run[hh] * al + ps;
+          alpha[hh] = al;
+        }
+      }
+      __syncthreads();
+
+      // P.V: 8 dims of every NG-th key, four keys' loads in flight
+#pragma unroll
+      for (int hh = 0; hh < HB; ++hh) {
+        const float al = alpha[hh];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[hh][e] *= al;
+      }
+      for (int j = g; j < n; j += 4 * NG) {
+        float vf[4][8];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) row8<Q8>(Vt + (size_t)min(j + u * NG, KT - 1) * D, d0, vf[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j + u * NG >= n) break;
+#pragma unroll
+          for (int hh = 0; hh < HB; ++hh) {
+            const float p = sp[hh * KT + j + u * NG];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[hh][e] = fmaf(p, vf[u][e], acc[hh][e]);
+          }
+        }
+      }
+      __syncthreads();  // the stage, the probabilities and alpha are consumed
+      if (tid == 0 && step + stages < steps) {
+        fence_async_proxy();
+        issue(step + stages);
       }
     }
-    accs[gq * D + 2 * dp] = a0;
-    accs[gq * D + 2 * dp + 1] = a1;
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int gq = 0; gq < GROUPS; ++gq) a += accs[gq * D + d];
-    part_acc[((size_t)split * BH + bh) * D + d] = a;
-  }
-  if (tid == 0) {
-    part_m[split * BH + bh] = m;
-    part_l[split * BH + bh] = l;
+
+    // the block's accumulator: the key strides summed in order, within a
+    // warp by shuffles, then across the warps
+#pragma unroll
+    for (int hh = 0; hh < HB; ++hh)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int o = TPR; o < 32; o <<= 1) acc[hh][e] += __shfl_xor_sync(0xffffffffu, acc[hh][e], o);
+    if (lane < TPR) {
+#pragma unroll
+      for (int hh = 0; hh < HB; ++hh) {
+        float4* r = reinterpret_cast<float4*>(red + ((size_t)warp * HB + hh) * D + d0);
+        r[0] = make_float4(acc[hh][0], acc[hh][1], acc[hh][2], acc[hh][3]);
+        r[1] = make_float4(acc[hh][4], acc[hh][5], acc[hh][6], acc[hh][7]);
+      }
+    }
+    if (a.k_new != nullptr && rank == 0) {  // K8: the new token's score, one warp a head
+      const bf16* kn = a.k_new + ((size_t)b * a.Hkv + hk) * D;
+      for (int hh = warp; hh < HB; hh += kWarps) {
+        float dot = 0.f;
+        for (int d = lane; d < D; d += 32) dot = fmaf(qs[hh * D + d], bf2f(kn[d]), dot);
+        dot = warp_sum(dot);
+        if (lane == 0) s_new[hh] = dot * scale;
+      }
+    }
+    __syncthreads();
+
+    // the split's (max, sum, accumulator) pushed into rank 0's slot r, then
+    // combined there in rank order (an empty chunk: max -inf, sum 0, acc 0)
+    cluster_wait();  // rank 0 runs, and has combined the previous pass
+    float* acc0 = cluster.map_shared_rank(cacc, 0) + rank * HB * D;
+    for (int i = tid; i < HB * D; i += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[w * HB * D + i];
+      acc0[i] = s;
+    }
+    if (tid < HB) {
+      cluster.map_shared_rank(cm, 0)[rank * HB + tid] = m_run[tid];
+      cluster.map_shared_rank(cl, 0)[rank * HB + tid] = l_run[tid];
+    }
+    cluster_arrive();
+    cluster_wait();  // every split's slot is written
+    if (rank == 0) {
+      const bf16* vn = a.v_new != nullptr ? a.v_new + ((size_t)b * a.Hkv + hk) * D : nullptr;
+      for (int i = tid; i < HB * D; i += kThreads) {
+        const int hh = i / D, d = i - hh * D;
+        float mx = vn != nullptr ? s_new[hh] : -CUDART_INF_F;
+#pragma unroll
+        for (int r = 0; r < kC; ++r) mx = fmaxf(mx, cm[r * HB + hh]);
+        float l = 0.f, o = 0.f;
+        if (vn != nullptr) {
+          const float w = expf(s_new[hh] - mx);
+          l = w;
+          o = w * bf2f(vn[d]);
+        }
+#pragma unroll
+        for (int r = 0; r < kC; ++r) {
+          const float mr = cm[r * HB + hh];
+          const float w = mr == -CUDART_INF_F ? 0.f : expf(mr - mx);
+          l += cl[r * HB + hh] * w;
+          o += cacc[r * HB * D + i] * w;
+        }
+        a.out[((size_t)b * a.H + h0 + hh) * D + d] = f2bf(l > 0.f ? o / l : 0.f);
+      }
+    }
+    cluster_arrive();  // rank 0: the slots are free again
   }
 }
 
-// one block of D threads per (sequence, head); with k_new the current
-// token's term (m = s_new, l = 1, acc = v_new) seeds the combination
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const bf16* __restrict__ q,
-                                      const bf16* __restrict__ k_new,
-                                      const bf16* __restrict__ v_new, bf16* __restrict__ out,
-                                      const long long* __restrict__ pos_dev, int len_off, int S,
-                                      int BH, int H, int Hkv, int D, int n_split) {
-  __shared__ float red[32];
-  const int bh = blockIdx.x, d = threadIdx.x;
-  if (pos_dev != nullptr) n_split = splits_of(valid_len(pos_dev, len_off, S));
-  float mx = -CUDART_INF_F, s_new = 0.f, vn = 0.f;
-  if (k_new != nullptr) {
-    const int b = bh / H, h = bh - b * H;
-    const size_t nv = ((size_t)b * Hkv + h / (H / Hkv)) * D + d;
-    s_new = block_sum(bf2f(q[(size_t)bh * D + d]) * bf2f(k_new[nv]), red) * rsqrtf((float)D);
-    vn = bf2f(v_new[nv]);
-    mx = s_new;
+template <int D, bool Q8, int HB>
+cudaError_t launch(Args a, int B, cudaStream_t st) {
+  using L = Smem<D, Q8, HB>;
+  a.stages = L::stages_for(a.S);  // the cache's capacity: the same at every position
+  const int smem = L::bytes(a.stages);
+  static int attr = 0;  // the dynamic shared memory allowed so far
+  if (smem > attr) {
+    cudaError_t e = cudaFuncSetAttribute(decode_cluster_kernel<D, Q8, HB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::bytes(kMaxStages));
+    if (e != cudaSuccess) return e;
+    attr = L::bytes(kMaxStages);
   }
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_m[s * BH + bh]);
-  float l = 0.f, a = 0.f;
-  if (k_new != nullptr) {
-    const float w = expf(s_new - mx);
-    l = w;
-    a = w * vn;
-  }
-  for (int s = 0; s < n_split; ++s) {
-    const float ms = part_m[s * BH + bh];
-    if (ms == -CUDART_INF_F) continue;  // an empty chunk
-    const float w = expf(ms - mx);
-    l += part_l[s * BH + bh] * w;
-    a += part_acc[((size_t)s * BH + bh) * D + d] * w;
-  }
-  out[(size_t)bh * D + d] = f2bf(l > 0.f ? a / l : 0.f);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kC, B * a.Hkv);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kC;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, decode_cluster_kernel<D, Q8, HB>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <int D, bool Q8>
-cudaError_t launch_decode(const bf16* q, const void* k, const void* v, const float* ks,
-                          const float* vs, const bf16* k_new, const bf16* v_new, bf16* out,
-                          float* part_acc, float* part_m, float* part_l,
-                          const long long* pos_dev, int len_off, int B, int H, int Hkv,
-                          int S, int len, int n_split, cudaStream_t st) {
-  const int BH = B * H;
-  dim3 grid(n_split, BH);
-  decode_split_kernel<D, Q8><<<grid, kD_THREADS, 0, st>>>(
-      q, static_cast<const kv_t<Q8>*>(k), static_cast<const kv_t<Q8>*>(v), ks, vs, part_acc,
-      part_m, part_l, pos_dev, len_off, BH, H, Hkv, S, len, n_split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  decode_combine_kernel<<<BH, D, 0, st>>>(part_acc, part_m, part_l, q, k_new, v_new, out, pos_dev,
-                                          len_off, S, BH, H, Hkv, D, n_split);
-  return cudaGetLastError();
+cudaError_t launch_heads(const Args& a, int B, cudaStream_t st) {
+  const int rep = a.H / a.Hkv;  // query heads a pass: the largest of 4, 2, 1 dividing it
+  if (rep % 4 == 0) return launch<D, Q8, 4>(a, B, st);
+  if (rep % 2 == 0) return launch<D, Q8, 2>(a, B, st);
+  return launch<D, Q8, 1>(a, B, st);
 }
 
 // every entry point: checks, then the (D, int8) instance over `len` slots,
-// or over pos_dev[0] + len_off slots with `len` and `n_split` the capacity
-int run(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-        const void* k_new, const void* v_new, void* out, void* part_acc, void* part_m,
-        void* part_l, const void* pos_dev, int len_off, int B, int H, int Hkv, int S, int D,
-        int len, int n_split, void* stream) {
-  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || len < 0 || len > S || n_split < 1 ||
-      (ks == nullptr) != (vs == nullptr))
+// or over pos_dev[0] + len_off slots
+int run(Args a, int B, int D, void* stream) {
+  if (B < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv || a.len < 0 || a.len > a.S ||
+      (a.ks == nullptr) != (a.vs == nullptr) || (a.k_new == nullptr) != (a.v_new == nullptr))
     return (int)cudaErrorInvalidValue;
-  if ((len + n_split - 1) / n_split > kD_THREADS) return (int)cudaErrorInvalidValue;
-  const bool q8 = ks != nullptr;
-  const long long* pd = static_cast<const long long*>(pos_dev);
-  const bf16* qq = static_cast<const bf16*>(q);
-  const float* kss = static_cast<const float*>(ks);
-  const float* vss = static_cast<const float*>(vs);
-  const bf16* kn = static_cast<const bf16*>(k_new);
-  const bf16* vn = static_cast<const bf16*>(v_new);
-  bf16* o = static_cast<bf16*>(out);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
+  const bool q8 = a.ks != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define QEFT_CASE(DD)                                                                          \
-  case DD:                                                                                     \
-    return q8 ? (int)launch_decode<DD, true>(qq, k, v, kss, vss, kn, vn, o, pa, pm, pl, pd,    \
-                                             len_off, B, H, Hkv, S, len, n_split, st)          \
-              : (int)launch_decode<DD, false>(qq, k, v, kss, vss, kn, vn, o, pa, pm, pl, pd,   \
-                                              len_off, B, H, Hkv, S, len, n_split, st);
   switch (D) {
-    QEFT_CASE(64) QEFT_CASE(128) QEFT_CASE(256)
+    case 64: return (int)(q8 ? launch_heads<64, true>(a, B, st) : launch_heads<64, false>(a, B, st));
+    case 128: return (int)(q8 ? launch_heads<128, true>(a, B, st) : launch_heads<128, false>(a, B, st));
+    case 256: return (int)(q8 ? launch_heads<256, true>(a, B, st) : launch_heads<256, false>(a, B, st));
   }
-#undef QEFT_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+               const void* k_new, const void* v_new, const void* pos_dev, void* out,
+               int len_off, int H, int Hkv, int S, int len) {
+  return Args{static_cast<const bf16*>(q), k, v, static_cast<const float*>(ks),
+              static_cast<const float*>(vs), static_cast<const bf16*>(k_new),
+              static_cast<const bf16*>(v_new), static_cast<bf16*>(out),
+              static_cast<const long long*>(pos_dev), len_off, H, Hkv, S, len, 1};
 }
 
 }  // namespace
 
 // pos_dev: NULL, or the int64 position on the device -- pos is then not
-// read and n_split is the capacity, ceil(S / 256); likewise below
+// read; likewise below
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* pos_dev,
-                                void* out, void* part_acc, void* part_m, void* part_l, int B,
-                                int H, int Hkv, int S, int D, int pos, int n_split,
+                                void* out, int B, int H, int Hkv, int S, int D, int pos,
                                 void* stream) {
   if (pos_dev != nullptr) pos = S - 1;
   if (pos < 0 || pos >= S) return (int)cudaErrorInvalidValue;
-  return run(q, k, v, nullptr, nullptr, nullptr, nullptr, out, part_acc, part_m, part_l, pos_dev,
-             1, B, H, Hkv, S, D, pos + 1, n_split, stream);
+  return run(make_args(q, k, v, nullptr, nullptr, nullptr, nullptr, pos_dev, out, 1, H, Hkv, S,
+                       pos + 1),
+             B, D, stream);
 }
 
 // ks, vs: f32 [B, Hkv, S] per-vector scales of the int8 codes k, v
 extern "C" int decode_attention_int8(const void* q, const void* k, const void* v, const void* ks,
-                                     const void* vs, const void* pos_dev, void* out,
-                                     void* part_acc, void* part_m, void* part_l, int B, int H,
-                                     int Hkv, int S, int D, int pos, int n_split, void* stream) {
+                                     const void* vs, const void* pos_dev, void* out, int B, int H,
+                                     int Hkv, int S, int D, int pos, void* stream) {
   if (pos_dev != nullptr) pos = S - 1;
   if (pos < 0 || pos >= S || ks == nullptr || vs == nullptr) return (int)cudaErrorInvalidValue;
-  return run(q, k, v, ks, vs, nullptr, nullptr, out, part_acc, part_m, part_l, pos_dev, 1, B, H,
-             Hkv, S, D, pos + 1, n_split, stream);
+  return run(make_args(q, k, v, ks, vs, nullptr, nullptr, pos_dev, out, 1, H, Hkv, S, pos + 1), B,
+             D, stream);
 }
 
 // k, v: the stacked [L, B, Hkv, S, D] cache (bf16 when ks is NULL, else int8
 // with f32 [L, B, Hkv, S] scales ks, vs); k_new, v_new: bf16 [B, Hkv, D]
 extern "C" int decode_attention_stacked(const void* q, const void* k, const void* v,
                                         const void* ks, const void* vs, const void* k_new,
-                                        const void* v_new, const void* pos_dev, void* out,
-                                        void* part_acc, void* part_m, void* part_l, int L, int B,
-                                        int H, int Hkv, int S, int D, int layer, int pos,
-                                        int n_split, void* stream) {
+                                        const void* v_new, const void* pos_dev, void* out, int L,
+                                        int B, int H, int Hkv, int S, int D, int layer, int pos,
+                                        void* stream) {
   if (pos_dev != nullptr) pos = S - 1;
   if (layer < 0 || layer >= L || pos < 0 || pos >= S || k_new == nullptr || v_new == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -327,6 +577,6 @@ extern "C" int decode_attention_stacked(const void* q, const void* k, const void
   const char* vl = static_cast<const char*>(v) + vecs * D * elt;
   const float* ksl = ks != nullptr ? static_cast<const float*>(ks) + vecs : nullptr;
   const float* vsl = vs != nullptr ? static_cast<const float*>(vs) + vecs : nullptr;
-  return run(q, kl, vl, ksl, vsl, k_new, v_new, out, part_acc, part_m, part_l, pos_dev, 0, B, H,
-             Hkv, S, D, pos, n_split, stream);
+  return run(make_args(q, kl, vl, ksl, vsl, k_new, v_new, pos_dev, out, 0, H, Hkv, S, pos), B, D,
+             stream);
 }

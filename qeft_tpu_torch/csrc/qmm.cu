@@ -454,15 +454,6 @@ __host__ __device__ constexpr int mma_k_row(int hh, int jj0, int t, int j) {
   return ((j >> 1) + 4 * (j & 1)) * hh + jj0 + t;
 }
 
-// d += A * B: m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // mask-or pair q of a word: the bf16 pair (128 + nibble q, 128 + nibble q + 4)
 __device__ __forceinline__ uint32_t code_pair(uint32_t w, int q) {
   return ((w >> (4 * q)) & 0x000F000Fu) | kBF16_128;
@@ -764,35 +755,9 @@ struct GemmMaps {
   CUtensorMap a, w, s, z, o;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // byte offset of 16-byte chunk c (0..7) of row r of a swizzled tile
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * kM_ROW + ((c ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
 }
 
 // TMA: a box of tensor map `map` at coordinates (c0, c1[, c2]) into shared
@@ -812,11 +777,6 @@ __device__ __forceinline__ void tma3(uint32_t dst, const CUtensorMap* map, int c
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
-}
-
-// this thread's shared-memory writes, visible to wgmma (the async proxy)
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma descriptor of a K-major, 128-byte-swizzled operand at shared address

@@ -23,10 +23,15 @@ The plain versions are the masked f32 softmax of ``qeft_tpu/models/
 llama.py::_attention`` over the same slots, with the scales applied as the
 kernels apply them.
 
+The three are one kernel template: one launch of a thread block cluster
+of `SPLITS` blocks per (sequence, kv head), each over a chunk of
+`split_chunk` keys from key 0, combined in rank order through the
+cluster's shared memory -- no scratch and no second pass.
+
 ``pos`` is a Python int or an int64 scalar tensor (the position of a decode
 step captured once as a CUDA graph and replayed at every position).  The
-kernels read a CUDA position on the device, launched over the split count
-of the whole cache, and give the bit-identical output of the host-int
+kernels read a CUDA position on the device over the same grid as a host
+int, cut the same chunks and give the bit-identical output of the host-int
 launch at that position; its range is the caller's to check, once per
 loop.  The plain versions take a CPU position as the int it holds, and
 `decode_attention_plain` masks the whole cache by a CUDA one (the dense
@@ -42,8 +47,16 @@ import torch
 from qeft_tpu_torch.ops import cuda_lib
 from qeft_tpu_torch.ops.flash import masked_attention
 
-# keys per block of the split pass; equals the block size in csrc
-KV_CHUNK = 256
+# blocks of a cluster: the splits of one (sequence, kv head)'s keys (csrc kC)
+SPLITS = 8
+
+
+def split_chunk(length: int) -> int:
+    """Keys a split takes of ``length`` valid keys: ceil(length / SPLITS)
+    rounded up to a multiple of 16, from key 0 (the twin of csrc's
+    ``split_chunk``); split r takes keys [r * chunk, (r + 1) * chunk)."""
+    per = -(-length // SPLITS)
+    return -(-per // 16) * 16
 
 
 def _scores(q, k, d):
@@ -141,26 +154,17 @@ def _check_caches(q, k_cache, v_cache, k_scale, v_scale):
                                  f"{tuple(k_cache.shape[:-1])}")
 
 
-def _launch_pos(pos, s_max: int, span: int):
-    """(pos_dev tensor or None, host pos, n_split) of a launch over ``span``
-    valid slots: ``pos + 1`` (K4) or ``pos`` (K8).  A tensor position is read
-    on the device, over the split count of the whole cache; a host int is
-    range-checked here."""
+def _launch_pos(pos, s_max: int):
+    """(pos_dev tensor or None, host pos) of a launch: a tensor position is
+    read on the device; a host int is range-checked here."""
     if isinstance(pos, torch.Tensor):
         if pos.dtype != torch.int64 or pos.numel() != 1 or not pos.is_cuda:
             raise ValueError("a tensor position must be one int64 on the card")
-        return pos, 0, -(-s_max // KV_CHUNK)
+        return pos, 0
     pos = int(pos)
     if not 0 <= pos < s_max:
         raise IndexError(f"pos {pos} outside a {s_max}-slot cache")
-    return None, pos, max(1, -(-span(pos) // KV_CHUNK))
-
-
-def _scratch(n_split: int, bh: int, d: int, device):
-    """Per-split partial results, combined by the kernel's second pass."""
-    part_acc = torch.empty(n_split, bh, d, dtype=torch.float32, device=device)
-    part_ml = torch.empty(2, n_split, bh, dtype=torch.float32, device=device)
-    return part_acc, part_ml
+    return None, pos
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -176,11 +180,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     _check_caches(q, k_cache, v_cache, k_scale, v_scale)
     if k_cache.shape[0] != b:
         raise ValueError("cache shapes disagree with q")
-    pos_dev, pos, n_split = _launch_pos(pos, s_max, lambda p: p + 1)
-    part_acc, part_ml = _scratch(n_split, b * h, d, q.device)
+    pos_dev, pos = _launch_pos(pos, s_max)
     out = torch.empty(b, h, d, dtype=torch.bfloat16, device=q.device)
-    tail = (cuda_lib.ptr(pos_dev), cuda_lib.ptr(out), cuda_lib.ptr(part_acc),
-            cuda_lib.ptr(part_ml[0]), cuda_lib.ptr(part_ml[1]), b, h, hkv, s_max, d, pos, n_split)
+    tail = (cuda_lib.ptr(pos_dev), cuda_lib.ptr(out), b, h, hkv, s_max, d, pos)
     if k_scale is None:
         cuda_lib.launch("decode_attention", cuda_lib.ptr(q), cuda_lib.ptr(k_cache),
                         cuda_lib.ptr(v_cache), *tail)
@@ -208,21 +210,18 @@ def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor, v_cache: to
     _check_caches(q, k_cache, v_cache, k_scale, v_scale)
     if b_c != b:
         raise ValueError("cache shapes disagree with q")
-    pos_dev, pos, n_split = _launch_pos(pos, s_max, lambda p: p)
+    pos_dev, pos = _launch_pos(pos, s_max)
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range for {n_layers} layers")
     kn, vn = cuda_lib.aligned(k_new), cuda_lib.aligned(v_new)
     for name, t in (("k_new", kn), ("v_new", vn)):
         if t.dtype != torch.bfloat16 or tuple(t.shape) != (b, hkv, d):
             raise ValueError(f"{name} must be bfloat16 of shape {(b, hkv, d)}")
-    part_acc, part_ml = _scratch(n_split, b * h, d, q.device)
     out = torch.empty(b, h, d, dtype=torch.bfloat16, device=q.device)
     cuda_lib.launch(
         "decode_attention_stacked",
         cuda_lib.ptr(q), cuda_lib.ptr(k_cache), cuda_lib.ptr(v_cache), cuda_lib.ptr(k_scale),
         cuda_lib.ptr(v_scale), cuda_lib.ptr(kn), cuda_lib.ptr(vn), cuda_lib.ptr(pos_dev),
-        cuda_lib.ptr(out),
-        cuda_lib.ptr(part_acc), cuda_lib.ptr(part_ml[0]), cuda_lib.ptr(part_ml[1]),
-        n_layers, b, h, hkv, s_max, d, layer, pos, n_split,
+        cuda_lib.ptr(out), n_layers, b, h, hkv, s_max, d, layer, pos,
     )
     return out

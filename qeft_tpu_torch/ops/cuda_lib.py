@@ -68,20 +68,18 @@ _ENTRY_POINTS = {
         _P,  # stream
     ]),
     "decode_attention": ("decode_attention.cu", [
-        _P, _P, _P, _P, _P, _P, _P, _P,  # q k v pos_dev out part_acc part_m part_l
-        _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos n_split
+        _P, _P, _P, _P, _P,  # q k v pos_dev out
+        _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos
         _P,  # stream
     ]),
     "decode_attention_int8": ("decode_attention.cu", [
-        _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale pos_dev
-        _P, _P, _P, _P,  # out part_acc part_m part_l
-        _I, _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos n_split
+        _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale pos_dev out
+        _I, _I, _I, _I, _I, _I,  # B H Hkv S D pos
         _P,  # stream
     ]),
     "decode_attention_stacked": ("decode_attention.cu", [
-        _P, _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale k_new v_new pos_dev
-        _P, _P, _P, _P,  # out part_acc part_m part_l
-        _I, _I, _I, _I, _I, _I, _I, _I, _I,  # L B H Hkv S D layer pos n_split
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale k_new v_new pos_dev out
+        _I, _I, _I, _I, _I, _I, _I, _I,  # L B H Hkv S D layer pos
         _P,  # stream
     ]),
     "qgemv_stacked": ("qmm.cu", [

@@ -3,8 +3,12 @@
 `flash_window_attention` replaces ``qeft_tpu/ops/pallas_flash.py::
 flash_window_attention`` with ``csrc/flash.cu``: query ``i`` sits at absolute
 position ``pos + i`` and attends keys ``<= pos + i`` of a head-major K/V
-slab, GQA included.  Its plain version, `flash_window_attention_plain`, is
-the masked softmax of ``qeft_tpu/models/llama.py::_attention``.
+slab, GQA included.  The kernel runs on the tensor cores (``mma.sync``,
+bf16 operands, f32 accumulators) over fixed chunks of `CHUNK` keys from key
+0, with the probabilities rounded to bf16 for the P.V product; a row's
+output does not depend on the window width or on the other rows.  Its plain
+version, `flash_window_attention_plain`, is the masked softmax of
+``qeft_tpu/models/llama.py::_attention``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ from typing import Optional, Union
 import torch
 
 from qeft_tpu_torch.ops import cuda_lib
+
+# keys a chunk of the kernel's online softmax, from key 0 (csrc kF_KEYS)
+CHUNK = 64
 
 
 def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -65,12 +72,11 @@ def flash_window_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Te
         raise ValueError("k/v shapes disagree with q")
     pos_arr = None
     pos0 = 0
-    if isinstance(pos, torch.Tensor):
-        pos_arr = pos.reshape(-1).to(device=q.device, dtype=torch.int32)
-        pos_arr = pos_arr.expand(b).contiguous()
+    if isinstance(pos, torch.Tensor):  # read by the kernel as int64, as the engine keeps it
+        pos_arr = pos.reshape(-1).to(device=q.device, dtype=torch.int64).expand(b).contiguous()
     else:
         pos0 = int(pos)
-    qc, kc, vc = q.contiguous(), cuda_lib.aligned(k_all), cuda_lib.aligned(v_all)
+    qc, kc, vc = (cuda_lib.aligned(t) for t in (q, k_all, v_all))
     out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=q.device)
     cuda_lib.launch(
         "flash_window_attention",

@@ -7,7 +7,11 @@ ragged M and N, bit-identical from call to call; the transposed GEMM (K7)
 at 1 to 2048 rows and 86 groups, with and without the weak-column addend,
 and the autograd linear's gradients; the tensor-core decode matvec (K6) at
 every M from 1 to 8; int8 decode attention (K4q) and the stacked-cache
-decode attention (K8, bf16 and int8, slots >= pos poisoned); the unstacked
+decode attention (K8, bf16 and int8, slots >= pos poisoned), the three at
+the lengths where a cluster's chunks are empty or step, one launch a call
+and bit-identical calls; K3 on the engine's W = 1 rows and on an S = 512
+window without a cache, and the rows of windows past 128 rows (four-warp
+blocks) bit-identical to W = 1 windows; the unstacked
 decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes, every M from 1
 to 8, with and without a bias; K5 and K6 one launch a call and bit-identical
 from call to call; the autograd linear's K5 / K2 dispatch with
@@ -141,6 +145,102 @@ def test_flash_per_sequence_positions_and_width(gen):
     for i in range(9):  # a row's result does not depend on the window width
         narrow = flash.flash_window_attention(q[:, i: i + 1], k, v, pos + i)
         torch.testing.assert_close(narrow[:, 0], wide[:, i], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s,slots,pos", [(200, 256, [0, 40]), (512, 512, [0])])
+@pytest.mark.parametrize("h,hkv,d", [(4, 4, 128), (4, 2, 64), (2, 1, 256)])
+def test_flash_wide_window_rows_equal_narrow_ones(gen, s, slots, pos, h, hkv, d):
+    """Windows wider than 128 rows run blocks of four warps, narrow ones
+    blocks of one: every row of a W = 200 window at per-sequence positions,
+    and of an S = 512 window without a cache, equals the W = 1 window at
+    its position bit for bit."""
+    b = len(pos)
+    q = _randn(gen, b, s, h, d)
+    k, v = _randn(gen, b, hkv, slots, d), _randn(gen, b, hkv, slots, d)
+    pos = torch.tensor(pos, device="cuda")
+    wide = flash.flash_window_attention(q, k, v, pos)
+    _close(wide, flash.flash_window_attention_plain(_f32(q), _f32(k), _f32(v), pos))
+    for i in range(s):
+        narrow = flash.flash_window_attention(q[:, i: i + 1], k, v, pos + i)
+        torch.testing.assert_close(narrow[:, 0], wide[:, i], rtol=0, atol=0)
+
+
+def _once_and_again(name, fn):
+    """``fn()`` is one launch of ``name``, and a second call bit-identical."""
+    before = cuda_lib.launches[name]
+    got = fn()
+    torch.cuda.synchronize()
+    assert cuda_lib.launches[name] == before + 1
+    assert torch.equal(fn(), got)
+    return got
+
+
+@pytest.mark.parametrize("h,hkv,d", [(32, 32, 128), (8, 2, 64), (4, 1, 256)])
+def test_flash_engine_rows(gen, h, hkv, d):
+    """W = 1 at B = 8 with one position per sequence (64..191) over 200
+    slots, as the engine's decode windows; slots past each row's position
+    poisoned."""
+    b, slots = 8, 200
+    pos = torch.linspace(64, 191, b, device="cuda").long()
+    q = _randn(gen, b, 1, h, d)
+    k, v = _randn(gen, b, hkv, slots, d), _randn(gen, b, hkv, slots, d)
+    past = (torch.arange(slots, device="cuda") > pos[:, None])[:, None, :, None].expand_as(k)
+    k[past] = 1e4
+    v[past] = 1e4
+    got = _once_and_again("flash_window_attention",
+                          lambda: flash.flash_window_attention(q, k, v, pos))
+    _close(got, flash.flash_window_attention_plain(_f32(q), _f32(k), _f32(v), pos))
+
+
+@pytest.mark.parametrize("h,hkv,d", [(32, 32, 128), (8, 2, 64), (4, 2, 256)])
+def test_flash_full_window_without_a_cache(gen, h, hkv, d):
+    """S = 512 against its own K/V at position 0 (``eval_ppl``'s windows):
+    eight key chunks for the last rows."""
+    q = _randn(gen, 1, 512, h, d)
+    k, v = _randn(gen, 1, hkv, 512, d), _randn(gen, 1, hkv, 512, d)
+    got = _once_and_again("flash_window_attention",
+                          lambda: flash.flash_window_attention(q, k, v, 0))
+    _close(got, flash.flash_window_attention_plain(_f32(q), _f32(k), _f32(v), 0))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "stacked bf16", "stacked int8"])
+@pytest.mark.parametrize("h,hkv,d", [(32, 8, 128), (8, 8, 64), (4, 2, 256)])
+def test_decode_template_at_short_and_stepping_lengths(gen, kind, h, hkv, d):
+    """K4, K4q and K8 at B = 2: positions 0..20, where a cluster's splits of
+    16 keys outnumber the valid keys (blocks with empty chunks; K8 at 0 has
+    only its new token), and where the chunk length steps (8 x 16 x n and
+    one either side); K8's slots >= pos poisoned.  One launch a call, and a
+    second call bit-identical.  523 slots: the int8 scale ranges are not all
+    16-byte aligned, so some are read without the bulk copy."""
+    b, s, layer = 2, 523, 1
+    stacked, int8 = kind.startswith("stacked"), kind.endswith("int8")
+    name = "decode_attention_stacked" if stacked else (
+        "decode_attention_int8" if int8 else "decode_attention")
+    shape = (2, b, hkv, s, d) if stacked else (b, hkv, s, d)
+    q, kn, vn = _randn(gen, b, h, d), _randn(gen, b, hkv, d), _randn(gen, b, hkv, d)
+    if int8:
+        (kc, ks), (vc, vs) = _int8_cache(gen, *shape), _int8_cache(gen, *shape)
+    else:
+        kc, vc = _randn(gen, *shape), _randn(gen, *shape)
+    for pos in list(range(21)) + [126, 127, 128, 254, 255, 256, 382, 383, 384, 510, 511, 512]:
+        scales = dict(k_scale=ks.clone(), v_scale=vs.clone()) if int8 else {}
+        if not stacked:
+            got = _once_and_again(name, lambda: attention.decode_attention(q, kc, vc, pos, **scales))
+            want = attention.decode_attention_plain(
+                _f32(q), kc if int8 else _f32(kc), vc if int8 else _f32(vc), pos, **scales)
+            _close(got, want)
+            continue
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, :, :, pos:] = 127 if int8 else 1e4
+        vp[:, :, :, pos:] = 127 if int8 else 1e4
+        for t in scales.values():
+            t[:, :, :, pos:] = 1e3
+        got = _once_and_again(name, lambda: attention.decode_attention_stacked(
+            q, kp, vp, layer, pos, kn, vn, **scales))
+        want = attention.decode_attention_stacked_plain(
+            _f32(q), kp if int8 else _f32(kp), vp if int8 else _f32(vp), layer, pos, _f32(kn),
+            _f32(vn), **scales)
+        _close(got, want)
 
 
 @pytest.mark.parametrize("pos", [0, 1, 255, 256, 700, 4095])
@@ -482,8 +582,8 @@ def test_probe_gemv_ablation(gen, k, n, g, bn):
 @pytest.mark.parametrize("pos", [0, 255, 256, 4095])
 def test_decode_attention_at_a_device_position_is_bit_identical(gen, pos):
     """K4, K4q and K8 (bf16 and int8) with the position read on the device,
-    launched over the whole 4096-slot cache's splits, give the host-int
-    launch's output bit for bit."""
+    launched over the same grid as a host int, give the host-int launch's
+    output bit for bit."""
     b, h, hkv, d, s = 2, 8, 2, 128, 4096
     q, kn, vn = _randn(gen, b, h, d), _randn(gen, b, hkv, d), _randn(gen, b, hkv, d)
     at = torch.tensor(pos, device="cuda")
