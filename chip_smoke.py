@@ -12,6 +12,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 4. kernels: K1 and K2 against their plain PyTorch versions at the main path's
    shapes (bf16), with their time, the plain version's time, one PyTorch
    library call's time as a yardstick (never used by the port) and the bound;
+   two K1 calls on the same inputs bit-identical (``--only matvec`` runs K1
+   at the four stage shapes at M = 1 and 8, with K6 on the same inputs, and
+   P4 alone, after device and build, on random weights, and prints its rows
+   without launch counts);
 5. attention: K3 at the S = 64 prefill, the engine's W = 1 windows (B = 8,
    positions 64..191, 200 slots) and an S = 512 window without a cache; K4,
    K4q and K8 at the main path's last position, each with its SDPA
@@ -23,7 +27,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. probes: P2 (dma_only, unpack_only), P3 (dma_tile at bn 256, 512, 1024)
    and P4 (gemv_ablation, nine variants at the down and qkv shapes) against
    their plain versions, timed hot (one buffer) and cold (rotating over
-   copies past 200 MB), with K6 at P4's shapes;
+   copies past 200 MB), with K6 and K1 at P4's shapes;
 7. main path: ``generate`` -- prefill 64 tokens, greedy-decode 256 over a
    320-slot bf16 cache, the decode loop as replays of one captured CUDA
    graph -- with launch counts checked per kernel, then the per-token
@@ -76,8 +80,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at the six OPT-6.7B stage shapes, M = 1 and 8, with and without bias,
    timed beside its bound and ``torch.addmm`` on a pre-dequantized weight;
    every linear of layer 0 with its bias through K5 (M = 1) and K2 (M = 64);
-   K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (K1 staged in
-   bands);
+   K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (28,672: two
+   staging chunks a split);
 24. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
    with launch counts checked (K5 for every decode linear, K2 for the
    prefill, nothing else), a profiled decode step and prefill, and the
@@ -128,7 +132,10 @@ ORACLE_RTOL = 0.1  # of max |dense logit|; see phase_oracle()
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_CTX, ENGINE_GEN = 8, 16, 64, 128
 SPEC_DRAFT_LAYERS = 8
 OPT_LINEARS = ("q", "k", "v", "o", "fc1", "fc2")
-WIDE_K = (13824, 16384, 28672)  # llama2-13b / OPT-6.7B fc2 / 70B down: past one band at M = 8
+WIDE_K = (13824, 16384, 28672)  # llama2-13b / OPT-6.7B fc2 / 70B down
+# the decode stages of a Llama layer: (name, RMS norm before it, residual after it)
+K1_STAGES = (("qkv", True, False), ("o", False, True), ("upgate", True, False),
+             ("down", False, True))
 # (family, preset, group size, global reorder) of the 2-layer family runs
 FAMILY_RUNS = (("phi", "phi-2", 128, True), ("bloom", "bloom-7b1", 128, False),
                ("falcon", "falcon-7b", 64, True))
@@ -275,34 +282,9 @@ def phase_kernels(cfg, params, bw):
     }
     layers = params["layers"]
     n_layers = cfg.num_layers
-    stages = [("qkv", True, False), ("o", False, True), ("upgate", True, False),
-              ("down", False, True)]
 
     log("[kernels] K1 qgemv_stacked_fused vs plain, M=1, layer rotating over 32 (cold weights)")
-    for name, norm, resid in stages:
-        p = layers[name]
-        k, n = p.in_features, p.out_features
-        x = randn(1, k)
-        lnw = (1.0 + randn(k, scale=0.1).float()).to(torch.bfloat16) if norm else None
-        res = randn(1, n, scale=4.0) if resid else None
-        kw = dict(lnw=lnw, residual=res, eps=cfg.rms_norm_eps)
-        err = check(f"K1 {name} {k}->{n}", qmm.qgemv_stacked_fused(x, p, 3, **kw),
-                    qmm.qgemv_stacked_fused_plain(f32(x), f32(p), 3, lnw=f32(lnw),
-                                                  residual=f32(res), eps=cfg.rms_norm_eps))
-        ms = time_ms(lambda i: qmm.qgemv_stacked_fused(x, p, i % n_layers, **kw))
-        plain = time_ms(lambda i: qmm.qgemv_stacked_fused_plain(x, p, i % n_layers, **kw),
-                        inner=2, reps=3)
-        w = dense_linear(_one_layer(p, 0))[0]
-        h = qmm.rms_norm(x, lnw, cfg.rms_norm_eps) if norm else x
-        lib = time_ms(lambda i: torch.matmul(h, w))
-        del w
-        wbytes = k * n // 2 + 4 * (k // p.group_size) * n + 2 * p.n_outlier * n
-        nbytes = wbytes + 2 * k + 2 * n + (2 * k if norm else 0) + (2 * n if resid else 0)
-        flops = 2 * k * n
-        b = rows["qgemv_stacked_fused"].add(err, ms, plain, lib, nbytes, flops, bw)
-        log(f"    kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, torch.matmul on the "
-            f"dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]}: "
-            f"{nbytes} B), at measured copy rate {nbytes / bw * 1e6:.2f} us")
+    _k1_stages(layers, n_layers, 1, randn, cfg.rms_norm_eps, rows["qgemv_stacked_fused"], bw)
     # gemma numerics: (1 + w) norm scale
     p = layers["qkv"]
     x = randn(2, p.in_features)
@@ -316,7 +298,7 @@ def phase_kernels(cfg, params, bw):
     rows["qgemv_stacked_fused"].d["per"] = "one decode layer: qkv + o + upgate + down at M=1"
 
     log(f"[kernels] K2 qgemm vs plain, M={PROMPT}, layer rotating over 32")
-    for name, norm, resid in stages:
+    for name, _, resid in K1_STAGES:
         p = layers[name]
         k, n = p.in_features, p.out_features
         x = randn(PROMPT, k)
@@ -343,6 +325,98 @@ def phase_kernels(cfg, params, bw):
         f"{d['library_ms'] * 1e3:.1f} us")
 
     return rows
+
+
+def _k1_stages(layers, n_layers, m, randn, eps, row, bw, k6=None):
+    """K1 at the decode stages in ``layers`` (stacked, ``n_layers`` deep) at
+    ``m`` token rows, with the norm (qkv, upgate) or the residual
+    (o, down) as the decode layer runs them: each against its plain version
+    evaluated in f32 on layer 3, a second call bit-identical, timed rotating
+    over the layers (cold weights) beside the plain version, ``torch.matmul``
+    on the (normalised) input and a pre-dequantized weight, and the bound,
+    summed into ``row``.  With ``k6`` (a dict), K6 on the normalised input
+    timed the same way, summed into ``k6[m]``."""
+    from qeft_tpu_torch.ops import qmm
+    from qeft_tpu_torch.testing import dense_linear
+
+    for name, norm, resid in K1_STAGES:
+        if name not in layers:
+            continue
+        p = layers[name]
+        k, n = p.in_features, p.out_features
+        x = randn(m, k)
+        lnw = (1.0 + randn(k, scale=0.1).float()).to(torch.bfloat16) if norm else None
+        res = randn(m, n, scale=4.0) if resid else None
+        kw = dict(lnw=lnw, residual=res, eps=eps)
+        got = qmm.qgemv_stacked_fused(x, p, 3, **kw)
+        err = check(f"K1 {name} {k}->{n} M={m}", got,
+                    qmm.qgemv_stacked_fused_plain(f32(x), f32(p), 3, lnw=f32(lnw),
+                                                  residual=f32(res), eps=eps))
+        if not torch.equal(qmm.qgemv_stacked_fused(x, p, 3, **kw), got):
+            raise AssertionError(f"K1 {name} M={m}: a second call on the same inputs differs")
+        ms = time_ms(lambda i: qmm.qgemv_stacked_fused(x, p, i % n_layers, **kw))
+        plain = time_ms(lambda i: qmm.qgemv_stacked_fused_plain(x, p, i % n_layers, **kw),
+                        inner=2, reps=3)
+        w = dense_linear(_one_layer(p, 0))[0]
+        h = qmm.rms_norm(x, lnw, eps) if norm else x
+        lib = time_ms(lambda i: torch.matmul(h, w))
+        del w
+        wbytes = k * n // 2 + 4 * (k // p.group_size) * n + 2 * p.n_outlier * n
+        nbytes = wbytes + 2 * m * (k + n) + (2 * k if norm else 0) + (2 * m * n if resid else 0)
+        b = row.add(err, ms, plain, lib, nbytes, 2 * m * k * n, bw)
+        line = (f"    {name} M={m}: kernel {ms * 1e3:.1f} us ({b[0] / ms:.1%} of the bound), "
+                f"plain {plain * 1e3:.1f} us, torch.matmul on the dequantized weight "
+                f"{lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B), at "
+                f"measured copy rate {nbytes / bw * 1e6:.2f} us")
+        if k6 is not None:
+            ms6 = time_ms(lambda i: qmm.qgemv_stacked(h, p, i % n_layers))
+            k6[m] = k6.get(m, 0.0) + ms6
+            line += f"; K6 on the normalised input {ms6 * 1e3:.1f} us"
+        log(line)
+
+
+def phase_matvec(bw, rows):
+    """What ``--only matvec`` runs, so that another checkout's matvec
+    kernels can be timed in the same call: K1 at the four Llama-2-7B decode
+    stages (random stacked w4/g128/r128 weights, as many layers as keep the
+    rotation out of L2) at M = 1 and 8, with K6 on the same inputs, then P4
+    with its K6 and K1 rows (`_p4_row`)."""
+    from qeft_tpu_torch.models.llama import LLAMA_PRESETS
+    from qeft_tpu_torch.probes import common
+    from qeft_tpu_torch.probes import gemv_ablation as p4
+    from qeft_tpu_torch.testing import random_packed_linear
+
+    cfg = LLAMA_PRESETS["llama2-7b"]
+    hid, inter = cfg.hidden_size, cfg.intermediate_size
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    row = rows["qgemv_stacked_fused"] = Row("qgemv_stacked_fused", "qeft_tpu_torch/csrc/qmm.cu",
+                                            "qeft_tpu/ops/pallas_qmm.py:439", True)
+    m8, k6 = Row("qgemv_stacked_fused", "", "", True), {}
+    for name, (k, n) in (("qkv", (hid, qkv)), ("o", (hid, hid)), ("upgate", (hid, 2 * inter)),
+                         ("down", (inter, hid))):
+        depth = common.n_copies(k * n // 2 + 4 * (k // 128) * n + 2 * 128 * n)
+        layers = {name: random_packed_linear(gen, depth, k, n, 128, 128)}
+        log(f"[matvec] K1 {name} {k}->{n}, layer rotating over {depth} (cold weights)")
+        for m, r in ((1, row), (8, m8)):
+            _k1_stages(layers, depth, m, randn, cfg.rms_norm_eps, r, bw, k6)
+        del layers
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        row.d[f"m8_{key}"] = m8.d[key]
+    row.d["max_abs_err"] = max(row.d["max_abs_err"], m8.d["max_abs_err"])
+    row.d["k6_ms"], row.d["m8_k6_ms"] = k6[1], k6[8]
+    row.d["per"] = ("one decode layer: qkv + o + upgate + down at M=1 (m8_*: M=8; k6_*: K6 on "
+                    "the normalised inputs)")
+    log("[matvec] K1 per layer: " + ", ".join(
+        f"M={m} {d['ms'] * 1e3:.1f} us (bound {d['bound_ms'] * 1e3:.2f}; torch.matmul "
+        f"{d['library_ms'] * 1e3:.1f}; K6 {k6[m] * 1e3:.1f})"
+        for m, d in ((1, row.d), (8, m8.d))))
+    _p4_row(p4.measure(torch.device("cuda")), rows, bw)
 
 
 def _kernels_a_call(fn, calls: int = 16):
@@ -1401,7 +1475,8 @@ def phase_probes(bw, rows):
     version (P2 and P3 exact, P4 within KERNEL_RTOL of the output's scale),
     timed hot (one buffer, as the scripts run them) and cold (rotating over
     copies past 200 MB), beside the plain version, one PyTorch call where
-    one computes the same function and the bound; K6 at P4's shapes."""
+    one computes the same function and the bound; K6 and K1 at P4's
+    shapes."""
     from qeft_tpu_torch.probes import dma, dma2
     from qeft_tpu_torch.probes import gemv_ablation as p4
 
@@ -1435,16 +1510,28 @@ def phase_probes(bw, rows):
             f"GB/s), cold {t['cold_ms'] * 1e3:.2f} us ({t['cold_GBps']:.0f} GB/s); exact")
     log(f"[probes] P3 plain {r3['plain_ms'] * 1e3:.2f} us, torch.add(qw[:8], s) "
         f"{r3['library_ms'] * 1e3:.2f} us")
-    row = rows["gemv_ablation"] = Row("gemv_ablation", src, "scripts/gemv_ablation_probe.py:140",
-                                      True)
+    _p4_row(r4, rows, bw)
+    return dict(p2=r2, p3=r3, p4=r4)
+
+
+def _p4_row(r4, rows, bw):
+    """P4's row of the table from `gemv_ablation.measure`'s result: v0_full
+    cold at both shapes, every variant's times beside it, and the port's K6
+    and K1 at the same shapes (K1 where the measuring checkout times it)."""
+    from qeft_tpu_torch.probes import gemv_ablation as p4
+
+    row = rows["gemv_ablation"] = Row("gemv_ablation", "qeft_tpu_torch/csrc/probes.cu",
+                                      "scripts/gemv_ablation_probe.py:140", True)
     for label, r in r4.items():
         t = r["v0_full"]
         row.add(max(r[v]["max_abs_err"] for v in p4.VARIANTS), t["cold_ms"], r["plain_ms"],
                 r["library_ms"], r["bytes"], 2 * p4.M * r["K"] * r["N"], bw)
         log(f"[probes] P4 {label}: bound {r['bound_ms'] * 1e3:.2f} us; torch.matmul on the "
             f"dequantized weight {r['library_ms'] * 1e3:.1f} us; plain v0_full "
-            f"{r['plain_ms'] * 1e3:.1f} us; K6 M=8 hot {r['k6']['hot_ms'] * 1e3:.1f} us, cold "
-            f"{r['k6']['cold_ms'] * 1e3:.1f} us (bound {r['k6']['bound_ms'] * 1e3:.2f} us)")
+            f"{r['plain_ms'] * 1e3:.1f} us" + "".join(
+                f"; {key.upper()} M=8 hot {r[key]['hot_ms'] * 1e3:.1f} us, cold "
+                f"{r[key]['cold_ms'] * 1e3:.1f} us (bound {r[key]['bound_ms'] * 1e3:.2f} us)"
+                for key in ("k6", "k1") if key in r))
         for v in p4.VARIANTS:
             t = r[v]
             log(f"    {v:11s} hot {t['hot_ms'] * 1e3:7.1f} us, cold {t['cold_ms'] * 1e3:7.1f} us "
@@ -1453,8 +1540,8 @@ def phase_probes(bw, rows):
                       "variant within KERNEL_RTOL of its plain version"),
                  variants={label: {v: {k: r[v][k] for k in ("hot_ms", "cold_ms")}
                                    for v in p4.VARIANTS} for label, r in r4.items()},
-                 k6={label: r["k6"] for label, r in r4.items()})
-    return dict(p2=r2, p3=r3, p4=r4)
+                 **{key: {label: r[key] for label, r in r4.items()}
+                    for key in ("k6", "k1") if all(key in r for r in r4.values())})
 
 
 def _engine_prompts(cfg):
@@ -1783,7 +1870,7 @@ def phase_family_kernels(cfg, params, bw, rows):
     _check_layer0("opt-6.7b", layers, rows)
 
     n = 4096
-    log(f"[family-kernels] K1 and K6 at M=8, N={n}, K past one shared-memory band")
+    log(f"[family-kernels] K1 and K6 at M=8, N={n}, K up to 28,672")
     for k in WIDE_K:
         p = random_packed_linear(gen, 2, k, n, 128, 128)
         x, res = randn(8, k), randn(8, n, scale=4.0)
@@ -1957,9 +2044,10 @@ def phase_family_cli(cfg):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=["attention"], default=None,
-                    help="run only the device, build and attention-kernel phases (for an A/B of "
-                    "the attention kernels against another checkout's)")
+    ap.add_argument("--only", choices=["attention", "matvec"], default=None,
+                    help="run only the device and build phases and the attention kernels (K3, "
+                    "K4, K4q, K8) or the matvec kernels (K1, P4), for an A/B of those kernels "
+                    "against another checkout's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1975,17 +2063,21 @@ def main(argv=None) -> int:
 
     name, smi = timed(phase_device)
     timed(phase_build)
-    if args.only == "attention":  # the attention kernels alone, no model
+    if args.only:  # one family of kernels alone, no model
         from qeft_tpu_torch.models.llama import LLAMA_PRESETS
 
-        rows = {}
-        per_call = timed(phase_attention_kernels, LLAMA_PRESETS["llama2-7b"], copy_rate(), rows)
+        rows, extra = {}, {}
+        if args.only == "attention":
+            # the profiler's kernels a call stand beside the rows
+            extra["kernels_a_call"] = timed(phase_attention_kernels, LLAMA_PRESETS["llama2-7b"],
+                                            copy_rate(), rows)
+        else:
+            timed(phase_matvec, copy_rate(), rows)
         log(f"[done] {time.perf_counter() - tick:.1f} s; seconds by phase {seconds}")
-        # no main path ran, so the rows carry no launch count; the profiler's
-        # kernels a call stand beside them instead
-        print(json.dumps({"attention_kernels": [{k: v for k, v in r.d.items() if k != "launches"}
-                                                for r in rows.values()],
-                          "kernels_a_call": per_call}))
+        # no main path ran, so the rows carry no launch count
+        print(json.dumps({f"{args.only}_kernels": [{k: v for k, v in r.d.items()
+                                                    if k != "launches"} for r in rows.values()],
+                          **extra}))
         print(smi)
         return 0
     cfg, params, nbytes, bw = timed(phase_model)

@@ -96,6 +96,44 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// the card's SM count (0 if it cannot be queried), read once
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// splits of a contraction of `units` over `tiles` column tiles: the largest
+// power of two, at most `most` (a cluster's size) and `units`, that keeps the
+// grid within `per_sm` blocks an SM
+inline int k_splits(int tiles, int units, int most, int per_sm) {
+  int s = 1;
+  while (2 * s <= most && 2 * s <= units && tiles * 2 * s <= per_sm * sm_count()) s *= 2;
+  return s;
+}
+
+// the launch of a (tiles, splits) grid of `threads`-thread blocks whose
+// splits form one thread block cluster; `attr` holds the cluster attribute
+inline cudaLaunchConfig_t split_cluster_config(int tiles, int splits, int threads,
+                                               cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, splits);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = splits;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // this thread's shared-memory accesses, ordered before later ones of the
 // async proxy (wgmma, bulk copies)
 __device__ __forceinline__ void fence_async_proxy() {

@@ -49,16 +49,35 @@
 //   (16- or 8-bit fields shifted down 4 bits a plane against activation
 //   differences x_p - 16 x_{p-1}).  Bound: K/2 * N bytes of words plus the
 //   scales, 7.1 us at 11008 -> 4096; the 2*8*K*N operations are a tenth of
-//   that at the bf16 tensor rate, but here they run as f32 FMAs on the CUDA
-//   cores (about 12 us of issue at this shape), which is what the variants
-//   are there to expose.  Design: a block covers 128 columns (4 a lane, one
-//   16-byte load of words and one of scales per word row) and a slice of the
-//   word rows, whose activations of all 8 planes and 8 rows it stages in
-//   shared memory as f32 (for V7 / V8 already telescoped); 8 warps split the
-//   slice with the next row's loads issued before the current row's FMAs;
-//   8 x 4 f32 accumulators a thread.  Partial sums cross blocks as in P2,
-//   through an f32 workspace with atomics and a ticket per column tile; the
-//   last block rounds to bf16 and zeroes the workspace.
+//   that at the bf16 tensor rate.  Design: the work split as the script
+//   splits it between the TPU's units -- the dequantization on the CUDA
+//   cores, the dot on the tensor cores -- in the block structure of the
+//   port's decode matvec (csrc/qmm.cu, qgemv_mma_kernel), so the probe asks
+//   its question of that design.  A block of 8 warps covers 256 columns and
+//   a split of the word rows in units of 8; lane (gid, t) owns 4 columns
+//   (one 16-byte load of words and one of scales per word row) and word
+//   rows 8u + t and 8u + 4 + t of each unit, whose words and scales it loads
+//   one unit ahead into registers.  The bf16 variants (V0, V1, V2, V3, V5)
+//   build each weight as the variant defines it on the CUDA cores and pair
+//   planes (q, q + planes/2) of one word into an mma.sync m16n8k16 A
+//   register (16 columns x 16 K rows), the 8 activation rows as B, staged
+//   once per block in MMA order, f32 accumulators: bf16 products summed in
+//   f32, the variant's own arithmetic.  V6, V7 and V8 multiply f32 weights
+//   by f32 activations and stay f32 FMAs on the CUDA cores (activations
+//   staged as f32, telescoped for V7 / V8): TF32 rounds a 16-bit field times
+//   its scale to 2^-11, which the telescoped sums do not cancel, and a
+//   split-precision (3 x TF32) product spends three MMAs and the splitting
+//   of both operands per value -- more CUDA-core work than the f32 FMAs it
+//   would replace at 8 rows.  V4 sums the words as f32.  The splits (one
+//   thread block cluster) are summed in rank order through the cluster's
+//   distributed shared memory, as in the decode matvec: no atomics, no
+//   workspace, and two calls on the same inputs are bit-identical.  Unlike
+//   the decode matvec a cluster takes up to 16 splits (a non-portable size,
+//   where the card places it): the dequantization's longer dependent chains
+//   want the 16 warps an SM that 16 splits give at 11008 -> 4096 (8 at 8
+//   splits).
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -210,6 +229,9 @@ dma_tile_kernel(const int32_t* __restrict__ qw, const float* __restrict__ s,
 enum Variant { kFull = 0, kNoScale, k4Plane, k2Plane, kDma, kNoShift, kF32Dot, kTele16, kTele8 };
 
 __host__ __device__ constexpr int planes_of(int V) { return V == k4Plane ? 4 : V == k2Plane ? 2 : 8; }
+// the variants whose dot runs on the tensor cores (bf16 weights); the f32
+// ones run as FMAs on the CUDA cores, v4_dma has no dot
+__host__ __device__ constexpr bool on_mma(int V) { return V <= k2Plane || V == kNoShift; }
 
 // the telescoped variants: a plane that starts a field (level 0) takes x_p
 // as it is, the others x_p - 16 x_{p-1}
@@ -218,148 +240,266 @@ __device__ __forceinline__ bool starts_field(int p) {
   return V == kTele16 ? (p & 3) == 0 : V == kTele8 ? (p & 1) == 0 : true;
 }
 
+// A block is 8 warps over kA_BN columns and a split of the units (8 word
+// rows each) -- blockIdx.y, one block of a cluster of the splits.  Lane
+// (gid, t) of warp w owns columns 4 gid .. 4 gid + 3 of the warp's 32 and
+// word rows 8u + t and 8u + 4 + t of every unit u of the split.
+constexpr int kA_BN = 256;
+constexpr int kA_CHUNK = 16;        // units of activations staged at once
+constexpr int kA_ROW_F32 = 64 + 4;  // staged f32 floats of a word row (8 planes x 8 tokens), padded
+constexpr int kA_MAX_SPLITS = 16;  // a non-portable cluster size, where the card places one
+
+// the bf16 weight pair i of a word for the MMA variants: planes (i, i +
+// planes/2) of one column, each (plane as f32) * scale rounded to bf16 (v1:
+// the plane itself; v5: every plane is the low nibble).  2^23 + code is the
+// code OR-ed into the mantissa of 2^23, and fma(2^23 + code, s, -2^23 s)
+// rounds the exact code * s once: the plain version's f32 product.
 template <int V>
-__global__ void __launch_bounds__(kThreads)
-gemv_ablation_kernel(const bf16* __restrict__ x, const int4* __restrict__ qw,
-                     const float4* __restrict__ s, bf16* __restrict__ out,
-                     float* __restrict__ ws, unsigned int* __restrict__ tickets, int K8, int N,
-                     int G, int bn, int rows_per_block) {
-  constexpr int PLANES = planes_of(V);
-  extern __shared__ __align__(16) float smem[];  // xs [rows][8 planes][8 rows], then the reduction
-  __shared__ bool last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * kTileCols + lane * 4;
-  const int r0 = blockIdx.y * rows_per_block, r1 = min(r0 + rows_per_block, K8);
-  const int K = K8 * 8, n4 = N / 4;
+__device__ __forceinline__ uint32_t weight_pair(uint32_t w, float s, float zs, int i) {
+  auto deq = [&](int p) {
+    const float f = __uint_as_float(((V == kNoShift ? w : w >> (4 * p)) & 0xFu) | 0x4B000000u);
+    return V == kNoScale ? f - 8388608.f : fmaf(f, s, zs);
+  };
+  const bf162 r = __floats2bfloat162_rn(deq(i), deq(i + planes_of(V) / 2));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
 
-  if constexpr (V != kDma) {
-    for (int idx = threadIdx.x; idx < (r1 - r0) * 64; idx += blockDim.x) {
-      const int wl = idx >> 6, p = (idx >> 3) & 7, m = idx & 7;
-      const int w = r0 + wl;
-      float v = bf2f(x[(size_t)m * K + p * K8 + w]);
-      if (!starts_field<V>(p)) v -= 16.f * bf2f(x[(size_t)m * K + (p - 1) * K8 + w]);
-      smem[idx] = v;
+template <int V>
+__global__ void __launch_bounds__(kThreads, 2)
+gemv_ablation_kernel(const bf16* __restrict__ x, const uint4* __restrict__ qw,
+                     const float4* __restrict__ s, bf16* __restrict__ out, int K8, int N, int G,
+                     int bn) {
+  constexpr int PLANES = planes_of(V), HALF = PLANES / 2;
+  constexpr int CP = PLANES >= 4 ? 4 : 2, H = PLANES / CP;  // pairs of a staged vector, vectors
+  constexpr bool SCALED = V != kNoScale && V != kDma;
+  constexpr int XS_BYTES = on_mma(V)   ? kA_CHUNK * 8 * 4 * PLANES * 4
+                           : V == kDma ? 16
+                                       : kA_CHUNK * 8 * kA_ROW_F32 * 4;
+  // MMA variants: [unit][vector h][token][lane t] of CP bf16 pairs, the
+  // lane's pairs in its order (word row 8u + t's pairs 0..HALF-1, then
+  // word row 8u + 4 + t's); f32 variants: [unit][word row][plane][token]
+  __shared__ __align__(16) unsigned char xs[XS_BYTES];
+  __shared__ __align__(16) float red[8 * kA_BN];  // [token][column]
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int K = K8 * 8, U = K8 / 8, n4 = N / 4;
+  const int S = gridDim.y, rank = blockIdx.y;
+  const int u0 = rank * U / S, u1 = (rank + 1) * U / S;  // this split's units
+  const int c4 = (blockIdx.x * kA_BN + warp * 32 + 4 * gid) / 4;  // this lane's column quad
+  const bool col_ok = c4 < n4;
+
+  // the words and scales of unit u: word rows 8u + t and 8u + 4 + t
+  auto load = [&](int u, uint4 (&q)[2], float4 (&sc)[2]) {
+    const bool ok = col_ok && u < u1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int w = 8 * u + 4 * h + t;
+      q[h] = ok ? __ldcs(qw + (size_t)w * n4 + c4) : make_uint4(0u, 0u, 0u, 0u);
+      sc[h] = ok && SCALED ? __ldg(s + (size_t)(w % G) * n4 + c4) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
-  }
+  };
 
-  float acc[8][4];
+  // the staged activations of the chunk's units c0 .. c1 - 1
+  auto stage = [&](int c0, int c1) {
+    if constexpr (on_mma(V)) {
+      uint32_t* xp = reinterpret_cast<uint32_t*>(xs);
+      for (int idx = tid; idx < (c1 - c0) * 8 * HALF; idx += kThreads) {
+        const int u = idx / (8 * HALF), m = (idx / HALF) & 7, q = idx % HALF;
+        const bf16* xr = x + (size_t)m * K + 8 * (c0 + u);
+        const uint4 lo = __ldg(reinterpret_cast<const uint4*>(xr + (size_t)q * K8));
+        const uint4 hi = __ldg(reinterpret_cast<const uint4*>(xr + (size_t)(q + HALF) * K8));
+        const uint32_t l[4] = {lo.x, lo.y, lo.z, lo.w}, hv[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {  // word row 8u + r: lane r % 4, its pair q or HALF + q
+          const int i = r < 4 ? q : HALF + q;
+          xp[(((u * H + i / CP) * 8 + m) * 4 + (r & 3)) * CP + i % CP] =
+              __byte_perm(l[r >> 1], hv[r >> 1], (r & 1) ? 0x7632 : 0x5410);
+        }
+      }
+    } else if constexpr (V != kDma) {
+      float* xf = reinterpret_cast<float*>(xs);
+      for (int idx = tid; idx < (c1 - c0) * 512; idx += kThreads) {
+        const int r = idx & 7, m = (idx >> 3) & 7, p = (idx >> 6) & 7, u = idx >> 9;
+        const size_t o = (size_t)m * K + (size_t)p * K8 + 8 * (c0 + u) + r;
+        float v = bf2f(x[o]);
+        if (!starts_field<V>(p)) v -= 16.f * bf2f(x[o - K8]);
+        xf[(u * 8 + r) * kA_ROW_F32 + p * 8 + m] = v;
+      }
+    }
+  };
+
+  float acc[8][4];  // MMA: [tile j][i] in acc[j] (column 4 gid + 2j + i/2, token 2t + i%2);
+                    // f32: [token][column]; v4_dma: acc[0][column]
 #pragma unroll
   for (int m = 0; m < 8; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
 
-  if (c0 < N) {
-    int w = r0 + warp;
-    int4 qn = make_int4(0, 0, 0, 0);
-    float4 sn = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (w < r1) {
-      qn = __ldg(qw + (size_t)w * n4 + c0 / 4);
-      if (V != kDma && V != kNoScale) sn = __ldg(s + (size_t)(w % G) * n4 + c0 / 4);
-    }
-    for (; w < r1; w += 8) {
-      const uint32_t q[4] = {(uint32_t)qn.x, (uint32_t)qn.y, (uint32_t)qn.z, (uint32_t)qn.w};
-      const float sc[4] = {sn.x, sn.y, sn.z, sn.w};
-      if (w + 8 < r1) {  // the next row's loads in flight during this row's FMAs
-        qn = __ldg(qw + (size_t)(w + 8) * n4 + c0 / 4);
-        if (V != kDma && V != kNoScale) sn = __ldg(s + (size_t)((w + 8) % G) * n4 + c0 / 4);
-      }
-      if constexpr (V == kDma) {
+  // one unit (cu: its index in the staged chunk)
+  auto compute = [&](int cu, const uint4 (&q)[2], const float4 (&sc)[2]) {
+    if constexpr (on_mma(V)) {
+      uint32_t b[PLANES];  // B registers of token gid, lane t, in the lane's pair order
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[0][j] += (float)(int32_t)q[j];
-        continue;
-      }
-      const float4* xw = reinterpret_cast<const float4*>(smem + (w - r0) * 64);
-      uint32_t cur[4];
-#pragma unroll
-      for (int p = 0; p < PLANES; ++p) {
-        float wt[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t code;
-          if constexpr (V == kTele16) {
-            if ((p & 3) == 0) cur[j] = p == 0 ? (q[j] & 0xFFFFu) : (q[j] >> 16);
-            else cur[j] >>= 4;
-            code = cur[j];
-          } else if constexpr (V == kTele8) {
-            if ((p & 1) == 0) cur[j] = p == 6 ? (q[j] >> 24) : ((q[j] >> (4 * p)) & 0xFFu);
-            else cur[j] >>= 4;
-            code = cur[j];
-          } else if constexpr (V == kNoShift) {
-            code = q[j] & 0xFu;
-          } else {
-            code = (q[j] >> (4 * p)) & 0xFu;
-          }
-          const float f = (float)code;
-          if constexpr (V == kNoScale) wt[j] = f;  // a nibble is exact in bf16
-          else if constexpr (V == kF32Dot || V == kTele16 || V == kTele8) wt[j] = f * sc[j];
-          else wt[j] = bf2f(f2bf(f * sc[j]));
+      for (int h = 0; h < H; ++h) {
+        const int at = ((cu * H + h) * 8 + gid) * 4 + t;
+        if constexpr (CP == 4) {
+          const uint4 v = reinterpret_cast<const uint4*>(xs)[at];
+          b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z, b[4 * h + 3] = v.w;
+        } else {
+          const uint2 v = reinterpret_cast<const uint2*>(xs)[at];
+          b[0] = v.x, b[1] = v.y;
         }
-        const float4 xa = xw[2 * p], xb = xw[2 * p + 1];
-        const float xm[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      }
+      const uint32_t w[2][4] = {{q[0].x, q[0].y, q[0].z, q[0].w}, {q[1].x, q[1].y, q[1].z, q[1].w}};
+      const float sv[2][4] = {{sc[0].x, sc[0].y, sc[0].z, sc[0].w},
+                              {sc[1].x, sc[1].y, sc[1].z, sc[1].w}};
+      // A register of column c, lane pair i: pair i of word row 8u + t, or
+      // pair i - HALF of word row 8u + 4 + t
+      auto a = [&](int c, int i) {
+        const int h = i < HALF ? 0 : 1;
+        return weight_pair<V>(w[h][c], sv[h][c], -8388608.f * sv[h][c], i - h * HALF);
+      };
 #pragma unroll
-        for (int m = 0; m < 8; ++m)
+      for (int st = 0; st < HALF; ++st)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xm[m], wt[j], acc[m][j]);
+        for (int j = 0; j < 2; ++j)
+          mma_bf16(acc[j], a(2 * j, 2 * st), a(2 * j + 1, 2 * st),
+                   a(2 * j, 2 * st + 1), a(2 * j + 1, 2 * st + 1), b[2 * st], b[2 * st + 1]);
+    } else if constexpr (V == kDma) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[0][0] += (float)(int32_t)q[h].x;
+        acc[0][1] += (float)(int32_t)q[h].y;
+        acc[0][2] += (float)(int32_t)q[h].z;
+        acc[0][3] += (float)(int32_t)q[h].w;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t qv[4] = {q[h].x, q[h].y, q[h].z, q[h].w};
+        const float sv[4] = {sc[h].x, sc[h].y, sc[h].z, sc[h].w};
+        const float4* xw = reinterpret_cast<const float4*>(
+            reinterpret_cast<const float*>(xs) + (cu * 8 + 4 * h + t) * kA_ROW_F32);
+        uint32_t cur[4];
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          float wt[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t code;
+            if constexpr (V == kTele16) {
+              if ((p & 3) == 0) cur[j] = p == 0 ? (qv[j] & 0xFFFFu) : (qv[j] >> 16);
+              else cur[j] >>= 4;
+              code = cur[j];
+            } else if constexpr (V == kTele8) {
+              if ((p & 1) == 0) cur[j] = p == 6 ? (qv[j] >> 24) : ((qv[j] >> (4 * p)) & 0xFFu);
+              else cur[j] >>= 4;
+              code = cur[j];
+            } else {
+              code = (qv[j] >> (4 * p)) & 0xFu;
+            }
+            wt[j] = (float)code * sv[j];
+          }
+          const float4 xa = xw[2 * p], xb = xw[2 * p + 1];
+          const float xm[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xm[m], wt[j], acc[m][j]);
+        }
+      }
+    }
+  };
+
+  uint4 q[2], q_next[2];
+  float4 sc[2], sc_next[2];
+  int u = u0;
+  load(u, q, sc);
+  for (int c0 = u0; c0 < u1; c0 += kA_CHUNK) {
+    const int c1 = min(u1, c0 + kA_CHUNK);
+    if (c0 > u0) __syncthreads();  // the previous chunk is consumed
+    stage(c0, c1);
+    __syncthreads();
+    for (; u < c1; ++u) {  // the next unit's words and scales in flight
+      load(u + 1, q_next, sc_next);
+      compute(u - c0, q, sc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        q[h] = q_next[h];
+        sc[h] = sc_next[h];
       }
     }
   }
 
+  // this block's partial tile into red [token][column]: the f32 and v4_dma
+  // lanes first sum their quad's word rows (lanes t, fixed order)
+  const int cl = warp * 32 + 4 * gid;
   constexpr int ROWS_OUT = V == kDma ? 1 : 8;
-  __syncthreads();  // xs consumed: the same shared memory takes the reduction
-  float* red = smem;  // [8 warps][ROWS_OUT][128]
+  if constexpr (on_mma(V)) {
 #pragma unroll
-  for (int m = 0; m < ROWS_OUT; ++m)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[(warp * ROWS_OUT + m) * kTileCols + lane * 4 + j] = acc[m][j];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ROWS_OUT * kTileCols; idx += blockDim.x) {
-    const int m = idx / kTileCols, col = idx - m * kTileCols;
-    const int c = blockIdx.x * kTileCols + col;
-    if (c >= N) continue;
-    float t = 0.f;
-    for (int wp = 0; wp < 8; ++wp) t += red[(wp * ROWS_OUT + m) * kTileCols + col];
-    atomicAdd(ws + (size_t)m * N + c, t);
+      for (int i = 0; i < 4; ++i) red[(2 * t + (i & 1)) * kA_BN + cl + 2 * j + (i >> 1)] = acc[j][i];
+  } else {
+#pragma unroll
+    for (int m = 0; m < ROWS_OUT; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = acc[m][j];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (ROWS_OUT == 1 ? t == 0 : (m >> 1) == t) red[m * kA_BN + cl + j] = v;
+      }
   }
-  if (!last_of_tile(tickets, &last)) return;
-  for (int idx = threadIdx.x; idx < 8 * kTileCols; idx += blockDim.x) {
-    const int m = idx / kTileCols, col = idx - m * kTileCols;
-    const int c = blockIdx.x * kTileCols + col;
-    if (c >= N) continue;
-    float v;
+  // the splits' partial tiles, summed in rank order through the cluster's
+  // shared memory; each block writes its share of the tile in bf16
+  cluster.sync();
+  const int per = (ROWS_OUT * kA_BN + S - 1) / S, end = min(ROWS_OUT * kA_BN, (rank + 1) * per);
+  for (int idx = rank * per + tid; idx < end; idx += kThreads) {
+    const int m = idx / kA_BN, nn = blockIdx.x * kA_BN + idx % kA_BN;
+    if (nn >= N) continue;
+    float y = 0.f;
+    for (int r = 0; r < S; ++r) y += cluster.map_shared_rank(red, r)[idx];
     if constexpr (V == kDma) {
-      v = __ldcg(ws + c) + bf2f(x[(size_t)m * K + c % bn]);
+#pragma unroll
+      for (int mm = 0; mm < 8; ++mm)
+        out[(size_t)mm * N + nn] = f2bf(y + bf2f(x[(size_t)mm * K + nn % bn]));
     } else {
-      v = atomicExch(ws + (size_t)m * N + c, 0.f);
-    }
-    out[(size_t)m * N + c] = f2bf(v);
-  }
-  if constexpr (V == kDma) {
-    __syncthreads();  // every row has read the column sums
-    for (int col = threadIdx.x; col < kTileCols; col += blockDim.x) {
-      const int c = blockIdx.x * kTileCols + col;
-      if (c < N) ws[c] = 0.f;
+      out[(size_t)m * N + nn] = f2bf(y);
     }
   }
-  if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 template <int V>
-cudaError_t launch_ablation(const bf16* x, const int4* qw, const float4* s, bf16* out, float* ws,
-                            unsigned int* tickets, int K8, int N, int G, int bn, int rpb,
-                            cudaStream_t st) {
-  const size_t xs = V == kDma ? 0 : (size_t)rpb * 64 * sizeof(float);
-  const size_t rd = (size_t)8 * (V == kDma ? 1 : 8) * kTileCols * sizeof(float);
-  const size_t smem = xs > rd ? xs : rd;
-  if (smem > 48 * 1024) {
+cudaError_t launch_ablation(const bf16* x, const uint4* qw, const float4* s, bf16* out, int K8,
+                            int N, int G, int bn, cudaStream_t st) {
+  // the most splits a cluster may have: 16 where the card places a cluster
+  // of 16 such blocks, else the portable 8 (once per variant)
+  static int most = 0;
+  if (most == 0) {
     cudaError_t e = cudaFuncSetAttribute(gemv_ablation_kernel<V>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
+    cudaLaunchAttribute a;
+    const cudaLaunchConfig_t probe = split_cluster_config(1, kA_MAX_SPLITS, kThreads, st, &a);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, gemv_ablation_kernel<V>, &probe);
+    if (e != cudaSuccess) return e;
+    most = clusters > 0 ? kA_MAX_SPLITS : 8;
   }
-  dim3 grid((N + kTileCols - 1) / kTileCols, (K8 + rpb - 1) / rpb);
-  gemv_ablation_kernel<V><<<grid, kThreads, smem, st>>>(x, qw, s, out, ws, tickets, K8, N, G, bn,
-                                                         rpb);
-  return cudaGetLastError();
+  // at most two blocks an SM.  The dequantization's dependent chains want
+  // more warps an SM than the decode matvec's: 16 splits at 11008 -> 4096,
+  // where 16 column tiles give 8 warps an SM at 8
+  const int tiles = (N + kA_BN - 1) / kA_BN;
+  const int splits = k_splits(tiles, K8 / 8, most, 2);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = split_cluster_config(tiles, splits, kThreads, st, &attr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, gemv_ablation_kernel<V>, x, qw, s, out, K8, N, G, bn);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -423,24 +563,21 @@ extern "C" int dma_tile(const void* qw, const void* s, void* out, int K8, int N,
   return (int)cudaGetLastError();
 }
 
-// ws: 8 * N zeroed floats, tickets: ceil(N / 128) zeroed counters; both are
-// left zeroed.  G = K / g scale rows; bn: the N tile of the V4 variant.
-extern "C" int gemv_ablation(const void* x, const void* qw, const void* s, void* out, void* ws,
-                             void* tickets, int K8, int N, int G, int bn, int rows_per_block,
-                             int variant, void* stream) {
-  if (K8 < 1 || N < 4 || N % 4 || G < 1 || K8 % G || bn < 1 || bn > K8 * 8 ||
-      rows_per_block < 1 || rows_per_block > 192 || !aligned16(qw) || !aligned16(s))
+// G = K / g scale rows; bn: the N tile of the V4 variant.  K/8 must be a
+// multiple of 8 (units of 8 word rows, 16-byte activation loads).
+extern "C" int gemv_ablation(const void* x, const void* qw, const void* s, void* out, int K8,
+                             int N, int G, int bn, int variant, void* stream) {
+  if (K8 < 8 || K8 % 8 || N < 4 || N % 4 || G < 1 || K8 % G || bn < 1 || bn > K8 * 8 ||
+      !aligned16(x) || !aligned16(qw) || !aligned16(s))
     return (int)cudaErrorInvalidValue;
   const bf16* xx = static_cast<const bf16*>(x);
-  const int4* q = static_cast<const int4*>(qw);
+  const uint4* q = static_cast<const uint4*>(qw);
   const float4* ss = static_cast<const float4*>(s);
   bf16* o = static_cast<bf16*>(out);
-  float* w = static_cast<float*>(ws);
-  unsigned int* t = static_cast<unsigned int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define QEFT_CASE(VV) \
   case VV:            \
-    return (int)launch_ablation<VV>(xx, q, ss, o, w, t, K8, N, G, bn, rows_per_block, st);
+    return (int)launch_ablation<VV>(xx, q, ss, o, K8, N, G, bn, st);
   switch (variant) {
     QEFT_CASE(kFull) QEFT_CASE(kNoScale) QEFT_CASE(k4Plane) QEFT_CASE(k2Plane) QEFT_CASE(kDma)
     QEFT_CASE(kNoShift) QEFT_CASE(kF32Dot) QEFT_CASE(kTele16) QEFT_CASE(kTele8)

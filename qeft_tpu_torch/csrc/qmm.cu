@@ -6,81 +6,58 @@
 //   over ALL K rows, the weak-column slab x[:, K-r:] @ oweight[l], optional
 //   residual add -- reading layer `layer` of the stacked [L, ...] buffers in
 //   place.
-//   Bound: HBM bytes.  Per launch it must stream K*N/2 bytes of codes,
-//   4*(K/g)*N bytes of scales and zero points and 2*r*N bytes of oweight;
-//   its FLOPs are ~2*M*K*N, far below the bf16 tensor rate.
-//   Design: one block per 32 output columns (one per lane), 16 warps that
-//   split the word rows in units of up to 16 (one group at g = 128) and meet
-//   in a shared-memory reduction -- a loop inside the block takes the place
-//   of the TPU's sequential grid axis.  A warp issues all loads of a unit
-//   (16 words a lane, plus the group's scale and zero point) before it uses
-//   any of them.  Every block recomputes the row's RMS statistics itself
-//   (blocks run in no order), writes the normalised row to shared memory in
-//   packed-word order (word row r, nibble p at r*8 + p) so one 16-byte
-//   broadcast load feeds the 8 nibbles of a word, and keeps per-group
-//   activation sums so the zero points cost one FMA per group:
-//   y = sum_g s_g*sum(h*code) + z_g*sum(h).  Warps read the
-//   group-interleaved words directly (word row jj*G + gi), coalesced along N.
-//   At one token row the kernel is bound by instruction issue as much as by
-//   bytes, so the unpack is lean: one shift and one mask-or turn nibbles
-//   (q, q+4) into the bf16 pair (128 + code), whose halves are exact floats
-//   after one more logic op each, and the 128 folds into the zero-point term
-//   (z_g - 128*s_g).
-//   Wide rows: 8 rows of K bf16 values take 16*K bytes, more than the 227 KB
-//   of shared memory a block may have once K passes about 13,000.  The row
-//   is then staged in bands of whole quantization groups (each band a
-//   contiguous K range of x, balanced over the fewest bands that fit); the
-//   accumulators stay in registers from band to band, and the weights are
-//   still read once.  K1's RMS statistics take one pass over the whole row
-//   first, and the norm is applied as each band is staged.  Where the row
-//   fits (Llama-2-7B's widths at every M) there is one band, as before.
-//
 // qgemv_stacked (K6) replaces pallas_qmm.py::qgemv_stacked
-//   (_qmm_kernel_stacked): the INT4 matvec of layer `layer` of a stacked
-//   linear plus its weak-column slab, for 1..8 token rows, with no norm and
-//   no residual -- the linear of the ragged window forward that continuous
+//   (_qmm_kernel_stacked): the same matvec and slab with no norm and no
+//   residual -- the linear of the ragged window forward that continuous
 //   batching and speculative drafting run.
-// qgemv (K5) replaces pallas_qmm.py::qgemv (_run_qmm at bm = 8): the same
-//   on one unstacked linear, plus an optional bias [N], summed in f32 and
-//   rounded to bf16 once (the TPU path adds slab and bias outside its kernel,
+// qgemv (K5) replaces pallas_qmm.py::qgemv (_run_qmm at bm = 8): K6 on one
+//   unstacked linear, plus an optional bias [N], summed in f32 and rounded
+//   to bf16 once (the TPU path adds slab and bias outside its kernel,
 //   rounding after each): every OPT, Phi, Bloom and Falcon linear at decode.
-//   Both are one kernel, qgemv_mma_kernel (K5 is layer 0 with a bias).
-//   Bound: HBM bytes, as K1 (K*N/2 bytes of codes, 4*(K/g)*N of scales and
-//   zero points, 2*r*N of oweight); 2*M*K*N operations are a few µs of
+//   All three are one kernel, qgemv_mma_kernel: K1 with its norm prologue and
+//   residual epilogue, K5 layer 0 with a bias.  Group sizes 64 and 128, N a
+//   multiple of 4; anything else returns cudaErrorInvalidValue.
+//   Bound: HBM bytes (K*N/2 bytes of codes, 4*(K/g)*N of scales and zero
+//   points, 2*r*N of oweight); 2*M*K*N operations are a few µs of
 //   tensor-core time.
 //   Design (tensor cores): mma.sync m16n8k16 with the weights as A (16
 //   output columns x 16 K rows) and the <= 8 token rows as B's 8 columns, f32
 //   accumulators.  A nibble plus 128 is exact in bf16, so one shift and one
 //   mask-or turn a word's nibbles (q, q + 4) into an A register as it stands;
 //   each group's MMAs start from zero and fold into the f32 result as
-//   s_g * part + (z_g - 128 s_g) * sum_g(x) -- K1's factoring, kept instead of
-//   a sub.bf16x2 to 0..15 to spend no instruction on it.  The MMA sums over
-//   its 16 K rows in any order, so the order is the words' (mma_k_row): a
-//   lane takes one word row of 4 consecutive columns (a 16-byte load) and
-//   feeds two k16 steps of two column pairs.
-//   What this does about the faults of the CUDA-core version it replaces:
-//   (1) the multiply-adds ran on CUDA cores, about 136 instructions a word
-//   at 8 rows: now about 12 (seven logic ops, half an MMA, the fold, the
-//   loads' addresses); (2) every block of 32 columns re-staged all M x K
-//   activations as 2-byte stores and recomputed the group sums: now a block
-//   of 256 columns stages only its split's K range, 16-byte stores in MMA
-//   order (8-byte loads transposed with byte permutes), one sum per (unit,
-//   token); (3) one 16-warp block per SM at wide K: now 8-warp blocks, two
-//   an SM, 43 KB of static shared memory, the activations staged in chunks
-//   of 64 units (2,048 K rows at g = 128) at any K; (4) a warp loaded a unit
-//   and then computed it: now each lane loads the next step's 16 words and
-//   scales into registers (64 bytes, coalesced as they stand: 128 bytes a
-//   word row across a warp) while it computes the current step.  (A
-//   lane-private cp.async ring three steps deep measured slower on the
-//   H100: the kernel is bound by the latency of its dependent instruction
-//   chains and its fixed costs, not by bytes in flight.)  N = 4096 has 16
-//   tiles of 256 columns for 132 SMs, so the groups are split over up to 8
-//   blocks (blockIdx.y), one thread block cluster; the splits' partial
-//   tiles are summed in rank order through the cluster's distributed shared
-//   memory (no atomics, no second pass, no workspace): two calls on the same
-//   inputs are bit-identical.  The weak columns are k16 steps of oweight
-//   (two rows per A register, byte permutes) against x[:, K-r:], spread over
-//   the splits, loaded with the first words.
+//   s_g * part + (z_g - 128 s_g) * sum_g(x), which spends no instruction on
+//   turning the codes back to 0..15.  The MMA sums over its 16 K rows in any
+//   order, so the order is the words' (mma_k_row): a lane takes one word row
+//   of 4 consecutive columns (a 16-byte load) and feeds two k16 steps of two
+//   column pairs.  A block of 8 warps covers 256 columns and a split of the
+//   groups; all its threads stage the split's activations of the M token
+//   rows in MMA order, 16-byte stores (8-byte loads transposed with byte
+//   permutes), in chunks of 64 units (2,048 K rows at g = 128) at any K,
+//   with one sum per (unit, token) for the zero points.  Each lane loads the next step's 16 words and scales
+//   into registers (64 bytes, coalesced as they stand: 128 bytes a word row
+//   across a warp) while it computes the current step; 43 KB of static
+//   shared memory, two blocks an SM.  (A lane-private cp.async ring three
+//   steps deep measured slower on the H100: the kernel is bound by the
+//   latency of its dependent instruction chains and its fixed costs, not by
+//   bytes in flight.)  N = 4096 has 16 tiles of 256 columns for 132 SMs, so
+//   the groups are split over up to 8 blocks (blockIdx.y), one thread block
+//   cluster; the splits' partial tiles are summed in rank order through the
+//   cluster's distributed shared memory (no atomics, no second pass, no
+//   workspace): two calls on the same inputs are bit-identical.  The weak
+//   columns are k16 steps of oweight (two rows per A register, byte
+//   permutes) against x[:, K-r:], spread over the splits, loaded with the
+//   first words.
+//   K1's prologue: behind its first word loads every block sums the squares
+//   of each whole token row itself (M x K bf16 from L2, f32, one thread
+//   mapping and order shared by all blocks), so every split of a cluster
+//   holds a bit-identical rstd without a cluster barrier.  The normalised
+//   values (rounded to bf16 after the RMS scale, then times the weight, as
+//   rms_norm) take the raw ones' place where the activations are staged,
+//   in the zero-point sums and in the weak-column steps.  The residual is
+//   added in the rank-order sum, before the one rounding, where K5 adds its
+//   bias.  (An earlier K1 ran on the CUDA cores, one block per 32 columns,
+//   each block re-staging the whole row: bound by dequantization and FMA
+//   issue.)
 //
 // qgemm (K2) replaces pallas_qmm.py::qgemm (_run_qmm / _qmm_kernel): the
 //   W4A16 GEMM for more rows (prefill, PPL windows, the training forward),
@@ -136,293 +113,7 @@ using namespace qeft;
 
 namespace {
 
-// ----------------------------------------------------------------- K1
-
-constexpr int kV_WARPS = 16;  // warps per block, splitting the word rows
-constexpr int kV_THREADS = kV_WARPS * 32;
-constexpr int kV_COLS = 32;   // output columns per block (one per lane)
-constexpr int kV_CHUNK = 16;  // word rows per unit of work
-constexpr uint32_t kBF16_128 = 0x43004300u;  // the bf16 pair (128, 128)
-
-// index of K-row k in packed-word order (word row r, nibble p -> r*8 + p)
-__device__ __forceinline__ int word_order(int k, int g, int hh, int n_groups) {
-  const int gi = k / g;
-  const int rem = k - gi * g;
-  const int p = rem / hh;
-  const int jj = rem - p * hh;
-  return (jj * n_groups + gi) * 8 + p;
-}
-
-// the low and high bf16 halves of a 32-bit word, as floats
-__device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
-
-// a unit of work: up to kV_CHUNK word rows of group gi of the staged band
-// from row j0 (j0 = hh marks an empty unit), with the group's scale and zero
-// point
-struct Unit {
-  uint32_t w[kV_CHUNK];
-  float s, z;
-  int gi, j0;
-};
-
-__device__ __forceinline__ void load_unit(Unit& u, int idx, int n_units, int cpg, int hh,
-                                          int n_groups, int g0, int N, int n, bool col_ok,
-                                          const int32_t* __restrict__ qw,
-                                          const bf16* __restrict__ sc,
-                                          const bf16* __restrict__ sz) {
-  const bool ok = col_ok && idx < n_units;
-  u.gi = ok ? idx / cpg : 0;
-  u.j0 = ok ? (idx - u.gi * cpg) * kV_CHUNK : hh;
-  const int gi = g0 + u.gi;  // the group's index in the whole row
-  u.s = ok ? bf2f(sc[(size_t)gi * N + n]) : 0.f;
-  u.z = ok ? bf2f(sz[(size_t)gi * N + n]) : 0.f;
-#pragma unroll
-  for (int t = 0; t < kV_CHUNK; ++t)
-    u.w[t] = (u.j0 + t < hh)
-                 ? (uint32_t)__ldg(qw + (size_t)((u.j0 + t) * n_groups + gi) * N + n)
-                 : 0u;
-}
-
-// acc[m] += s * sum_k h[m,k] * code_k + z * sum_k h[m,k] over the unit's rows;
-// hs holds rows of kb values in the staged band's word order, whose n_groups
-// is the band's group count GB
-template <int MT>
-__device__ __forceinline__ void compute_unit(const Unit& u, float (&acc)[MT], const bf16* hs,
-                                             const float* sumx, int kb, int n_groups, int hh) {
-  if (u.j0 >= hh) return;
-  float t0[MT], t1[MT];  // nibbles 0..3 and 4..7: two independent FMA chains
-#pragma unroll
-  for (int m = 0; m < MT; ++m) t0[m] = t1[m] = 0.f;
-#pragma unroll
-  for (int tt = 0; tt < kV_CHUNK; ++tt) {
-    if (u.j0 + tt >= hh) break;
-    const int base = ((u.j0 + tt) * n_groups + u.gi) * 8;
-    uint32_t pr[4];  // bf16 pairs (128 + code_q, 128 + code_{q+4})
-#pragma unroll
-    for (int q = 0; q < 4; ++q) pr[q] = ((u.w[tt] >> (4 * q)) & 0x000F000Fu) | kBF16_128;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      // activations base..base+7 as four bf16 pairs: nibble q in pair q/2
-      const uint4 hv = *reinterpret_cast<const uint4*>(hs + m * kb + base);
-      const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t a = hw[q >> 1], b = hw[2 + (q >> 1)];
-        const float ha = (q & 1) ? hi_bf16(a) : lo_bf16(a);
-        const float hb = (q & 1) ? hi_bf16(b) : lo_bf16(b);
-        t0[m] = fmaf(ha, lo_bf16(pr[q]), t0[m]);
-        t1[m] = fmaf(hb, hi_bf16(pr[q]), t1[m]);
-      }
-    }
-  }
-  const float z = u.z - 128.f * u.s;  // the codes above carry +128
-  const bool first = u.j0 == 0;      // the group's zero-point term, once
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-    acc[m] += u.s * (t0[m] + t1[m]) + (first ? z * sumx[m * n_groups + u.gi] : 0.f);
-}
-
-// the K1 prologue's value of one activation: rounded to bf16 after the RMS
-// scale, then multiplied by the norm weight (by 1 + w for gemma), as rms_norm
-__device__ __forceinline__ bf16 normed(bf16 v, bf16 w, float rs, int one_offset) {
-  const float nrm = bf2f(f2bf(bf2f(v) * rs));
-  float wl = bf2f(w);
-  if (one_offset) wl = bf2f(f2bf(1.f + wl));
-  return f2bf(nrm * wl);
-}
-
-// The row is staged in bands of GB quantization groups (K columns g0*g ..
-// (g0+GB)*g, contiguous in x): each band is written to shared memory in
-// band-local packed-word order, its units are consumed, and the accumulators
-// stay in registers across bands.  When the whole row fits, GB = K/g and
-// there is one band.  The weak-column tail x[:, K-R:] is staged once, in its
-// own buffer, before the bands.
-template <int MT>
-__global__ void __launch_bounds__(kV_THREADS)
-qgemv_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
-                   const int32_t* __restrict__ qw, const bf16* __restrict__ sc,
-                   const bf16* __restrict__ sz, const bf16* __restrict__ ow,
-                   const bf16* __restrict__ res, bf16* __restrict__ out, int K, int N, int g,
-                   int R, int GB, float eps, int one_offset) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_groups = K / g;
-  const int hh = g / 8;
-  const int k8 = K / 8;
-  const int kb = GB * g;                                        // K rows of one band
-  bf16* hs = reinterpret_cast<bf16*>(smem);                     // [MT][kb]
-  float* sumx = reinterpret_cast<float*>(hs + MT * kb);         // [MT][GB]
-  float* part = sumx + MT * GB;                                 // [WARPS][MT][COLS]
-  bf16* ts = reinterpret_cast<bf16*>(part + kV_WARPS * MT * kV_COLS);  // [MT][R]
-  __shared__ float red[32];
-  __shared__ float rstd[MT];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool norm = lnw != nullptr;
-
-  // 1. RMS statistics of each whole row (f32), as rms_norm computes them
-  if (norm) {
-    for (int m = 0; m < MT; ++m) {
-      const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)m * K);
-      float ss = 0.f;
-      for (int c = tid; c < k8; c += kV_THREADS) {
-        const uint4 v = __ldg(xr + c);
-        const bf162* h2 = reinterpret_cast<const bf162*>(&v);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 f = __bfloat1622float2(h2[q]);
-          ss = fmaf(f.x, f.x, ss);
-          ss = fmaf(f.y, f.y, ss);
-        }
-      }
-      ss = block_sum(ss, red);
-      if (tid == 0) rstd[m] = rsqrtf(ss / (float)K + eps);
-    }
-    __syncthreads();
-  }
-
-  // 2. the (normalised) weak-column tail, in original order
-  for (int idx = tid; idx < MT * R; idx += kV_THREADS) {
-    const int m = idx / R, k = K - R + (idx - m * R);
-    bf16 v = x[(size_t)m * K + k];
-    if (norm) v = normed(v, lnw[k], rstd[m], one_offset);
-    ts[idx] = v;
-  }
-
-  const int n = blockIdx.x * kV_COLS + lane;
-  const bool col_ok = n < N;
-  const int cpg = (hh + kV_CHUNK - 1) / kV_CHUNK;  // units per group
-  float acc[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-
-  for (int g0 = 0; g0 < n_groups; g0 += GB) {
-    const int gb = min(GB, n_groups - g0);  // groups of this band
-    const int c8 = gb * hh;                 // 8-column chunks of a row in this band
-    if (g0 > 0) __syncthreads();            // the previous band's units are done
-
-    // 3. the band's (normalised) rows into shared memory, in band-local
-    //    packed-word order; the value is rounded to bf16 before the weight
-    //    multiply, like rms_norm
-    for (int idx = tid; idx < MT * c8; idx += kV_THREADS) {
-      const int m = idx / c8, c = idx - m * c8;
-      const int kc = g0 * hh + c;  // the chunk's index in the whole row
-      const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K) + kc);
-      uint4 lv = make_uint4(0u, 0u, 0u, 0u);
-      if (norm) lv = __ldg(reinterpret_cast<const uint4*>(lnw) + kc);
-      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-      const bf16* le = reinterpret_cast<const bf16*>(&lv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        bf16 v = xe[e];
-        if (norm) v = normed(v, le[e], rstd[m], one_offset);
-        hs[m * kb + word_order(c * 8 + e, g, hh, GB)] = v;
-      }
-    }
-    __syncthreads();
-
-    // 4. per-group activation sums for the zero points
-    for (int pr = warp; pr < MT * gb; pr += kV_WARPS) {
-      const int m = pr / gb, gl = pr - m * gb;
-      float s = 0.f;
-      for (int t = lane; t < g; t += 32)
-        s += bf2f(hs[m * kb + word_order(gl * g + t, g, hh, GB)]);
-      s = warp_sum(s);
-      if (lane == 0) sumx[m * GB + gl] = s;
-    }
-    __syncthreads();
-
-    // 5. the band's matvec: warp `warp` takes units warp, warp + 16, ...
-    const int n_units = gb * cpg;
-    for (int idx = warp; idx < n_units; idx += kV_WARPS) {
-      Unit u;
-      load_unit(u, idx, n_units, cpg, hh, n_groups, g0, N, n, col_ok, qw, sc, sz);
-      compute_unit<MT>(u, acc, hs, sumx, kb, GB, hh);
-    }
-  }
-
-  // 6. weak columns: the staged tail; eight rows a warp in flight at once
-  if (ow != nullptr && col_ok) {
-    for (int i0 = warp; i0 < R; i0 += 8 * kV_WARPS) {
-      float o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int i = i0 + e * kV_WARPS;
-        o[e] = i < R ? bf2f(ow[(size_t)i * N + n]) : 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int i = i0 + e * kV_WARPS;
-        if (i >= R) break;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m] += bf2f(ts[m * R + i]) * o[e];
-      }
-    }
-  }
-
-  // 7. reduce the warps' partial sums, add the residual, store bf16
-#pragma unroll
-  for (int m = 0; m < MT; ++m) part[(warp * MT + m) * kV_COLS + lane] = acc[m];
-  __syncthreads();
-  for (int idx = tid; idx < MT * kV_COLS; idx += kV_THREADS) {
-    const int m = idx / kV_COLS, col = idx - m * kV_COLS;
-    const int nn = blockIdx.x * kV_COLS + col;
-    if (nn < N) {
-      float y = 0.f;
-      for (int wp = 0; wp < kV_WARPS; ++wp) y += part[(wp * MT + m) * kV_COLS + col];
-      if (res != nullptr) y += bf2f(res[(size_t)m * N + nn]);
-      out[(size_t)m * N + nn] = f2bf(y);
-    }
-  }
-}
-
-// the most dynamic shared memory a block may ask for (227 KB on Hopper), or
-// 0 if the device cannot be queried
-inline int smem_optin() {
-  static int bytes = 0;
-  if (bytes == 0) {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) == cudaSuccess &&
-        cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) == cudaSuccess)
-      bytes = v;
-  }
-  return bytes;
-}
-
-// groups per band: as many as fit under the limit (less 1 KB for the static
-// shared memory), balanced over the fewest bands; 0 if not one group fits
-template <int MT>
-int band_groups(int n_groups, int g, int R, size_t& smem) {
-  const size_t fixed = (size_t)kV_WARPS * MT * kV_COLS * sizeof(float) + (size_t)MT * R * sizeof(bf16);
-  const size_t per_group = (size_t)MT * (g * sizeof(bf16) + sizeof(float));
-  const size_t limit = (size_t)smem_optin();
-  if (limit < 1024 + fixed + per_group) return 0;
-  const int fit = (int)((limit - 1024 - fixed) / per_group);
-  const int bands = (n_groups + fit - 1) / fit;
-  const int gb = (n_groups + bands - 1) / bands;
-  smem = fixed + per_group * gb;
-  return gb;
-}
-
-template <int MT>
-cudaError_t launch_qgemv(const bf16* x, const bf16* lnw, const int32_t* qw, const bf16* sc,
-                         const bf16* sz, const bf16* ow, const bf16* res, bf16* out, int K,
-                         int N, int g, int R, float eps, int one_offset, cudaStream_t stream) {
-  size_t smem = 0;
-  const int gb = band_groups<MT>(K / g, g, R, smem);
-  if (gb == 0) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
-    cudaError_t e = cudaFuncSetAttribute(qgemv_fused_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid((N + kV_COLS - 1) / kV_COLS);
-  qgemv_fused_kernel<MT><<<grid, kV_THREADS, smem, stream>>>(x, lnw, qw, sc, sz, ow, res, out, K,
-                                                            N, g, R, gb, eps, one_offset);
-  return cudaGetLastError();
-}
-
-// ----------------------------------------------------------------- K6, K5
+// ------------------------------------------------------------ K1, K5, K6
 
 // A block is kD_WARPS warps over kD_BN output columns and a split of the
 // quantization groups (blockIdx.y, one block of a cluster of the splits).
@@ -440,6 +131,28 @@ constexpr int kD_UNIT = 8 * 32;     // staged bf16 of a unit: 8 token rows x 32 
 constexpr int kD_STEP_UNITS = 4;
 constexpr int kD_MAX_SPLITS = 8;     // the portable cluster size
 constexpr int kD_BLOCKS_PER_SM = 2;
+constexpr uint32_t kBF16_128 = 0x43004300u;  // the bf16 pair (128, 128)
+
+// the low and high bf16 halves of a 32-bit word, as floats
+__device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+__device__ __forceinline__ float round_bf16(float v) { return bf2f(f2bf(v)); }
+
+// K1's norm prologue on a bf16 pair of x and the pair of norm weights at the
+// same K rows: each value rounded to bf16 after the RMS scale, then
+// multiplied by its weight (by bf16(1 + w) for gemma) and rounded again, as
+// ops/qmm.py:rms_norm does it
+__device__ __forceinline__ uint32_t normed_pair(uint32_t x, uint32_t w, float rs,
+                                                int one_offset) {
+  float w0 = lo_bf16(w), w1 = hi_bf16(w);
+  if (one_offset) {
+    w0 = round_bf16(1.f + w0);
+    w1 = round_bf16(1.f + w1);
+  }
+  const bf162 r = __floats2bfloat162_rn(round_bf16(lo_bf16(x) * rs) * w0,
+                                        round_bf16(hi_bf16(x) * rs) * w1);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
 
 // The contraction order of the tensor-core decode matvec.  Element j (0..7)
 // of lane t's activation chunk of the unit at word row jj0 is K row
@@ -465,23 +178,30 @@ __device__ __forceinline__ uint32_t halves(uint32_t a, uint32_t b, bool hi) {
 }
 
 struct GemvArgs {
-  const bf16* x;       // [M, K]
+  const bf16* x;       // [M, K]: K1's raw residual when lnw is given
+  const bf16* lnw;     // [K] RMS-norm weight or null (K1)
   const int32_t* qw;   // [K/8, N], word row jj*G + gi
   const bf16* sc;      // [G, N]
   const bf16* sz;      // [G, N]
   const bf16* ow;      // [R, N] or null
-  const bf16* bias;    // [N] or null
+  const bf16* bias;    // [N] or null (K5)
+  const bf16* res;     // [M, N] residual or null (K1)
   bf16* out;           // [M, N]
   int M, K, N, R;
+  float eps;
+  int one_offset;      // gemma's norm: scale by 1 + lnw
 };
 
-template <int UPG>
+// NORM: K1 with its norm prologue (p.lnw given); K6 and K5 compile without it
+template <int UPG, bool NORM>
 __global__ void __launch_bounds__(kD_THREADS, kD_BLOCKS_PER_SM)
 qgemv_mma_kernel(const GemvArgs p) {
   constexpr int HH = UPG * 4, GROUP = HH * 8, GPB = kD_STEP_UNITS / UPG;
   __shared__ __align__(16) bf16 xs[kD_CHUNK * kD_UNIT];   // [unit][token][32], chunk order
   __shared__ __align__(8) float psum[kD_CHUNK * 8];       // [unit][token]: its 32 values
   __shared__ __align__(16) float red[8 * kD_BN];           // [token][column]
+  __shared__ float ssq[kD_WARPS * 8];                      // K1: [warp][token] sums of squares
+  __shared__ float rstd[8];                                // K1: [token]
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
 
@@ -528,19 +248,20 @@ qgemv_mma_kernel(const GemvArgs p) {
   //    the splits), loaded while the words are in flight and computed once
   //    the activations are staged
   const int R = p.R, weak_steps = p.ow != nullptr ? (R + 15) / 16 : 0;
-  const bf16* xt = p.x + (size_t)gid * K + (K - R);
-  auto xpair = [&](int i) -> uint32_t {  // x[gid, K-R+i .. +1] as a bf16 pair
-    if (gid >= M) return 0u;
-    const uint32_t lo = i < R ? __bfloat16_as_ushort(xt[i]) : 0u;
-    const uint32_t hi = i + 1 < R ? __bfloat16_as_ushort(xt[i + 1]) : 0u;
+  const int mp_log = M > 4 ? 3 : M > 2 ? 2 : M - 1, MP = 1 << mp_log;  // M to a power of two
+  auto pair = [&](const bf16* v, int i) -> uint32_t {  // v[i], v[i + 1] as a bf16 pair, 0 past R
+    const uint32_t lo = i < R ? __bfloat16_as_ushort(v[i]) : 0u;
+    const uint32_t hi = i + 1 < R ? __bfloat16_as_ushort(v[i + 1]) : 0u;
     return lo | (hi << 16);
   };
+  const bf16* xt = p.x + (size_t)gid * K + (K - R);  // x[gid, K-R:]
+  auto xpair = [&](int i) -> uint32_t { return gid < M ? pair(xt, i) : 0u; };
   auto orow = [&](int i) -> uint2 {  // oweight[i, n4 .. n4 + 3]
     return col_ok && i < R ? __ldg(reinterpret_cast<const uint2*>(p.ow + (size_t)i * N + n4))
                            : make_uint2(0u, 0u);
   };
   uint2 wr[4];  // oweight rows i0, i0 + 1, i0 + 8, i0 + 9 of step ws
-  uint32_t wb[2];
+  uint32_t wb[2], wl[2];  // x and (K1) lnw at K-R + i0 .. +1 and + i0 + 8 .. +9
   auto load_weak = [&](int ws) {
     const int i0 = ws * 16 + 2 * t;
     wr[0] = orow(i0);
@@ -549,31 +270,86 @@ qgemv_mma_kernel(const GemvArgs p) {
     wr[3] = orow(i0 + 9);
     wb[0] = xpair(i0);
     wb[1] = xpair(i0 + 8);
+    if constexpr (NORM) {
+      wl[0] = pair(p.lnw + (K - R), i0);
+      wl[1] = pair(p.lnw + (K - R), i0 + 8);
+    }
   };
   int ws = rank;
   if (ws < weak_steps) load_weak(ws);
+
+  // 2. K1's norm prologue, issued behind the first loads: every block sums
+  //    the squares of each whole token row itself (f32, from L2) in one
+  //    thread mapping and order, so all splits of a cluster scale by
+  //    bit-identical rstd with no cluster barrier
+  if constexpr (NORM) {
+    float ss[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      ss[m] = 0.f;
+      if (m >= M) continue;
+      const uint4* xr = reinterpret_cast<const uint4*>(p.x + (size_t)m * K);
+#pragma unroll 4
+      for (int c = tid; c < K / 8; c += kD_THREADS) {
+        const uint4 v = __ldg(xr + c);
+        const uint32_t e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ss[m] = fmaf(lo_bf16(e[q]), lo_bf16(e[q]), ss[m]);
+          ss[m] = fmaf(hi_bf16(e[q]), hi_bf16(e[q]), ss[m]);
+        }
+      }
+      ss[m] = warp_sum(ss[m]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) ssq[warp * 8 + m] = ss[m];
+    }
+    __syncthreads();
+    if (tid < 8) {
+      float v = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < kD_WARPS; ++wp) v += ssq[wp * 8 + tid];
+      rstd[tid] = rsqrtf(v / (float)K + p.eps);
+    }
+    __syncthreads();
+  }
 
   for (int c0 = gb0; c0 < gb1; c0 += kD_CHUNK / UPG) {
     const int c1 = min(gb1, c0 + kD_CHUNK / UPG);
     if (c0 > gb0) __syncthreads();  // the previous chunk's MMAs are done
 
-    // 2. the chunk's activations in MMA order, 16 bytes per (unit, token,
-    //    lane t), and each (unit, token)'s sum for the zero points
-    for (int idx = tid; idx < (c1 - c0) * UPG * 8; idx += kD_THREADS) {
-      const int u = idx >> 3, m = idx & 7, jj0 = 4 * (u % UPG);
+    // 3. the chunk's activations in MMA order (K1: normalised), 16 bytes
+    //    per (unit, token < M, lane t), and each (unit, token)'s sum for the
+    //    zero points, over (unit, token) pairs of MP tokens a unit, so that
+    //    one token row keeps every thread busy.  The slots of tokens past M
+    //    are never written: they feed only the MMA columns and the fold of
+    //    those tokens, whose results are never read
+    for (int idx = tid; idx < (c1 - c0) * UPG * MP; idx += kD_THREADS) {
+      const int u = idx >> mp_log, m = idx & (MP - 1), jj0 = 4 * (u % UPG);
+      if (m >= M) continue;
+      const size_t k0 = (size_t)(c0 + u / UPG) * GROUP;
       uint2 v[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        v[j] = m < M ? __ldg(reinterpret_cast<const uint2*>(
-                           p.x + (size_t)m * K + (size_t)(c0 + u / UPG) * GROUP +
-                           mma_k_row(HH, jj0, 0, j)))
-                     : make_uint2(0u, 0u);
+        v[j] = __ldg(reinterpret_cast<const uint2*>(p.x + (size_t)m * K + k0 +
+                                                    mma_k_row(HH, jj0, 0, j)));
+      if constexpr (NORM) {
+        const float rs = rstd[m];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint2 l =
+              __ldg(reinterpret_cast<const uint2*>(p.lnw + k0 + mma_k_row(HH, jj0, 0, j)));
+          v[j].x = normed_pair(v[j].x, l.x, rs, p.one_offset);
+          v[j].y = normed_pair(v[j].y, l.y, rs, p.one_offset);
+        }
+      }
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         sum += (lo_bf16(v[j].x) + hi_bf16(v[j].x)) + (lo_bf16(v[j].y) + hi_bf16(v[j].y));
-      psum[idx] = sum;
-      uint4* dst = reinterpret_cast<uint4*>(xs + (size_t)idx * 32);
+      psum[u * 8 + m] = sum;
+      uint4* dst = reinterpret_cast<uint4*>(xs + (size_t)(u * 8 + m) * 32);
 #pragma unroll
       for (int tt = 0; tt < 4; ++tt) {
         uint32_t c[4];
@@ -588,15 +364,21 @@ qgemv_mma_kernel(const GemvArgs p) {
     if (c0 == gb0) {
       // the weak-column steps, their loads issued before the staging
       for (; ws < weak_steps; ws += S) {
+        uint32_t b0 = wb[0], b1 = wb[1];
+        if constexpr (NORM) {
+          const float rs = gid < M ? rstd[gid] : 0.f;
+          b0 = normed_pair(b0, wl[0], rs, p.one_offset);
+          b1 = normed_pair(b1, wl[1], rs, p.one_offset);
+        }
         mma_bf16(acc[0], halves(wr[0].x, wr[1].x, false), halves(wr[0].x, wr[1].x, true),
-                 halves(wr[2].x, wr[3].x, false), halves(wr[2].x, wr[3].x, true), wb[0], wb[1]);
+                 halves(wr[2].x, wr[3].x, false), halves(wr[2].x, wr[3].x, true), b0, b1);
         mma_bf16(acc[1], halves(wr[0].y, wr[1].y, false), halves(wr[0].y, wr[1].y, true),
-                 halves(wr[2].y, wr[3].y, false), halves(wr[2].y, wr[3].y, true), wb[0], wb[1]);
+                 halves(wr[2].y, wr[3].y, false), halves(wr[2].y, wr[3].y, true), b0, b1);
         if (ws + S < weak_steps) load_weak(ws + S);
       }
     }
 
-    // 3. the warp's groups of the chunk, the next step's words in flight
+    // 4. the warp's groups of the chunk, the next step's words in flight
     for (; gi < c1; gi += GPB) {
       load(gi + GPB, w_next, s_next, z_next);
 #pragma unroll
@@ -650,8 +432,9 @@ qgemv_mma_kernel(const GemvArgs p) {
     }
   }
 
-  // 4. the splits' partial tiles, summed in rank order through the cluster's
-  //    shared memory; each block writes its share of the tile (+ bias), bf16
+  // 5. the splits' partial tiles, summed in rank order through the cluster's
+  //    shared memory; each block writes its share of the tile (+ K5's bias
+  //    or K1's residual) in bf16, rounded once
   const int cl = warp * 32 + 4 * gid;
 #pragma unroll
   for (int j = 0; j < 2; ++j)
@@ -665,46 +448,21 @@ qgemv_mma_kernel(const GemvArgs p) {
     float y = 0.f;
     for (int r = 0; r < S; ++r) y += cluster.map_shared_rank(red, r)[idx];
     if (p.bias != nullptr) y += bf2f(p.bias[nn]);
+    if (p.res != nullptr) y += bf2f(p.res[(size_t)m * N + nn]);
     p.out[(size_t)m * N + nn] = f2bf(y);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 0;
-  }
-  return n;
-}
-
-// splits of the groups: the largest power of two (at most the cluster size
-// and the group count) that keeps the grid within the blocks resident at once
-int gemv_splits(int tiles, int n_groups) {
-  const int cap = kD_BLOCKS_PER_SM * sm_count();
-  int s = 1;
-  while (2 * s <= kD_MAX_SPLITS && 2 * s <= n_groups && tiles * 2 * s <= cap) s *= 2;
-  return s;
-}
-
+// the groups split over a cluster of up to 8 blocks, at most two blocks an SM
 template <int UPG>
 cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
-  const int tiles = (a.N + kD_BN - 1) / kD_BN, splits = gemv_splits(tiles, a.K / (UPG * 32));
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles, splits);
-  cfg.blockDim = dim3(kD_THREADS);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = splits;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG>, a);
+  const int tiles = (a.N + kD_BN - 1) / kD_BN;
+  const int splits = k_splits(tiles, a.K / (UPG * 32), kD_MAX_SPLITS, kD_BLOCKS_PER_SM);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = split_cluster_config(tiles, splits, kD_THREADS, stream, &attr);
+  cudaError_t e = a.lnw != nullptr ? cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, true>, a)
+                                    : cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, false>, a);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -1208,71 +966,48 @@ __global__ void qgemm_reduce_kernel(const float* __restrict__ ws, const bf16* __
 
 namespace {
 
-// K1: layer `layer` of the stacked buffers, then the MT instance
-int run_qgemv(const void* x, const void* lnw, const void* qweight, const void* scales,
-              const void* szeros, const void* ow, const void* res, void* out, int layer, int M,
-              int K, int N, int g, int R, float eps, int one_offset, void* stream) {
-  if (M < 1 || M > 8 || K <= 0 || N <= 0 || g <= 0 || g % 8 || K % g || R < 0 || R > K ||
-      layer < 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t n_groups = K / g;
-  const int32_t* qw = static_cast<const int32_t*>(qweight) + (size_t)layer * (K / 8) * N;
-  const bf16* sc = static_cast<const bf16*>(scales) + (size_t)layer * n_groups * N;
-  const bf16* sz = static_cast<const bf16*>(szeros) + (size_t)layer * n_groups * N;
-  const bf16* o = ow ? static_cast<const bf16*>(ow) + (size_t)layer * R * N : nullptr;
-  const bf16* xx = static_cast<const bf16*>(x);
-  const bf16* ln = static_cast<const bf16*>(lnw);
-  const bf16* rs = static_cast<const bf16*>(res);
-  bf16* y = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (M) {
-#define QEFT_CASE(MT)                                                                     \
-  case MT:                                                                                \
-    return (int)launch_qgemv<MT>(xx, ln, qw, sc, sz, o, rs, y, K, N, g, o ? R : 0, eps, \
-                                 one_offset, st);
-    QEFT_CASE(1) QEFT_CASE(2) QEFT_CASE(3) QEFT_CASE(4)
-    QEFT_CASE(5) QEFT_CASE(6) QEFT_CASE(7) QEFT_CASE(8)
-#undef QEFT_CASE
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// K6 and K5: layer `layer` of the stacked buffers (0 for K5); group sizes 64
-// and 128, N a multiple of 4 (16-byte word loads)
-int run_gemv(const void* x, const void* qweight, const void* scales, const void* szeros,
-             const void* ow, const void* bias, void* out, int layer, int M, int K, int N, int g,
-             int R, void* stream) {
+// K1, K6 and K5: layer `layer` of the stacked buffers (0 for K5); group sizes
+// 64 and 128, N a multiple of 4 (16-byte word loads)
+int run_gemv(const void* x, const void* lnw, const void* qweight, const void* scales,
+             const void* szeros, const void* ow, const void* bias, const void* res, void* out,
+             int layer, int M, int K, int N, int g, int R, float eps, int one_offset,
+             void* stream) {
   if (M < 1 || M > 8 || K <= 0 || N <= 0 || N % 4 || (g != 64 && g != 128) || K % g || R < 0 ||
       R > K || layer < 0)
     return (int)cudaErrorInvalidValue;
   const size_t n_groups = K / g;
   const GemvArgs a{static_cast<const bf16*>(x),
+                   static_cast<const bf16*>(lnw),
                    static_cast<const int32_t*>(qweight) + (size_t)layer * (K / 8) * N,
                    static_cast<const bf16*>(scales) + (size_t)layer * n_groups * N,
                    static_cast<const bf16*>(szeros) + (size_t)layer * n_groups * N,
                    ow ? static_cast<const bf16*>(ow) + (size_t)layer * R * N : nullptr,
                    static_cast<const bf16*>(bias),
+                   static_cast<const bf16*>(res),
                    static_cast<bf16*>(out),
-                   M, K, N, ow ? R : 0};
+                   M, K, N, ow ? R : 0, eps, one_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(g == 128 ? launch_gemv<4>(a, st) : launch_gemv<2>(a, st));
 }
 
 }  // namespace
 
+// K1: one decoder stage of layer `layer` on the tensor-core template, with
+// the RMS norm of x (lnw given) and the residual (res given)
 extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* qweight,
                                    const void* scales, const void* szeros, const void* ow,
                                    const void* res, void* out, int layer, int M, int K, int N,
                                    int g, int R, float eps, int one_offset, void* stream) {
-  return run_qgemv(x, lnw, qweight, scales, szeros, ow, res, out, layer, M, K, N, g, R, eps,
-                   one_offset, stream);
+  return run_gemv(x, lnw, qweight, scales, szeros, ow, nullptr, res, out, layer, M, K, N, g, R,
+                  eps, one_offset, stream);
 }
 
 // K6: the tensor-core decode matvec of layer `layer`, weak columns inside
 extern "C" int qgemv_stacked(const void* x, const void* qweight, const void* scales,
                              const void* szeros, const void* ow, void* out, int layer, int M,
                              int K, int N, int g, int R, void* stream) {
-  return run_gemv(x, qweight, scales, szeros, ow, nullptr, out, layer, M, K, N, g, R, stream);
+  return run_gemv(x, nullptr, qweight, scales, szeros, ow, nullptr, nullptr, out, layer, M, K, N,
+                  g, R, 0.f, 0, stream);
 }
 
 // K5: K6's kernel on one unstacked linear, with an optional bias [N] added
@@ -1280,7 +1015,8 @@ extern "C" int qgemv_stacked(const void* x, const void* qweight, const void* sca
 extern "C" int qgemv(const void* x, const void* qweight, const void* scales, const void* szeros,
                      const void* ow, const void* bias, void* out, int M, int K, int N, int g,
                      int R, void* stream) {
-  return run_gemv(x, qweight, scales, szeros, ow, bias, out, 0, M, K, N, g, R, stream);
+  return run_gemv(x, nullptr, qweight, scales, szeros, ow, bias, nullptr, out, 0, M, K, N, g, R,
+                  0.f, 0, stream);
 }
 
 // bm: rows of a block (64 or 128); ws: f32 [splits, M, N] scratch when

@@ -105,8 +105,8 @@ _ENTRY_POINTS = {
         _P,  # stream
     ]),
     "gemv_ablation": ("probes.cu", [
-        _P, _P, _P, _P, _P, _P,  # x qw s out workspace tickets
-        _I, _I, _I, _I, _I, _I,  # K8 N G bn rows_per_block variant
+        _P, _P, _P, _P,  # x qw s out
+        _I, _I, _I, _I, _I,  # K8 N G bn variant
         _P,  # stream
     ]),
 }

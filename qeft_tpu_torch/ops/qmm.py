@@ -8,11 +8,13 @@ Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
   qgemv_stacked_fused``: one decoder stage for at most `DECODE_MAX_TOKENS`
   rows -- optional RMS norm of the raw residual, the INT4 matvec over all K
   rows, the weak-column slab, optional residual add -- reading layer
-  ``layer`` straight out of the stacked ``[L, ...]`` buffers.
+  ``layer`` straight out of the stacked ``[L, ...]`` buffers: K6's kernel
+  with the norm as its prologue and the residual in its epilogue.
 - `qgemv_stacked` replaces ``pallas_qmm.py::qgemv_stacked``: the same
   matvec of layer ``layer`` with its weak-column slab, without the norm and
   the residual, on the tensor cores (``mma.sync``, the packed codes as A
   operands as they stand, in the contraction order `mma_k_row`).
+  K1, K5 and K6 take group sizes 64 and 128 and N a multiple of 4.
 - `qgemv` replaces ``pallas_qmm.py::qgemv``: the decode matvec of one
   unstacked linear, its weak-column slab and an optional bias, rounded once
   (K6's kernel at layer 0 with the bias in its epilogue) -- every linear of

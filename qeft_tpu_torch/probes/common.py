@@ -89,14 +89,12 @@ def tickets(device, n_cols: int) -> torch.Tensor:
     return workspace(device, -(-n_cols // 128), torch.int32)
 
 
-def row_split(rows: int, tiles: int, device, multiple: int = 1, most: int = 1 << 30) -> int:
+def row_split(rows: int, tiles: int, device, multiple: int = 1) -> int:
     """Rows a block takes, so that ``tiles`` column tiles times the row
-    splits give about four blocks an SM, in a multiple of ``multiple`` and
-    at most ``most``."""
+    splits give about four blocks an SM, in a multiple of ``multiple``."""
     splits = max(1, min(rows, -(-4 * cuda_lib.sm_count(device) // tiles)))
     per = -(-rows // splits)
-    per = -(-per // multiple) * multiple
-    return max(multiple, min(per, most - most % multiple))
+    return max(multiple, -(-per // multiple) * multiple)
 
 
 def check_int32_words(qw: torch.Tensor) -> None:

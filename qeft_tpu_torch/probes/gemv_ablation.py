@@ -21,10 +21,15 @@ the telescoped ones compute the wrong product on purpose (timing only):
   plane, against ``a_p = x_p - 16 x_{p-1}`` -- exact, the same product as
   ``v6_f32dot``.
 
-The plain version repeats each variant's arithmetic in PyTorch; the kernel
-(``csrc/probes.cu``) sums in another order, so the bf16 outputs agree within
-1e-2 of their scale.  `measure` also times the port's own matvec K6
-(``ops.qmm.qgemv_stacked``, M = 8) at the same shapes on its own layout.
+The kernel (``csrc/probes.cu``) builds the bf16 variants' weights on the
+CUDA cores and runs their dots on the tensor cores (``mma.sync``), the f32
+variants as FMAs on the CUDA cores, and sums its K splits in rank order (two
+calls are bit-identical).  The plain version repeats each variant's
+arithmetic in PyTorch; the kernel sums in another order, so the bf16
+outputs agree within 1e-2 of their scale.  `measure` also times the port's
+own matvecs at the same shapes on their own layout: K6
+(``ops.qmm.qgemv_stacked``, M = 8) and K1 (``ops.qmm.qgemv_stacked_fused``,
+M = 8; down with a residual, qkv with the norm).
 
     python -m qeft_tpu_torch.probes.gemv_ablation [--device cpu]
 """
@@ -43,7 +48,6 @@ VARIANTS = ("v0_full", "v1_noscale", "v2_4plane", "v3_2plane", "v4_dma", "v5_nos
 SHAPES = (("down 11008->4096", 11008, 4096, 128, 512), ("qkv 4096->12288", 4096, 12288, 128, 512))
 M = 8  # activation rows (the script's bm)
 TOL = 1e-2  # of the output's scale: bf16 outputs of sums in another order
-MAX_ROWS_PER_BLOCK = 192  # the kernel's staged activations stay under 48 KB
 
 
 def _codes(variant: str, qw: torch.Tensor):
@@ -110,13 +114,12 @@ def gemv_ablation(variant: str, x: torch.Tensor, qw: torch.Tensor, s: torch.Tens
         raise ValueError(f"s must be float32 [G, {n}] with G dividing {k8}")
     if not 1 <= bn <= 8 * k8 or n % bn:
         raise ValueError(f"bn {bn} must divide N = {n} and be at most K")
+    if k8 % 8:
+        raise ValueError(f"K/8 = {k8} must be a multiple of 8 (units of 8 word rows)")
     x, s = cuda_lib.aligned(x), cuda_lib.aligned(s)
     out = torch.empty(M, n, dtype=torch.bfloat16, device=x.device)
-    ws = common.workspace(x.device, M * n, torch.float32)
-    rpb = common.row_split(k8, -(-n // 128), x.device, most=MAX_ROWS_PER_BLOCK)
     cuda_lib.launch("gemv_ablation", cuda_lib.ptr(x), cuda_lib.ptr(qw), cuda_lib.ptr(s),
-                    cuda_lib.ptr(out), cuda_lib.ptr(ws), cuda_lib.ptr(common.tickets(x.device, n)),
-                    k8, n, g_rows, bn, rpb, VARIANTS.index(variant))
+                    cuda_lib.ptr(out), k8, n, g_rows, bn, VARIANTS.index(variant))
     return out
 
 
@@ -142,8 +145,10 @@ def measure(device, shapes=SHAPES, seed: int = 0) -> dict:
     """At each shape: every variant against its plain version, timed hot
     (one buffer, as the script runs it) and cold (rotating over copies);
     the plain version of ``v0_full`` and ``torch.matmul`` on its
-    pre-dequantized weight; K6 at M = 8 on the port's layout, hot and cold
-    (layers of one stacked linear)."""
+    pre-dequantized weight; K6 and K1 at M = 8 on the port's layout, hot
+    and cold (layers of one stacked linear), K1 with the residual at the
+    down shape and the norm at the qkv shape, as the decode layer runs
+    them."""
     from qeft_tpu_torch.ops import qmm
     from qeft_tpu_torch.testing import random_packed_linear
 
@@ -157,7 +162,10 @@ def measure(device, shapes=SHAPES, seed: int = 0) -> dict:
         res = {"K": k, "N": n, "g": g, "bn": bn, "bytes": nbytes, "copies": n_cp,
                "bound_ms": common.bound_ms(nbytes, 2 * M * k * n)[0]}
         for v in VARIANTS:
-            err = check(gemv_ablation(v, x, qw, s, bn), gemv_ablation_plain(v, x, qw, s, bn))
+            got = gemv_ablation(v, x, qw, s, bn)
+            err = check(got, gemv_ablation_plain(v, x, qw, s, bn))
+            if not torch.equal(gemv_ablation(v, x, qw, s, bn), got):
+                raise AssertionError(f"{v}: a second call on the same inputs differs")
             t = common.hot_cold(lambda c: gemv_ablation(v, x, c[0], c[1], bn), copies)
             t["max_abs_err"] = err
             t["cold_GBps"] = qw.numel() * 4 / (t["cold_ms"] * 1e-3) / 1e9
@@ -179,6 +187,17 @@ def measure(device, shapes=SHAPES, seed: int = 0) -> dict:
              "bytes": k6_bytes + x.numel() * 2 + M * n * 2}
         t["bound_ms"] = common.bound_ms(t["bytes"], 2 * M * (k + 128) * n)[0]
         res["k6"] = t
+        if label.startswith("down"):
+            kw = {"residual": x[:, :n].contiguous()}
+        else:
+            kw = {"lnw": x[0] + 1.0}
+        extra = sum(v.numel() * 2 for v in kw.values())
+        t = {"hot_ms": common.time_ms(lambda i: qmm.qgemv_stacked_fused(x, lin, 0, **kw)),
+             "cold_ms": common.time_ms(
+                 lambda i: qmm.qgemv_stacked_fused(x, lin, i % layers, **kw)),
+             "bytes": res["k6"]["bytes"] + extra, "with": next(iter(kw))}
+        t["bound_ms"] = common.bound_ms(t["bytes"], 2 * M * (k + 128) * n)[0]
+        res["k1"] = t
         del lin, copies
         out[label] = res
     return out
@@ -200,9 +219,11 @@ def main(argv=None) -> dict:
             t = r[v]
             print(f"{v:11s}: hot {t['hot_ms'] * 1e3:7.1f} us, cold {t['cold_ms'] * 1e3:7.1f} us "
                   f"({t['cold_GBps']:.0f} GB/s of words)", flush=True)
-        print(f"K6 qgemv_stacked M=8: hot {r['k6']['hot_ms'] * 1e3:.1f} us, cold "
-              f"{r['k6']['cold_ms'] * 1e3:.1f} us (bound {r['k6']['bound_ms'] * 1e3:.2f} us); "
-              f"torch.matmul on the dequantized weight {r['library_ms'] * 1e3:.1f} us", flush=True)
+        for key, name in (("k6", "K6 qgemv_stacked"), ("k1", "K1 qgemv_stacked_fused")):
+            print(f"{name} M=8: hot {r[key]['hot_ms'] * 1e3:.1f} us, cold "
+                  f"{r[key]['cold_ms'] * 1e3:.1f} us (bound {r[key]['bound_ms'] * 1e3:.2f} us)",
+                  flush=True)
+        print(f"torch.matmul on the dequantized weight {r['library_ms'] * 1e3:.1f} us", flush=True)
     res = {"device": torch.cuda.get_device_name(device), "shapes": res}
     common.report(res)
     return res

@@ -13,10 +13,11 @@ and bit-identical calls; K3 on the engine's W = 1 rows and on an S = 512
 window without a cache, and the rows of windows past 128 rows (four-warp
 blocks) bit-identical to W = 1 windows; the unstacked
 decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes, every M from 1
-to 8, with and without a bias; K5 and K6 one launch a call and bit-identical
-from call to call; the autograd linear's K5 / K2 dispatch with
-``reorder_ids``; K1 (staged in bands) and K6 at eight rows of K up to
-28,672; and the wrappers' refusals.  They need an NVIDIA GPU and ``nvcc``
+to 8, with and without a bias; K1 (norm and residual), K5 and K6 one launch
+a call and bit-identical from call to call; the autograd linear's K5 / K2
+dispatch with ``reorder_ids``; K1 and K6 at eight rows of K up to 28,672;
+P4's variants bit-identical from call to call; and the wrappers'
+refusals.  They need an NVIDIA GPU and ``nvcc``
 and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -301,6 +302,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         qmm.qgemm_t(_randn(gen, 4, 64), _packed(gen, 1, 256, 64, 8, 0).layer(0))
     with pytest.raises(RuntimeError):  # group size 32 likewise, in K2 too
         qmm.qgemm(_randn(gen, 16, 256), _packed(gen, 1, 256, 64, 32, 0).layer(0))
+    with pytest.raises(RuntimeError):  # and in K1, which shares K6's kernel
+        qmm.qgemv_stacked_fused(_randn(gen, 1, 256), _packed(gen, 2, 256, 64, 32, 0), 0,
+                                lnw=_randn(gen, 256), residual=_randn(gen, 1, 64))
     with pytest.raises(IndexError):
         attention.decode_attention(_randn(gen, 1, 4, 64), _randn(gen, 1, 4, 8, 64),
                                    _randn(gen, 1, 4, 8, 64), 8)
@@ -396,8 +400,8 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
 @pytest.mark.parametrize("k", [13824, 16384, 18176, 28672])
 def test_decode_matvecs_at_eight_rows_of_wide_k(gen, k):
     """K1 (norm and residual) and K6 at M = 8 where eight whole rows need
-    more than the 227 KB of shared memory a block may have: K1 stages the
-    row in bands of groups, K6 its split's K range in chunks."""
+    more than the 227 KB of shared memory a block may have: both stage
+    their split's K range in chunks of 64 units."""
     n = 96
     p = _packed(gen, 2, k, n, 128, 128)
     x = _randn(gen, 8, k)
@@ -502,12 +506,19 @@ def test_unstacked_decode_matvec_refuses_what_it_does_not_take(gen):
     (4544, 4672, 64, 128),
 ])
 def test_decode_matvecs_bit_identical_and_one_launch(gen, m, k, n, g, r):
-    """K6 and K5 (with a bias): each call one launch, and a second call on
-    the same inputs bit-identical (the splits are summed in rank order)."""
+    """K6, K5 (with a bias) and K1 (with the norm and the residual): each
+    call one launch, and a second call on the same inputs bit-identical (the
+    splits are summed in rank order, and every split takes the same rstd)."""
     p = _packed(gen, 2, k, n, g, r)
     x = _randn(gen, m, k)
     lin = dataclasses.replace(p.layer(1), bias=_randn(gen, n, scale=0.5))
+    lnw = (1.0 + _randn(gen, k, scale=0.1).float()).to(torch.bfloat16)
+    kw = dict(lnw=lnw, residual=_randn(gen, m, n, scale=4.0), eps=1e-5)
+    fused = qmm.qgemv_stacked_fused(x, p, 1, **kw)
+    _close(fused, qmm.qgemv_stacked_fused_plain(_f32(x), _f32(p), 1, lnw=_f32(lnw),
+                                                residual=_f32(kw["residual"]), eps=1e-5))
     for name, call in (("qgemv_stacked", lambda: qmm.qgemv_stacked(x, p, 1)),
+                       ("qgemv_stacked_fused", lambda: qmm.qgemv_stacked_fused(x, p, 1, **kw)),
                        ("qgemv", lambda: qmm.qgemv(x, lin))):
         before = cuda_lib.launches[name]
         first = call()
@@ -577,6 +588,21 @@ def test_probe_gemv_ablation(gen, k, n, g, bn):
             err = (got.float() - want.float()).abs().max().item()
             assert torch.isfinite(got.float()).all()
             assert err <= RTOL * want.float().abs().max().item(), (v, err)
+
+
+def test_probe_gemv_ablation_bit_identical(gen):
+    """P4's splits are summed in rank order through the cluster: two calls
+    of every variant on the same inputs at the down shape are equal bit for
+    bit, and each is one launch."""
+    from qeft_tpu_torch.probes import gemv_ablation as p4
+
+    x, qw, s = p4.random_inputs(11008, 4096, 128, seed=1, device="cuda")
+    for v in p4.VARIANTS:
+        before = cuda_lib.launches["gemv_ablation"]
+        first = p4.gemv_ablation(v, x, qw, s, 512)
+        torch.cuda.synchronize()
+        assert cuda_lib.launches["gemv_ablation"] == before + 1, v
+        assert torch.equal(p4.gemv_ablation(v, x, qw, s, 512), first), v
 
 
 @pytest.mark.parametrize("pos", [0, 255, 256, 4095])
