@@ -17,7 +17,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    P4 alone, after device and build, on random weights, and prints its rows
    without launch counts);
 5. attention: K3 at the S = 64 prefill, the engine's W = 1 windows (B = 8,
-   positions 64..191, 200 slots) and an S = 512 window without a cache; K4,
+   positions 64..191, 200 slots) and windows of S = 512, 2048 (calibration)
+   and 4096 (llama2-7b's eval window) without a cache; K4,
    K4q and K8 at the main path's last position, each with its SDPA
    yardstick timed hot (one layer's cache) and rotating over a 32-layer
    cache; K4, K4q and K8 each one CUDA kernel a call in the profiler
@@ -79,7 +80,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 23. family kernels: K5 (the unstacked decode matvec) against its plain version
    at the six OPT-6.7B stage shapes, M = 1 and 8, with and without bias,
    timed beside its bound and ``torch.addmm`` on a pre-dequantized weight;
-   every linear of layer 0 with its bias through K5 (M = 1) and K2 (M = 64);
+   K5 on a round-to-nearest packed llama2-7b lm_head (4096 -> 32000, M = 1
+   and 8) beside ``torch.mm``; every linear of layer 0 with its bias through K5 (M = 1) and K2 (M = 64);
    K1 and K6 at M = 8 for K = 13,824, 16,384 and 28,672 (28,672: two
    staging chunks a split);
 24. opt: ``generate`` -- prefill 64 + 256 greedy over a 320-slot bf16 cache --
@@ -92,7 +94,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    against the plain versions; prefill 64 + 32 greedy each, launch counts
    and the dense-model oracle;
 26. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
-   ``run_benchmark --method qeft --load`` as subprocesses.
+   ``run_benchmark --method qeft --load`` as subprocesses;
+27. quantize: QEFT's quantizer at full Llama-2-7B width, 4 layers of random
+   bf16 weights built on the card: extraction (r = 128) and GPTQ-OWQ with
+   the global reorder (w4, g = 128, MSE grid) on 32 synthetic crops of
+   2048 tokens, K3 in every calibration forward (launches checked);
+   save_fake, pack_model (fused stages), save_packed and both loads, bit
+   for bit; the reference's oracle, fake-quant PPL against packed PPL (2
+   windows of 2048, relative delta within 0.1 %), teacher-forced logits of
+   the packed model against the fake one, and ``generate`` (64 + 256) from
+   the packed checkpoint through the graph, tokens equal to the eager
+   loop's, with the dense head (K1-K4) and with QEFT_QUANT_LMHEAD=1 (K5
+   for the head); seconds for extraction, each block and packing, and the
+   phase's peak device memory;
+28. quantize cli: ``extract_outidx``, ``main`` quantizing with ``--fake
+   --packing --save`` and its fake-vs-packed oracle, ``convert`` and ``main
+   --load --eval --benchmark`` as subprocesses on ``tiny-v2``.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON table sums its paths (by
@@ -140,6 +157,16 @@ K1_STAGES = (("qkv", True, False), ("o", False, True), ("upgate", True, False),
 FAMILY_RUNS = (("phi", "phi-2", 128, True), ("bloom", "bloom-7b1", 128, False),
                ("falcon", "falcon-7b", 64, True))
 FAMILY_LAYERS, FAMILY_NEW = 2, 32
+# K3 windows without a cache: eval_ppl at 512, the calibration length, llama2-7b's context
+FULL_WINDOWS = (512, 2048, 4096)
+# the quantize phase: llama2-7b at full width, its depth cut to QUANT_LAYERS;
+# QUANT_SAMPLES calibration crops of QUANT_SEQ tokens, the oracle over
+# QUANT_EVAL_WINDOWS windows of QUANT_SEQ; PPL_RTOL bounds the relative
+# fake-vs-packed PPL delta (the reference's oracle; it recorded 0.04 % at 13B)
+QUANT_PRESET, QUANT_LAYERS, QUANT_SAMPLES, QUANT_SEQ, QUANT_EVAL_WINDOWS = (
+    "llama2-7b", 4, 32, 2048, 2)
+PPL_RTOL = 1e-3
+QUANT_CLI_PRESET = "tiny-v2"
 PATH_LAUNCHES: dict = {}  # launch counts of each main path, by path
 
 
@@ -545,8 +572,8 @@ def phase_attention_kernels(cfg, bw, rows):
             f"{plain * 1e3:.1f} us, SDPA (boolean mask) {lib * 1e3:.2f} us, bound "
             f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
 
-    s_full = 512
-    for label, h, kvh in (("heads 32/32", hq, hkv), ("GQA heads 32/8", 32, 8)):
+    for s_full, label, h, kvh in ((s, *c) for s in FULL_WINDOWS
+                                  for c in (("heads 32/32", hq, hkv), ("GQA heads 32/8", 32, 8))):
         q = randn(1, s_full, h, dh)
         kc, vc = randn(1, kvh, s_full, dh), randn(1, kvh, s_full, dh)
         err = check(f"K3 S={s_full} full window, no cache, {label}",
@@ -563,11 +590,13 @@ def phase_attention_kernels(cfg, bw, rows):
         lib = time_ms(lambda i: sdpa(qh, kh, vh, is_causal=True))
         nbytes = 2 * (2 * s_full * h * dh + 2 * kvh * s_full * dh)
         b = bound_ms(nbytes, 4 * h * dh * s_full * (s_full + 1) // 2)
-        k3.d.update(s512_ms=ms, s512_plain_ms=plain, s512_library_ms=lib, s512_bound_ms=b[0])
+        k3.d.update({f"s{s_full}_ms": ms, f"s{s_full}_plain_ms": plain,
+                     f"s{s_full}_library_ms": lib, f"s{s_full}_bound_ms": b[0]})
         log(f"    S={s_full}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, SDPA "
             f"(causal) {lib * 1e3:.2f} us, bound {b[0] * 1e3:.2f} us ({b[1]})")
     k3.d["per"] = (f"one prefill layer, S={PROMPT}, {CACHE} slots (w1_*: the engine's W=1 windows, "
-                   f"B={ENGINE_SLOTS}, {slots} slots; s512_*: an S=512 window without a cache)")
+                   f"B={ENGINE_SLOTS}, {slots} slots; s512_*, s2048_*, s4096_*: a window without "
+                   "a cache, as eval_ppl and the quantization's calibration forwards run it)")
 
     # ---- K4
     log("[attention] K4 decode_attention vs plain")
@@ -1869,6 +1898,30 @@ def phase_family_kernels(cfg, params, bw, rows):
         for m, r in ((1, k5), (8, k5_m8))))
     _check_layer0("opt-6.7b", layers, rows)
 
+    from qeft_tpu_torch.pipeline import rtn_pack_linear
+
+    k, n = 4096, 32000
+    log(f"[family-kernels] K5 on the packed lm_head of llama2-7b ({k} -> {n}, round-to-nearest "
+        "g=128, no weak columns: QEFT_QUANT_LMHEAD), M in (1, 8)")
+    head = rtn_pack_linear(torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5)
+    w = dense_linear(head.map(lambda t: t[None]))[0]
+    for m in (1, 8):
+        x = randn(m, k)
+        err = check(f"K5 lm_head {k}->{n} M={m}", qmm.qgemv(x, head),
+                    qmm.qgemv_plain(f32(x), f32(head)))
+        ms = time_ms(lambda i: qmm.qgemv(x, head))
+        plain = time_ms(lambda i: qmm.qgemv_plain(x, head), inner=2, reps=3)
+        lib = time_ms(lambda i: torch.mm(x, w))
+        nbytes = k * n // 2 + 4 * (k // 128) * n + 2 * m * (k + n)
+        b = bound_ms(nbytes, 2 * m * k * n)
+        k5.d["max_abs_err"] = max(k5.d["max_abs_err"], err)
+        k5.d.update({f"head_m{m}_ms": ms, f"head_m{m}_plain_ms": plain,
+                     f"head_m{m}_library_ms": lib, f"head_m{m}_bound_ms": b[0]})
+        log(f"    M={m}: kernel {ms * 1e3:.1f} us ({b[0] / ms:.1%} of the bound), plain "
+            f"{plain * 1e3:.1f} us, torch.mm on the dequantized weight {lib * 1e3:.1f} us, bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+    del head, w
+
     n = 4096
     log(f"[family-kernels] K1 and K6 at M=8, N={n}, K up to 28,672")
     for k in WIDE_K:
@@ -2042,6 +2095,255 @@ def phase_family_cli(cfg):
     return out
 
 
+def _expect(label, counts, want):
+    log(f"[quantize] {label}: launches {counts}; expected {want}")
+    if counts != want:
+        raise AssertionError(f"{label}: did not launch each kernel as expected")
+
+
+def _quantize_breakdown(dense, calib, cfg, meta, args):
+    """Where a block's quantization time goes (block 0, host clock to a
+    synchronisation): its calibration forwards (all four Hessians, and the
+    re-forward), the GPTQ column loop of each linear with its group re-fits
+    (`gptq_quantize`), one group's MSE grid and the Frobenius weighting of o
+    and down."""
+    from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.quant import gptq, outliers, quantizer
+
+    def timed_s(fn):
+        torch.cuda.synchronize()
+        tick = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - tick, res
+
+    blk = {k: v[0] for k, v in pl._member_layers(dense, cfg, meta).items()}
+    inps = pl._embed_tokens(dense["embed"], torch.as_tensor(calib, device="cuda"), cfg)
+    t = {}
+    t["hessian forward"], (_, hs) = timed_s(lambda: pl.block_hessians(blk, inps, cfg, meta))
+    t["re-forward"], _ = timed_s(lambda: pl.block_forward_batch(blk, inps, cfg, meta))
+    num = 40
+    for name in meta.all_linears:
+        h = hs[pl._stage_of(meta, name)] * (2.0 / args.nsamples)
+        w = blk[name].t().float()
+        ids, out_ids = outliers.hessian_sort_ids(torch.diagonal(h), 128)
+        t[f"gptq {name}"], _ = timed_s(lambda: gptq.gptq_quantize(w, h, args.spec, ids, out_ids,
+                                                                   num=num))
+        if name in meta.out + meta.ffn2:
+            t[f"frobenius {name}"], _ = timed_s(
+                lambda: outliers.frob_norm_error(w, args.spec, num=num))
+    group = blk["up"].t()[:, :128].float()
+    t["one mse group of up"], _ = timed_s(lambda: quantizer.find_params(group, args.spec, num))
+    total = sum(v for k, v in t.items() if not k.startswith("one"))
+    log(f"[quantize] block 0's time by step (seconds; the GPTQ of a linear includes its group "
+        f"re-fits): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items()) + f"; sum {total:.2f}")
+    return t
+
+
+def phase_quantize():
+    """QEFT's own quantizer at full Llama-2-7B width: a random bf16 model of
+    QUANT_LAYERS layers built on the card, OGR extraction (r = 128), GPTQ-OWQ
+    with the global reorder (w4, g = 128, MSE grid) on QUANT_SAMPLES
+    synthetic crops of QUANT_SEQ tokens (K3 in every calibration forward),
+    save_fake, pack_model (stages fused), save_packed and both loads; then
+    the reference's oracle -- fake-quant PPL against packed PPL, relative
+    delta within PPL_RTOL -- teacher-forced logits of the packed model
+    against the fake one (ORACLE_RTOL of the fake logits' scale), and
+    ``generate`` (64 + 256) from the packed checkpoint through the graph,
+    tokens equal to the eager loop's, with the dense head and with
+    QEFT_QUANT_LMHEAD=1 (K5 for the head)."""
+    from qeft_tpu_torch import checkpoint as ckpt
+    from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.data import get_calibration_tokens, get_loaders
+    from qeft_tpu_torch.eval import eval_ppl
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.main import _eval_api, load_for_serving
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.llama import LLAMA_PRESETS, init_params
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.ops.packing import QLinearParams
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+    from qeft_tpu_torch.testing import dense_model
+
+    cfg = dataclasses.replace(LLAMA_PRESETS[QUANT_PRESET], num_layers=QUANT_LAYERS)
+    meta, api = get_model_meta("llama"), get_model_api("llama")
+    n_layers, out = cfg.num_layers, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dense = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    calib = get_calibration_tokens("synthetic", QUANT_SAMPLES, 0, QUANT_SEQ,
+                                   vocab_size=cfg.vocab_size)
+    args = pl.QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=True, group_size=128),
+                           target_rank=128, nsamples=QUANT_SAMPLES, no_frob_norm=True)
+    log(f"[quantize] random bf16 {QUANT_PRESET} at {n_layers} layers (full width) on the card; "
+        f"calibration {QUANT_SAMPLES} x {QUANT_SEQ} synthetic tokens; extraction r=128 (no "
+        "Frobenius weighting), then GPTQ-OWQ w4 g128 MSE with the global reorder")
+    k3 = n_layers * QUANT_SAMPLES  # one calibration forward of every block over every sample
+    with counted("quantize extract") as c:
+        tick = time.perf_counter()
+        outidx, _ = pl.extract_global_outidx(dense, calib, cfg, meta, args)
+        torch.cuda.synchronize()
+        out["extract_s"] = time.perf_counter() - tick
+    _expect("extraction", c.counts, {"flash_window_attention": k3})
+    args.no_frob_norm = False  # the quantize step weights o and down by their Frobenius error
+    with counted("quantize calibration") as c:
+        tick = time.perf_counter()
+        fake, states = pl.quantize_model(dense, calib, cfg, meta, args, outidx)
+        torch.cuda.synchronize()
+        out["quantize_s"] = time.perf_counter() - tick
+    _expect("GPTQ calibration (Hessian forward + re-forward of each block)", c.counts,
+            {"flash_window_attention": 2 * k3})
+    log(f"[quantize] extraction {out['extract_s']:.1f} s, quantization {out['quantize_s']:.1f} s "
+        f"({out['quantize_s'] / n_layers:.1f} s a block; each block's seconds printed above)")
+    out["block_breakdown_s"] = _quantize_breakdown(dense, calib, cfg, meta, args)
+    del dense
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fake_path, packed_path = os.path.join(tmp, "q_fake"), os.path.join(tmp, "q_packed")
+        ckpt.save_fake(fake_path, fake, states, cfg)
+        tick = time.perf_counter()
+        packed = pl.pack_model(fake, states, cfg, meta, fuse_stages=True)
+        torch.cuda.synchronize()
+        out["pack_s"] = time.perf_counter() - tick
+        ckpt.save_packed(packed_path, packed, cfg)
+        loaded, _, _ = ckpt.load_model(fake_path, device="cuda")
+        served, _, _ = load_for_serving(packed_path, "cuda")
+        with environ(QEFT_QUANT_LMHEAD="1"):
+            served_head, _, _ = load_for_serving(packed_path, "cuda")
+        sizes = {k: os.path.getsize(p + ".npz") for k, p in (("fake", fake_path),
+                                                              ("packed", packed_path))}
+    if not all(torch.equal(loaded["layers"][k], v) for k, v in fake["layers"].items()):
+        raise AssertionError("the fake checkpoint did not load back bit for bit")
+    if not all(torch.equal(getattr(served["layers"][k], f), getattr(v, f))
+               for k, v in packed["layers"].items() if isinstance(v, QLinearParams)
+               for f in ("qweight", "scales", "scaled_zeros", "oweight")):
+        raise AssertionError("the packed checkpoint did not load back bit for bit")
+    log(f"[quantize] pack_model {out['pack_s']:.2f} s; checkpoints {sizes} bytes; both loaded "
+        "back bit for bit")
+    fake_tree = pl.fuse_dense_stages(fake, meta)
+    del fake, loaded, packed
+
+    test = get_loaders("synthetic", train=False, vocab_size=cfg.vocab_size)
+    windows = QUANT_EVAL_WINDOWS
+    recovered = dense_model(served)  # the fake model as the packed layout holds it
+    ppl = {}
+    for label, params, eval_api, want in (
+            ("fake", fake_tree, _eval_api(fake_tree, "llama"),
+             {"flash_window_attention": n_layers * windows}),
+            ("recovered fake", recovered, _eval_api(recovered, "llama"),
+             {"flash_window_attention": n_layers * windows}),
+            ("packed", served, api,
+             {"qgemm": 4 * n_layers * windows, "flash_window_attention": n_layers * windows})):
+        with counted(f"quantize eval {label}") as c:
+            ppl[label] = eval_ppl(params, test, cfg, seqlen=QUANT_SEQ, max_windows=windows,
+                                  api=eval_api, device="cuda")
+        _expect(f"eval of the {label} model", c.counts, want)
+    del recovered
+    delta = abs(ppl["packed"] - ppl["recovered fake"]) / ppl["recovered fake"]
+    fake_delta = abs(ppl["packed"] - ppl["fake"]) / ppl["fake"]
+    out.update(ppl_fake=ppl["fake"], ppl_recovered=ppl["recovered fake"],
+               ppl_packed=ppl["packed"], ppl_delta=delta, ppl_delta_fake=fake_delta)
+    log(f"[quantize] synthetic ppl ({windows} windows of {QUANT_SEQ}): fake {ppl['fake']:.4f}, "
+        f"recovered fake (dequantized from the packed layout) {ppl['recovered fake']:.4f}, "
+        f"packed {ppl['packed']:.4f}; fake-vs-packed delta {fake_delta:.4%} (printed: the "
+        f"packed layout's bf16 scales and zero points move it), recovered-fake-vs-packed delta "
+        f"{delta:.4%} (bound {PPL_RTOL:.2%})")
+    if not (np.isfinite(ppl["fake"]) and np.isfinite(ppl["packed"]) and delta <= PPL_RTOL):
+        raise AssertionError("the packed model's PPL disagrees with its fake model's")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen, device="cuda")
+    steps = NEW_TOKENS - 1
+    base = {"qgemv_stacked_fused": 4 * n_layers * steps, "decode_attention": n_layers * steps,
+            "qgemm": 4 * n_layers, "flash_window_attention": n_layers}
+    tokens = {}
+    for label, params, want in (("dense head", served, base),
+                                ("QEFT_QUANT_LMHEAD=1", served_head,
+                                 {**base, "qgemv": steps, "qgemm": 4 * n_layers + 1})):
+        def run(graph):
+            cache = api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda")
+            return generate(params, prompt, cache, cfg, NEW_TOKENS, api=api, device="cuda",
+                            graph=graph)[0]
+
+        run(True)  # warm-up: the capture
+        with counted(f"quantize generate, {label}") as c:
+            tick = time.perf_counter()
+            got = run(True)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - tick
+        _expect(f"generate from the packed checkpoint, {label}", c.counts, want)
+        eager = run(False)
+        same = bool(torch.equal(got, eager))
+        log(f"[quantize] generate ({label}): {PROMPT} + {NEW_TOKENS} tokens in {dt:.3f} s -> "
+            f"{NEW_TOKENS / dt:.2f} tok/s through the graph; tokens equal to the eager loop's: "
+            f"{same}")
+        if not same or not ((got >= 0) & (got < cfg.vocab_size)).all():
+            raise AssertionError(f"generate ({label}): graph tokens differ from the eager loop's")
+        tokens[label] = got
+    lp = _teacher_forced(served, cfg, api, prompt, tokens["dense head"])
+    lf = _teacher_forced(fake_tree, cfg, api, prompt, tokens["dense head"])
+    lh = _teacher_forced(served_head, cfg, api, prompt, tokens["dense head"])
+    diff, scale = (lp - lf).abs().amax(dim=-1), lf.abs().amax().item()
+    out.update(max_logit_diff=diff.max().item(), logit_scale=scale,
+               head_max_logit_diff=(lh - lf).abs().amax().item(),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[quantize] teacher-forced logits, packed vs fake: max |diff| {out['max_logit_diff']:.4g},"
+        f" median {diff.median().item():.4g}, fake logit scale {scale:.4g}, bound "
+        f"{ORACLE_RTOL * scale:.4g}; argmax agreement "
+        f"{(lp.argmax(-1) == lf.argmax(-1)).sum().item()}/{NEW_TOKENS}; with the int4 head: max "
+        f"|diff| {out['head_max_logit_diff']:.4g} (printed, not bounded: RTN int4 of the head)")
+    if not (torch.isfinite(lp).all() and torch.isfinite(lh).all()
+            and out["max_logit_diff"] <= ORACLE_RTOL * scale):
+        raise AssertionError("the packed model's logits disagree with the fake model's")
+    log(f"[quantize] peak device memory of the phase {out['peak_memory_gb']:.3f} GB")
+    return out
+
+
+def phase_quantize_cli():
+    """The quantization CLIs as subprocesses on QUANT_CLI_PRESET (random f32
+    weights on the card): extract_outidx, main quantize with --fake
+    --packing --save and the fake-vs-packed oracle, convert (stages fused),
+    main --load --eval --benchmark."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    common = ["--model", QUANT_CLI_PRESET, "--wbits", "4", "--target_rank", "32", "--groupsize",
+              "128", "--nsamples", "32"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        oidx = os.path.join(tmp, "oidx")
+        save = os.path.join(tmp, "ckpt", "q")
+        for label, argv in (
+                ("extract_outidx", ["-m", "qeft_tpu_torch.extract_outidx", *common,
+                                    "--no_frob_norm", "--output_dir", oidx]),
+                ("main", ["-m", "qeft_tpu_torch.main", *common, "--reorder", "--outidx_file",
+                          os.path.join(oidx, "w4_r32", "outidx.npy"), "--fake", "--packing",
+                          "--save", save, "--eval", "--eval_windows", "2"]),
+                ("convert", ["-m", "qeft_tpu_torch.convert", save + "_fake", save + "_conv",
+                             "--fuse_stages"]),
+                ("main --load", ["-m", "qeft_tpu_torch.main", "--load", save + "_conv",
+                                 "--eval", "--eval_windows", "2", "--benchmark", "32"])):
+            tick = time.perf_counter()
+            proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                                  cwd=root, timeout=600)
+            lines = proc.stdout.strip().splitlines()
+            log(f"[quantize-cli] python {' '.join(argv[:2])} ({QUANT_CLI_PRESET}) exit "
+                f"{proc.returncode} in {time.perf_counter() - tick:.1f} s:")
+            for line in [l for l in lines if "block" not in l][-5:]:
+                log(f"    {line}")
+            if proc.returncode != 0:
+                log(proc.stderr[-3000:])
+                raise AssertionError(f"{label} failed")
+            out[label] = proc.stdout
+    fields = out["main"].split("fake-vs-packed delta ")
+    delta = float(fields[1].split("%")[0]) / 100 if len(fields) == 2 else float("nan")
+    if not delta < 1e-2:
+        raise AssertionError(f"main's fake-vs-packed delta on {QUANT_CLI_PRESET}: {delta}")
+    if "synthetic ppl" not in out["main --load"] or "decode:" not in out["main --load"]:
+        raise AssertionError("main --load did not evaluate and benchmark the converted checkpoint")
+    return dict(delta=delta)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["attention", "matvec"], default=None,
@@ -2117,6 +2419,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     timed(phase_families, rows)
     timed(phase_family_cli, opt_cfg)
+    timed(phase_quantize)
+    timed(phase_quantize_cli)
     for key, row in rows.items():
         by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if c.get(key)}
         row.d["launches_by_path"] = by_path

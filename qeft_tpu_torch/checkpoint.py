@@ -1,4 +1,4 @@
-"""Packed and WCT checkpoints, read and written.
+"""Packed, fake and WCT checkpoints, read and written.
 
 The format is the JAX package's (``qeft_tpu/checkpoint.py``): one ``.npz`` of
 path-addressed leaves (``layers::qkv::qweight``; a linear's fields end in its
@@ -6,8 +6,13 @@ path-addressed leaves (``layers::qkv::qweight``; a linear's fields end in its
 model family and its config.  numpy cannot store bfloat16, so those leaves
 are stored as uint16 under a key ending in ``@bf16``; they are viewed back
 as ``torch.bfloat16`` bit for bit.  A WCT checkpoint holds only the tuned
-weak-column slabs (``oweight::<linear>``) and the base checkpoint's path;
-the two packages read each other's.
+weak-column slabs (``oweight::<linear>``) and the base checkpoint's path.
+A fake checkpoint holds the fake-quantized dense tree (member names:
+``layers::q``, ...) and each linear's quantizer state under
+``__quant::<block>::<name>::<field>`` (``scale_group``, ``zero_group``,
+``out_ids``, ``flags`` = [sym, bits, group size], and ``perm_ids`` under
+act-order), so that it can be packed later (``convert``).  The two
+packages read each other's checkpoints of every format.
 """
 
 from __future__ import annotations
@@ -225,15 +230,61 @@ def load_wct(path: str, device=None):
     return params, cfg, family
 
 
+_QUANT = "__quant" + _SEP
+
+
+def save_fake(path: str, params: Dict, quantizers: Dict, cfg, family: str = "llama") -> None:
+    """A fake-quantized checkpoint: the dense tree and the quantizer states
+    (``qeft_tpu/checkpoint.py::save_fake``'s keys and manifest)."""
+    flat = to_flat(params)
+    for (i, name), st in quantizers.items():
+        base = f"{_QUANT}{i}{_SEP}{name}{_SEP}"
+        flat[base + "scale_group"] = _encode(st.scale_group)[1]
+        flat[base + "zero_group"] = _encode(st.zero_group)[1]
+        flat[base + "out_ids"] = _encode(st.out_ids)[1]
+        flat[base + "flags"] = np.asarray([int(st.sym), st.bits, st.group_size])
+        if st.perm_ids is not None:
+            flat[base + "perm_ids"] = _encode(st.perm_ids)[1]
+    _save(path, flat, {"format": "fake", "family": family, "config": cfg_to_dict(cfg)})
+
+
+def load_fake(path: str, device=None):
+    """-> (dense tree with member names, {(block, name): QuantizerState},
+    config, family), on ``device`` (default: the GPU, which must exist)."""
+    from qeft_tpu_torch.pipeline import QuantizerState
+
+    device = resolve_device(device)
+    manifest = _manifest(path, "fake")
+    with np.load(_paths(path)[0]) as z:
+        flat = {k: z[k] for k in z.files}
+    fields: Dict = {}
+    for key in [k for k in flat if k.startswith(_QUANT)]:
+        _, i, name, field = key.split(_SEP)
+        fields.setdefault((int(i), name), {})[field] = _to_tensor(key, flat.pop(key))[1]
+    states = {}
+    for key, f in fields.items():
+        sym, bits, group_size = f["flags"].tolist()
+        perm = f.get("perm_ids")
+        states[key] = QuantizerState(
+            scale_group=f["scale_group"].to(device), zero_group=f["zero_group"].to(device),
+            out_ids=f["out_ids"].to(device), sym=bool(sym), bits=int(bits),
+            group_size=int(group_size), perm_ids=None if perm is None else perm.to(device))
+    family = manifest.get("family", "llama")
+    params = tree_map(lambda t: t.to(device), from_flat(flat))
+    return params, states, cfg_from_dict(manifest["config"], family), family
+
+
 def load_model(path: str, device=None):
-    """Dispatch on the manifest's format: ``packed`` or ``wct``.
-    -> (params, config, family); pass them through ``fuse_packed_stages``."""
+    """Dispatch on the manifest's format: ``packed``, ``wct`` or ``fake``.
+    -> (params, config, family), as ``qeft_tpu.checkpoint.load_model``;
+    pass a packed tree through ``fuse_packed_stages``, a fake one (member
+    names) through ``fuse_dense_stages``."""
     fmt = _manifest(path)["format"]
     if fmt == "packed":
         return load_packed(path, device)
     if fmt == "wct":
         return load_wct(path, device)
     if fmt == "fake":
-        raise NotImplementedError(
-            f"{path}: fake-quantized checkpoints are not read by the port yet")
+        params, _, cfg, family = load_fake(path, device)
+        return params, cfg, family
     raise ValueError(f"unknown checkpoint format {fmt}")

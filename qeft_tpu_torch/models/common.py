@@ -51,8 +51,12 @@ def linear(layers: Dict, name: str, l: int, x: torch.Tensor) -> torch.Tensor:
     return y if b is None else y + b.to(y.dtype)
 
 
-def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A model-level dense projection (lm_head, OPT's project_in/out)."""
+def dense(w, x: torch.Tensor) -> torch.Tensor:
+    """A model-level projection (lm_head, OPT's project_in/out): a dense
+    ``[K, N]`` tensor, or a packed one (``pipeline.rtn_pack_linear``) through
+    `qlinear_apply`, as JAX's ``apply_linear`` runs it."""
+    if isinstance(w, QLinearParams):
+        return qlinear_apply(x, w)
     return torch.matmul(x, w.to(x.dtype))
 
 

@@ -12,9 +12,12 @@ Two kinds of parameter tree run through the same functions:
 - packed trees (``QLinearParams`` stages ``qkv``/``o``/``upgate``/``down``,
   see ``pipeline.fuse_packed_stages``) run the kernel wrappers, which launch
   the CUDA kernels on the GPU and their plain versions on the CPU;
-- dense trees (stacked ``[L, K, N]`` tensors, ``testing.dense_model``) are
-  the reference model of the oracle and run plain PyTorch throughout,
-  attention included, on any device.
+- dense trees (stacked ``[L, K, N]`` tensors: ``testing.dense_model``, the
+  reference model of the serving oracle, and the fake-quantized trees of
+  the quantization pipeline) run plain PyTorch, attention included unless
+  the caller passes K3 as ``attend`` (the pipeline's calibration forwards
+  and the eval of a fake-quantized tree on the GPU do); with ``capture``
+  a block hands back the inputs of its four quantization stages.
 
 Serving runs `llama_block` (prefill, windows, single-sequence decode) and
 the ragged window forward of continuous batching and speculative decoding;
@@ -219,8 +222,14 @@ def _embed(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor
 
 
 def _lm_head(params: Dict, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Final norm and the head: a dense ``[D, V]`` tensor, or a packed one
+    (``pipeline.rtn_pack_linear``) through `qlinear_apply` -- K5 for a
+    decode step, K2 for a window -- as JAX's ``apply_linear`` runs it."""
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps, cfg.rms_one_offset)
-    return torch.matmul(x, params["lm_head"].to(x.dtype))
+    head = params["lm_head"]
+    if isinstance(head, QLinearParams):
+        return qlinear_apply(x, head)
+    return torch.matmul(x, head.to(x.dtype))
 
 
 def is_packed(params: Dict) -> bool:
@@ -257,14 +266,24 @@ def _split_qkv(qkv: torch.Tensor, cfg: LlamaConfig, cos: torch.Tensor, sin: torc
 
 
 def _block_out(layers: Dict, l: int, x: torch.Tensor, ctx: torch.Tensor,
-               cfg: LlamaConfig) -> torch.Tensor:
-    """o-projection, residual, MLP stage pair of block ``l`` (fused stages)."""
+               cfg: LlamaConfig, capture: Optional[Dict] = None) -> torch.Tensor:
+    """o-projection, residual, MLP stage pair of block ``l`` (fused stages);
+    ``capture`` as in `llama_block`."""
     o_reorder = layers.get("o_reorder")
     o_in = apply_o_reorder(ctx, None if o_reorder is None else o_reorder[l])
     x = _stage(layers, "o", l, o_in, cfg, residual=x)
-    ug = _stage(layers, "upgate", l, x, cfg, lnw=layers["post_ln"][l])
+    lnw = layers["post_ln"][l]
+    if capture is not None:
+        capture["o_in"] = ctx
+        h2 = capture["ffn1_in"] = rms_norm(x, lnw, cfg.rms_norm_eps, cfg.rms_one_offset)
+        ug = _stage(layers, "upgate", l, h2, cfg)
+    else:
+        ug = _stage(layers, "upgate", l, x, cfg, lnw=lnw)
     up, gate = _split_upgate(ug, cfg)
-    return _stage(layers, "down", l, _act(gate, cfg.act) * up, cfg, residual=x)
+    act = _act(gate, cfg.act) * up
+    if capture is not None:
+        capture["ffn2_in"] = act
+    return _stage(layers, "down", l, act, cfg, residual=x)
 
 
 def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
@@ -297,23 +316,38 @@ def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
 
 def llama_block(layers: Dict, l: int, x: torch.Tensor, cfg: LlamaConfig,
                 cos: torch.Tensor, sin: torch.Tensor,
-                cache: Optional[Dict] = None, pos: int = 0) -> torch.Tensor:
+                cache: Optional[Dict] = None, pos: int = 0,
+                capture: Optional[Dict] = None, attend=None) -> torch.Tensor:
     """Decoder block ``l`` of the stacked ``layers``; x [B, S, D].
 
     With ``cache`` this block's K/V are written at ``pos`` before attention
     reads slots ``<= pos + i`` (see `_cached_attention`).  Without it
-    attention runs causally over the window itself."""
+    attention runs causally over the window itself, through ``attend``
+    (default: K3 for a packed tree, the plain version for a dense one).
+
+    ``capture`` (dense trees, no cache) receives the inputs of the four
+    quantization stages, as JAX's ``llama_block(capture=True)`` returns
+    them: ``qkv_in`` (the normed residual), ``o_in`` (the attention context
+    before the o-gather), ``ffn1_in`` and ``ffn2_in``."""
     packed = isinstance(layers["qkv"], QLinearParams)
-    qkv = _stage(layers, "qkv", l, x, cfg, lnw=layers["input_ln"][l])
+    lnw = layers["input_ln"][l]
+    if capture is not None:
+        if packed or cache is not None:
+            raise ValueError("capture runs on a dense tree without a cache")
+        x_in = capture["qkv_in"] = rms_norm(x, lnw, cfg.rms_norm_eps, cfg.rms_one_offset)
+        qkv = _stage(layers, "qkv", l, x_in, cfg)
+    else:
+        qkv = _stage(layers, "qkv", l, x, cfg, lnw=lnw)
     q, k, v = _split_qkv(qkv, cfg, cos, sin)
     kh = k.transpose(1, 2)  # [B, Hkv, S, Dh] head-major
     vh = v.transpose(1, 2)
     if cache is not None:
         ctx = _cached_attention(cache, l, q, kh, vh, pos, packed)
     else:
-        attend = flash_window_attention if packed else flash_window_attention_plain
+        if attend is None:
+            attend = flash_window_attention if packed else flash_window_attention_plain
         ctx = attend(q.contiguous(), kh.contiguous(), vh.contiguous(), 0)
-    return _block_out(layers, l, x, ctx, cfg)
+    return _block_out(layers, l, x, ctx, cfg, capture)
 
 
 def causal_mask(s: int, device=None) -> torch.Tensor:
@@ -364,13 +398,15 @@ def _num_layers(params: Dict) -> int:
 # full model
 
 
-def llama_forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Full-sequence causal forward without a cache -> logits [B, S, V]."""
+def llama_forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                  attend=None) -> torch.Tensor:
+    """Full-sequence causal forward without a cache -> logits [B, S, V];
+    ``attend`` as in `llama_block`."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     cos, sin = rope_tables(cfg, torch.arange(s, device=tokens.device)[None, :])
     for l in range(_num_layers(params)):
-        x = llama_block(params["layers"], l, x, cfg, cos, sin)
+        x = llama_block(params["layers"], l, x, cfg, cos, sin, attend=attend)
     return _lm_head(params, x, cfg)
 
 

@@ -8,7 +8,8 @@ bf16 operands, f32 accumulators) over fixed chunks of `CHUNK` keys from key
 0, with the probabilities rounded to bf16 for the P.V product; a row's
 output does not depend on the window width or on the other rows.  Its plain
 version, `flash_window_attention_plain`, is the masked softmax of
-``qeft_tpu/models/llama.py::_attention``.
+``qeft_tpu/models/llama.py::_attention``.  `flash_window_attention_any`
+takes f32 activations too, through bf16 operands on the GPU.
 """
 
 from __future__ import annotations
@@ -84,3 +85,17 @@ def flash_window_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Te
         cuda_lib.ptr(out), b, s, h, hkv, s_k, d, pos0,
     )
     return out
+
+
+def flash_window_attention_any(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                               pos: Union[int, torch.Tensor]) -> torch.Tensor:
+    """`flash_window_attention` for activations of any float dtype: on the
+    GPU K3 takes q/k/v rounded to bf16 (the kernel reads bf16 only) and its
+    output is cast back to q's dtype; on the CPU the plain version runs in
+    q's dtype.  The attention of the quantization pipeline's calibration
+    forwards and of a fake-quantized model's eval, as the JAX package runs
+    its flash kernel there on the TPU."""
+    if not q.is_cuda or q.dtype == torch.bfloat16:
+        return flash_window_attention(q, k_all, v_all, pos)
+    bf = torch.bfloat16
+    return flash_window_attention(q.to(bf), k_all.to(bf), v_all.to(bf), pos).to(q.dtype)

@@ -22,6 +22,9 @@ checkpoints this package reads):
 
 Stacked models carry every leaf with a leading layer axis (``qweight [L,
 K/8, N]``); kernels take the layer as an integer index instead of a slice.
+
+`pack_codes`, `pack_codes_np` and `pack_layer` write the layout, bit for bit
+as ``qeft_tpu/ops/packing.py`` does.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -108,3 +112,69 @@ def dequantize_weight(p: QLinearParams, dtype=torch.bfloat16) -> torch.Tensor:
     scales = p.scales.to(torch.float32).repeat_interleave(g, dim=0)
     szeros = p.scaled_zeros.to(torch.float32).repeat_interleave(g, dim=0)
     return (codes * scales + szeros).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# writing the layout
+
+
+def pack_codes(codes: torch.Tensor, group_size: int) -> torch.Tensor:
+    """int codes [K, N] (0..15) -> int32 [K//8, N] in the plane layout
+    above (``qeft_tpu/ops/packing.py::pack_codes``)."""
+    k, n = codes.shape
+    g = resolve_group(k, group_size)
+    h = g // 8
+    c = codes.reshape(k // g, 8, h, n).to(torch.int64)  # [G, plane, h, N]
+    word = torch.zeros(k // g, h, n, dtype=torch.int64, device=codes.device)
+    for p in range(8):
+        word |= c[:, p] << (4 * p)
+    # the int64 word's low 32 bits, as int32 (two's complement)
+    word = torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+    return word.transpose(0, 1).reshape(k // 8, n)
+
+
+def pack_codes_np(codes: np.ndarray, group_size: int) -> np.ndarray:
+    """NumPy twin of `pack_codes` for host-side checkpoint tooling."""
+    k, n = codes.shape
+    g = group_size if group_size > 0 else k
+    h = g // 8
+    c = codes.reshape(k // g, 8, h, n).astype(np.int64)
+    word = np.zeros((k // g, h, n), np.int64)
+    for p in range(8):
+        word |= c[:, p] << (4 * p)
+    return word.astype(np.int32).transpose(1, 0, 2).reshape(k // 8, n)
+
+
+def pack_layer(w_fake_kn: torch.Tensor, scale_group: torch.Tensor, zero_group: torch.Tensor,
+               n_outlier: int, group_size: int, sym: bool = False, bits: int = 4,
+               bias: Optional[torch.Tensor] = None, dtype=torch.bfloat16) -> QLinearParams:
+    """One reordered fake-quantized layer packed (``qeft_tpu/ops/packing.py::
+    pack_layer``, bit for bit).
+
+    ``w_fake_kn`` [K, N] with the weak rows last along K; ``scale_group`` /
+    ``zero_group`` [N, G] as GPTQ returns them.  A symmetric quantizer's
+    zero points shift by 2^(bits-1); the weak rows' codes are set to the
+    zero point, so the INT4 product adds exactly 0 for them, and their
+    values go to ``oweight``."""
+    k, n = w_fake_kn.shape
+    g = resolve_group(k, group_size)
+    if tuple(scale_group.shape) != (n, k // g):
+        raise ValueError(f"scale_group is {tuple(scale_group.shape)}, expected {(n, k // g)}")
+    zeros = zero_group.to(torch.float32)
+    if sym:
+        zeros = zeros + 2 ** (bits - 1)
+    scales = scale_group.to(torch.float32)  # [N, G]
+    w = w_fake_kn.to(torch.float32)
+    scales_kn = scales.t().repeat_interleave(g, dim=0)  # [K, N]
+    zeros_kn = zeros.t().repeat_interleave(g, dim=0)
+    codes = torch.clamp(torch.round(w / scales_kn + zeros_kn), 0, 2 ** bits - 1).to(torch.int32)
+    if n_outlier > 0:
+        codes[k - n_outlier:] = zeros_kn[k - n_outlier:].to(torch.int32)
+    return QLinearParams(
+        qweight=pack_codes(codes, group_size),
+        scales=scales.t().to(dtype).contiguous(),
+        scaled_zeros=(-(zeros * scales)).t().to(dtype).contiguous(),
+        oweight=w_fake_kn[k - n_outlier:].to(dtype).contiguous() if n_outlier > 0 else None,
+        bias=None if bias is None else bias.to(dtype),
+        group_size=group_size,
+    )

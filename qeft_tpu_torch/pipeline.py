@@ -1,20 +1,51 @@
-"""Load-time stage fusion of a packed model, and its inverse for one field.
+"""The quantization pipeline of the llama family (GPTQ-OWQ with OGR's global
+reorder, packing), and the stage fusion of packed and dense trees.
 
-Counterpart of ``qeft_tpu/pipeline.py::fuse_packed_stages`` without the
-TPU-only steps: no zero-padding of the upgate halves and no banded
-o-permutation operands.  `split_fused` cuts a fused stage's tensor (the
-trained weak-column slabs) back into its members, so that WCT checkpoints
-carry the linear names of the base checkpoint.
+Counterpart of ``qeft_tpu/pipeline.py``:
+
+- `extract_global_outidx` -- OGR step 1: blocks run over the calibration
+  samples one by one, the normalised Hessian diagonals of the
+  residual-stream stages add up, the global top ``target_rank`` channels
+  are the weak set;
+- `quantize_model` -- GPTQ-OWQ of every linear block by block (each
+  block's calibration forward through its quantized linears feeds the
+  next), then `reorder_model`, OGR step 2;
+- `pack_model` -- every quantized linear into the packed layout the
+  kernels read, optionally with q/k/v and up/gate fused;
+- `rtn_pack_linear` -- a round-to-nearest packed head;
+- `fuse_packed_stages` -- load-time stage fusion, without the TPU-only
+  steps (no zero-padding of the upgate halves, no banded o-permutation
+  operands), and `split_fused` its inverse for one field (WCT checkpoints
+  carry the base checkpoint's linear names).
+
+The port's dense tree fuses ``qkv`` and ``upgate`` (``models.llama.
+init_params``); the pipeline quantizes their members one by one under
+JAX's names (``q``, ``k``, ``v``, ``up``, ``gate``), and the fake tree it
+returns carries those names, as JAX's does (`fuse_dense_stages` fuses it
+for the model functions).  The calibration forwards run K3 on the GPU
+(``ops.flash.flash_window_attention_any``), as JAX's run its flash kernel
+on the TPU.  Only the llama family (llama, gemma) is quantized here; OPT,
+Phi, Bloom and Falcon raise (ROADMAP A6b).  Everything stays on the
+model's device: the JAX package's host staging for its 16 GB chip
+(``_block_at`` to a device, ``_stack_host``, ``reorder_model_host``) is
+not carried over.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import dataclasses
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from qeft_tpu_torch.models.registry import ModelMeta
-from qeft_tpu_torch.ops.packing import QLinearParams
+from qeft_tpu_torch.ops.packing import QLinearParams, pack_layer
+from qeft_tpu_torch.quant.gptq import LayerQuantResult, gptq_quantize, gram
+from qeft_tpu_torch.quant.outliers import frob_norm_error, hessian_sort_ids, select_global_outliers
+from qeft_tpu_torch.quant.quantizer import QuantSpec, find_params
+from qeft_tpu_torch.quant.reorder import sparse_to_dense_ids
 
 
 def _fuse_stage(layers: Dict, names: Sequence[str], fused_name: str) -> None:
@@ -98,3 +129,421 @@ def fuse_tensors(tensors: Dict[str, torch.Tensor], meta: ModelMeta) -> Dict[str,
         if all(n in out for n in names):
             out[fused] = torch.cat([out.pop(n) for n in names], dim=-1)
     return out
+
+
+def fuse_dense_stages(params: Dict, meta: ModelMeta) -> Dict:
+    """A dense tree with member names (a fake-quantized tree) fused along N
+    into the ``qkv`` / ``upgate`` stages the model functions read."""
+    return {**params, "layers": fuse_tensors(params["layers"], meta)}
+
+
+# ---------------------------------------------------------------------------
+# the quantization pipeline (llama family)
+
+
+@dataclasses.dataclass
+class QuantizeArgs:
+    """The quantization options (``qeft_tpu/pipeline.py::QuantizeArgs``)."""
+
+    spec: QuantSpec = QuantSpec(bits=4, sym=False, mse=True, group_size=128)
+    target_rank: Optional[int] = 128
+    target_bit: Optional[float] = None
+    percdamp: float = 0.01
+    act_order: bool = False
+    no_frob_norm: bool = False
+    reorder: bool = True
+    rtn: bool = False  # nearest_owq
+    true_sequential: bool = False
+    nsamples: int = 128
+    perhead: Optional[int] = None
+    # OWQ weak columns only in these linears; the others take 0
+    owq_layers: Optional[Tuple[str, ...]] = None
+
+
+@dataclasses.dataclass
+class QuantizerState:
+    """One linear's quantization metadata, carried into packing and fake
+    checkpoints: group parameters [OC, G] in the reordered layout, the weak
+    column ids [n_out] (ascending, original order) and, only under
+    ``act_order``, the full quantization permutation the group parameters
+    follow."""
+
+    scale_group: torch.Tensor
+    zero_group: torch.Tensor
+    out_ids: torch.Tensor
+    sym: bool
+    bits: int
+    group_size: int
+    perm_ids: Optional[torch.Tensor] = None
+
+
+_ALL_STAGES = ("qkv", "out", "ffn1", "ffn2")
+_STAGE_CAP = {"qkv": "qkv_in", "out": "o_in", "ffn1": "ffn1_in", "ffn2": "ffn2_in"}
+
+
+def _check_family(meta: ModelMeta) -> None:
+    if meta.family not in ("llama", "gemma"):
+        raise NotImplementedError(
+            f"quantizing the {meta.family} family is not ported yet (ROADMAP A6b: the "
+            "calibration forwards of OPT, Phi, Bloom and Falcon)")
+
+
+def _stage_widths(cfg) -> Dict[str, int]:
+    d = cfg.hidden_size
+    return {"qkv": d, "out": cfg.num_heads * cfg.head_dim, "ffn1": d,
+            "ffn2": cfg.intermediate_size}
+
+
+def _stage_of(meta: ModelMeta, name: str) -> str:
+    for stage, names in zip(_ALL_STAGES, (meta.qkv, meta.out, meta.ffn1, meta.ffn2)):
+        if name in names:
+            return stage
+    raise KeyError(name)
+
+
+def _member_layers(params: Dict, cfg, meta: ModelMeta) -> Dict[str, torch.Tensor]:
+    """The dense layers by member name: a fused ``qkv`` / ``upgate`` is cut
+    into views of its members (no copy)."""
+    return split_fused(params["layers"], meta, member_widths(cfg, meta))
+
+
+def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Block 0's input: the embedding rows, scaled by sqrt(hidden) for gemma."""
+    from qeft_tpu_torch.models.llama import _embed
+
+    return _embed({"embed": embed}, tokens, cfg)
+
+
+def _block_layers(blk: Dict[str, torch.Tensor], meta: ModelMeta) -> Dict[str, torch.Tensor]:
+    """One block (member names, ``[K, N]`` tensors) as the one-layer fused
+    tree ``models.llama.llama_block`` reads."""
+    one = {k: v[None] for k, v in blk.items()}
+    return fuse_tensors(one, meta)
+
+
+def _block_forward(blk, inps: torch.Tensor, cfg, meta: ModelMeta, stages=(),
+                   outputs: bool = True):
+    """The block over every calibration sample, one sample a call (the JAX
+    ``scan``); -> (outputs [n, S, D] or None without ``outputs``, {stage:
+    sum of x^T x} for ``stages``)."""
+    from qeft_tpu_torch.models.llama import llama_block, rope_tables
+    from qeft_tpu_torch.ops.flash import flash_window_attention_any
+
+    n, s, _ = inps.shape
+    layers = _block_layers(blk, meta)
+    cos, sin = rope_tables(cfg, torch.arange(s, device=inps.device)[None, :])
+    widths = _stage_widths(cfg)
+    hs = {st: torch.zeros(widths[st], widths[st], dtype=torch.float32, device=inps.device)
+          for st in stages}
+    outs = torch.empty_like(inps) if outputs else None
+    with torch.no_grad():
+        for i in range(n):
+            cap = {} if stages else None
+            y = llama_block(layers, 0, inps[i: i + 1], cfg, cos, sin, capture=cap,
+                            attend=flash_window_attention_any)
+            if outputs:
+                outs[i] = y[0]
+            for st in stages:
+                a = cap[_STAGE_CAP[st]]
+                hs[st] += gram(a.reshape(-1, a.shape[-1]))
+    return outs, hs
+
+
+def block_hessians(blk: Dict, inps: torch.Tensor, cfg, meta: ModelMeta,
+                   stages: Sequence[str] = _ALL_STAGES):
+    """One block over all calibration samples ``inps`` [n, S, D]: (outputs
+    [n, S, D], {stage: H_sum}) with ``H_sum`` the sum of x^T x over the
+    samples' tokens (the caller scales by 2 / nsamples); ``stages`` limits
+    the Hessians built (extraction needs qkv and ffn1 only)."""
+    return _block_forward(blk, inps, cfg, meta, tuple(stages))
+
+
+def block_forward_batch(blk: Dict, inps: torch.Tensor, cfg, meta: ModelMeta) -> torch.Tensor:
+    """A (quantized) block over all samples: its outputs [n, S, D]."""
+    return _block_forward(blk, inps, cfg, meta)[0]
+
+
+def _n_out_dict(layers: Dict, meta: ModelMeta, args: QuantizeArgs) -> Dict[str, int]:
+    """Per-linear weak-column budget (``qeft_tpu/pipeline.py::_n_out_dict``)."""
+    if args.owq_layers is not None:
+        unknown = set(args.owq_layers) - set(meta.all_linears)
+        if unknown:
+            raise ValueError(f"unknown --layers {sorted(unknown)}; available: "
+                             f"{list(meta.all_linears)}")
+        selected = [l for l in meta.all_linears if l in args.owq_layers]
+    else:
+        selected = list(meta.all_linears)
+    n_out = {l: 0 for l in meta.all_linears}
+    if args.target_bit is not None:
+        wbits = args.spec.bits
+        r = (12 / (16 - wbits)) * (args.target_bit - wbits) / len(selected)
+        for l in selected:
+            n = round(layers[l].shape[-2] * r * meta.ratios[l])
+            n_out[l] = n + 1 if n % 2 == 1 else n
+    elif args.target_rank is not None:
+        for l in selected:
+            n_out[l] = args.target_rank
+    return n_out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def extract_global_outidx(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
+                          args: QuantizeArgs) -> Tuple[np.ndarray, Dict]:
+    """OGR step 1: the sorted global top-``target_rank`` channels (int32)
+    and each qkv/ffn1 linear's own weak ids {(block, name): ids}.  Every
+    linear of those stages adds ``diag(H) / mean`` of its Hessian diagonal
+    (times its Frobenius error unless ``no_frob_norm``), so q/k/v count
+    three times and up/gate twice, as in the JAX package."""
+    _check_family(meta)
+    target_rank = args.target_rank
+    if args.perhead is not None:
+        target_rank = args.perhead * cfg.num_heads
+    layers = _member_layers(params, cfg, meta)
+    device = params["embed"].device
+    inps = _embed_tokens(params["embed"], torch.as_tensor(calib_tokens, device=device), cfg)
+    n_out = _n_out_dict(layers, meta, args)
+    sensitivity = torch.zeros(cfg.hidden_size, dtype=torch.float32, device=device)
+    per_layer = {}
+    n_layers = cfg.num_layers
+    for i in range(n_layers):
+        tick = time.perf_counter()
+        blk = {k: v[i] for k, v in layers.items()}
+        outs, h_sums = block_hessians(blk, inps, cfg, meta, stages=("qkv", "ffn1"))
+        for stage, names in (("qkv", meta.qkv), ("ffn1", meta.ffn1)):
+            h_diag_base = torch.diagonal(h_sums[stage]) * (2.0 / args.nsamples)
+            for name in names:
+                h_diag = h_diag_base
+                if not args.no_frob_norm:
+                    h_diag = h_diag * frob_norm_error(blk[name].t(), args.spec, num=30)
+                _, out_ids = hessian_sort_ids(h_diag, n_out[name])
+                per_layer[(i, name)] = out_ids.cpu().numpy()
+                sensitivity = sensitivity + h_diag / torch.mean(h_diag)
+        inps = outs
+        _sync(device)
+        print(f"extract: block {i + 1}/{n_layers} in {time.perf_counter() - tick:.2f} s",
+              flush=True)
+    outidx = select_global_outliers(sensitivity, target_rank)
+    return outidx.cpu().numpy().astype(np.int32), per_layer
+
+
+def quantize_model(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
+                   args: QuantizeArgs, outidx: Optional[np.ndarray] = None) -> Tuple[Dict, Dict]:
+    """Layerwise GPTQ-OWQ of every block -> (fake tree, {(block, name):
+    QuantizerState}).
+
+    ``params`` is a dense tree, fused or with member names; it is not
+    changed.  The fake tree has member names and the model's dtype; with
+    ``args.reorder`` it is globally reordered (`reorder_model`) and each
+    block carries ``o_reorder``, the o-projection's input gather."""
+    _check_family(meta)
+    if args.reorder and outidx is None:
+        raise ValueError("the global reorder needs the extracted outidx "
+                         "(run extract_global_outidx first)")
+    spec = args.spec
+    layers = _member_layers(params, cfg, meta)
+    device = params["embed"].device
+    inps = _embed_tokens(params["embed"], torch.as_tensor(calib_tokens, device=device), cfg)
+    n_out = _n_out_dict(layers, meta, args)
+    global_out = None if outidx is None else torch.as_tensor(
+        np.asarray(outidx), dtype=torch.int32, device=device)
+    # the MSE grid of a group re-fit: 40 points in the GPTQ loop, 1 in the
+    # nearest-rounding loop, 100 for one whole-row group
+    num_groups = 1 if args.rtn else (100 if spec.group_size <= 0 else 40)
+    # true_sequential: each stage's Hessian from the block with its earlier
+    # stages already quantized
+    stage_order = ([(meta.qkv, ("qkv",)), (meta.out, ("out",)), (meta.ffn1, ("ffn1",)),
+                    (meta.ffn2, ("ffn2",))] if args.true_sequential
+                   else [(meta.all_linears, _ALL_STAGES)])
+    out_layers = {k: (torch.empty_like(v, memory_format=torch.contiguous_format)
+                      if k in meta.all_linears else v.clone())
+                  for k, v in layers.items() if k != "o_reorder"}
+    quantizers: Dict = {}
+    for i in range(cfg.num_layers):
+        tick = time.perf_counter()
+        blk = {k: v[i] for k, v in layers.items() if k != "o_reorder"}
+        new_blk = dict(blk)
+        h_sums = None
+        for names, stages in stage_order:
+            if args.true_sequential or h_sums is None:
+                _, h_sums = _block_forward(new_blk, inps, cfg, meta, stages, outputs=False)
+            for name in names:
+                _quantize_one(name, blk, new_blk, h_sums, quantizers, i, meta, args,
+                              global_out, n_out, num_groups)
+        inps = block_forward_batch(new_blk, inps, cfg, meta)
+        for name in meta.all_linears:
+            out_layers[name][i] = new_blk[name]
+        _sync(device)
+        print(f"quantize: block {i + 1}/{cfg.num_layers} in {time.perf_counter() - tick:.2f} s",
+              flush=True)
+    new_params = {**params, "layers": out_layers}
+    if args.reorder:
+        new_params = reorder_model(new_params, quantizers, global_out, cfg, meta)
+    return new_params, quantizers
+
+
+def _quantize_one(name, blk, new_blk, h_sums, quantizers, i, meta, args, global_out, n_out,
+                  num_groups) -> None:
+    """GPTQ of linear ``name`` of block ``i``: its fake weight into
+    ``new_blk``, its state into ``quantizers``."""
+    spec = args.spec
+    h = h_sums[_stage_of(meta, name)] * (2.0 / args.nsamples)
+    w_nk = blk[name].t().to(torch.float32)  # [OC, IC]
+    is_global = args.reorder and name in meta.qkv + meta.ffn1
+    # the Frobenius weighting: under the reorder only for the per-layer stages
+    use_frob = not args.no_frob_norm and not is_global
+    frob = frob_norm_error(w_nk, spec, num=40) if use_frob else None
+    ids, out_ids = hessian_sort_ids(torch.diagonal(h), n_out[name], frob_norm=frob,
+                                    outidx=global_out if is_global else None,
+                                    actorder=args.act_order)
+    res: LayerQuantResult = gptq_quantize(w_nk, h, spec, ids, out_ids, percdamp=args.percdamp,
+                                          num=num_groups, rtn=args.rtn)
+    new_blk[name] = res.w_fake.t().to(blk[name].dtype)
+    quantizers[(i, name)] = QuantizerState(
+        scale_group=res.scale_group, zero_group=res.zero_group, out_ids=res.out_ids,
+        sym=spec.sym, bits=spec.bits, group_size=spec.group_size,
+        perm_ids=ids.to(torch.int32) if args.act_order else None)
+
+
+def _permute_state_rows(quantizers: Dict, key, ids: torch.Tensor) -> None:
+    st: QuantizerState = quantizers[key]
+    quantizers[key] = QuantizerState(
+        scale_group=st.scale_group[ids], zero_group=st.zero_group[ids], out_ids=st.out_ids,
+        sym=st.sym, bits=st.bits, group_size=st.group_size)
+
+
+def reorder_model(params: Dict, quantizers: Dict, global_out: torch.Tensor, cfg,
+                  meta: ModelMeta) -> Dict:
+    """OGR step 2: permute the model so the weak channels come last
+    (``qeft_tpu/pipeline.py::reorder_model``).
+
+    The residual stream (embedding columns, norms, lm_head rows, qkv/ffn1
+    input rows, o/ffn2 output columns) by the global dense ids; the MLP's
+    inner dim (ffn1 output columns, ffn2 input rows) by ffn2's own ids; the
+    o-projection's input rows by o's own ids, whose gather
+    (``o_reorder``) the model applies at run time.  The group parameters
+    of each permuted output dimension follow it.  The layer tensors of
+    ``params`` are permuted in place, one ``[K, N]`` temporary at a time
+    (one copy of the model on the device); the returned tree holds them."""
+    d = cfg.hidden_size
+    device = params["embed"].device
+    g_ids = sparse_to_dense_ids(torch.as_tensor(global_out, device=device), d).long()
+    new = dict(params)
+    new["embed"] = params["embed"][:, g_ids]
+    new["final_ln"] = params["final_ln"][g_ids]
+    new["lm_head"] = params["lm_head"][g_ids]
+    layers = {k: v for k, v in params["layers"].items() if k != "o_reorder"}
+    (o_name,) = meta.out
+    (f2_name,) = meta.ffn2
+    hd = layers[o_name].shape[-2]
+    o_reorder = torch.empty(cfg.num_layers, hd, dtype=torch.int32, device=device)
+    for i in range(cfg.num_layers):
+        for name in meta.qkv + meta.ffn1:
+            layers[name][i] = layers[name][i][g_ids]
+        for ln in meta.ln:
+            if ln in layers:
+                layers[ln][i] = layers[ln][i][g_ids]
+        o_ids = sparse_to_dense_ids(quantizers[(i, o_name)].out_ids, hd).long()
+        layers[o_name][i] = layers[o_name][i][o_ids][:, g_ids]
+        o_reorder[i] = o_ids
+        _permute_state_rows(quantizers, (i, o_name), g_ids)
+        f_ids = sparse_to_dense_ids(quantizers[(i, f2_name)].out_ids,
+                                    layers[f2_name].shape[-2]).long()
+        for name in meta.ffn1:
+            layers[name][i] = layers[name][i][:, f_ids]
+            _permute_state_rows(quantizers, (i, name), f_ids)
+        layers[f2_name][i] = layers[f2_name][i][f_ids][:, g_ids]
+        _permute_state_rows(quantizers, (i, f2_name), g_ids)
+    layers["o_reorder"] = o_reorder
+    new["layers"] = layers
+    return new
+
+
+# ---------------------------------------------------------------------------
+# packing
+
+
+def rtn_pack_linear(w_kn: torch.Tensor, bits: int = 4, group_size: int = 128,
+                    dtype=torch.bfloat16) -> QLinearParams:
+    """A dense ``[K, N]`` linear round-to-nearest quantized (per-group
+    min-max, no weak columns, no Hessian) and packed: the lm_head under
+    ``QEFT_QUANT_LMHEAD`` (``qeft_tpu/pipeline.py::rtn_pack_linear``)."""
+    k, n = w_kn.shape
+    g = group_size if group_size > 0 else k
+    if k % g:
+        raise ValueError(f"K={k} is not a multiple of the group size {g}")
+    n_groups = k // g
+    spec = QuantSpec(bits=bits, sym=False, mse=False, group_size=g)
+    rows = w_kn.reshape(n_groups, g, n).permute(2, 0, 1).reshape(n * n_groups, g)
+    qp = find_params(rows.to(torch.float32), spec)
+    return pack_layer(w_kn, qp.scale.reshape(n, n_groups), qp.zero.reshape(n, n_groups),
+                      n_outlier=0, group_size=g, sym=False, bits=bits, dtype=dtype)
+
+
+def _stack_linears(lins) -> QLinearParams:
+    def stack(field):
+        parts = [getattr(l, field) for l in lins]
+        return None if parts[0] is None else torch.stack(parts)
+
+    return QLinearParams(
+        qweight=stack("qweight"), scales=stack("scales"), scaled_zeros=stack("scaled_zeros"),
+        oweight=stack("oweight"), bias=stack("bias"), reorder_ids=stack("reorder_ids"),
+        group_size=lins[0].group_size)
+
+
+def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch.bfloat16,
+               fuse_stages: bool = False) -> Dict:
+    """Every quantized linear of a fake tree swapped for its packed form,
+    stacked ``[L, ...]``, bit for bit as ``qeft_tpu/pipeline.py::
+    pack_model``; float leaves cast to ``dtype``.
+
+    A reordered tree (``o_reorder`` present) has every linear's weak rows
+    last already.  Without the reorder each linear's rows are put in its
+    own outliers-last order and it keeps the input gather as
+    ``reorder_ids``.  ``fuse_stages``: q/k/v -> ``qkv`` and up/gate ->
+    ``upgate`` (needs the reorder)."""
+    _check_family(meta)
+
+    def cast_float(v):
+        return v.to(dtype) if v.is_floating_point() else v
+
+    new = {k: cast_float(v) for k, v in params.items() if k != "layers"}
+    layers = params["layers"]
+    reordered = "o_reorder" in layers
+    blocks = []
+    for i in range(cfg.num_layers):
+        nb = {k: cast_float(v[i]) for k, v in layers.items() if k not in meta.all_linears}
+        for name in meta.all_linears:
+            st: QuantizerState = quantizers[(i, name)]
+            w_kn = layers[name][i]
+            k_in = w_kn.shape[0]
+            group = st.group_size if st.group_size > 0 else k_in
+            reorder_ids = None
+            if st.perm_ids is not None:
+                if reordered:
+                    raise ValueError(
+                        "--act_order quantization cannot be packed with the static global "
+                        "reorder: its group parameters follow each linear's own permutation; "
+                        "pack without --reorder or quantize without --act_order")
+                reorder_ids = st.perm_ids.to(device=w_kn.device, dtype=torch.int32)
+            elif not reordered and st.out_ids.shape[0] > 0:
+                reorder_ids = sparse_to_dense_ids(st.out_ids.to(w_kn.device), k_in)
+            if reorder_ids is not None:
+                w_kn = w_kn[reorder_ids.long()]
+            lin = pack_layer(w_kn, st.scale_group, st.zero_group,
+                             n_outlier=int(st.out_ids.shape[0]), group_size=group, sym=st.sym,
+                             bits=st.bits, dtype=dtype)
+            lin.reorder_ids = reorder_ids
+            nb[name] = lin
+        if fuse_stages:
+            for fused, names in fused_stages(meta).items():
+                _fuse_stage(nb, names, fused)
+        blocks.append(nb)
+    new["layers"] = {k: (_stack_linears([b[k] for b in blocks])
+                         if isinstance(blocks[0][k], QLinearParams)
+                         else torch.stack([b[k] for b in blocks]))
+                     for k in blocks[0]}
+    return new

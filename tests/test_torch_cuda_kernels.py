@@ -16,7 +16,10 @@ decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes, every M from 1
 to 8, with and without a bias; K1 (norm and residual), K5 and K6 one launch
 a call and bit-identical from call to call; the autograd linear's K5 / K2
 dispatch with ``reorder_ids``; K1 and K6 at eight rows of K up to 28,672;
-P4's variants bit-identical from call to call; and the wrappers'
+P4's variants bit-identical from call to call; K3 over whole windows of
+2048 and 4096 rows (the calibration length and llama2-7b's eval window,
+and its f32 entry); K5 on the round-to-nearest packed llama2-7b head; GPTQ
+of one 4096 x 4096 linear on the card against the CPU; and the wrappers'
 refusals.  They need an NVIDIA GPU and ``nvcc``
 and skip elsewhere:
 
@@ -681,3 +684,68 @@ def test_graph_generate_samples_fresh_numbers_each_replay(gen):
     again, _ = generate(params, prompt, api.init_cache(cfg, 1, 80, device="cuda"), cfg, 64,
                         sc=sc, api=api)
     assert torch.equal(toks, again)  # seed 0 by default: the same draws from the same state
+
+
+@pytest.mark.parametrize("s", [2048, 4096])
+def test_flash_at_calibration_and_eval_lengths(gen, s):
+    """K3 over a whole window of Llama-2-7B heads at the calibration length
+    (2048) and the default eval window (4096); the f32 entry of the
+    pipeline's calibration forwards rounds q/k/v to bf16 for the kernel and
+    returns f32."""
+    q = _randn(gen, 1, s, 32, 128)
+    k, v = _randn(gen, 1, 32, s, 128), _randn(gen, 1, 32, s, 128)
+    want = flash.flash_window_attention_plain(_f32(q), _f32(k), _f32(v), 0)
+    _close(flash.flash_window_attention(q, k, v, 0), want)
+    got = flash.flash_window_attention_any(_f32(q), _f32(k), _f32(v), 0)
+    assert got.dtype == torch.float32
+    _close(got.to(torch.bfloat16), want)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_packed_lm_head_decode_matvec(gen, m):
+    """K5 on the round-to-nearest packed Llama-2-7B head (4096 -> 32000, g =
+    128, no weak columns), through the serving linear: one launch a call."""
+    from qeft_tpu_torch.pipeline import rtn_pack_linear
+
+    head = rtn_pack_linear(torch.randn(4096, 32000, generator=gen, device="cuda") * 0.02)
+    x = _randn(gen, m, 4096)
+    cuda_lib.reset_launches()
+    got = qlinear_apply(x, head)
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launches) == {"qgemv": 1}
+    _close(got, qmm.qgemv_plain(_f32(x), _f32(head)))
+
+
+def test_gptq_on_the_card_matches_the_cpu(gen):
+    """GPTQ-OWQ of one 4096 x 4096 linear (w4, g = 128, MSE grid, r = 128)
+    on the card against the port's CPU run on the same weights and Hessian:
+    at most 0.5 % of the levels (code - zero) differ, at most 0.05 % by more
+    than one, and the reconstruction error tr((W - Q) H (W - Q)^T) within 1
+    %.  The two devices sum in other orders, a flipped rounding propagates
+    along its row through the error feedback and the group re-fits, and at
+    4096 columns a few such cascades move a level by two or more."""
+    from qeft_tpu_torch.quant import gptq, outliers
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+
+    col = torch.exp(torch.randn(4096, generator=gen, device="cuda"))
+    x = torch.randn(2048, 4096, generator=gen, device="cuda") * col
+    w = torch.randn(4096, 4096, generator=gen, device="cuda") * 4096 ** -0.5
+    h = gptq.hessian_from_inputs(x).cpu()
+    spec = QuantSpec(bits=4, sym=False, mse=True, group_size=128)
+    ids, out_ids = outliers.hessian_sort_ids(torch.diagonal(h), 128)
+    runs = {dev: gptq.gptq_quantize(w.to(dev), h.to(dev), spec, ids.to(dev), out_ids.to(dev))
+            for dev in ("cuda", "cpu")}
+    perm = ids.long()
+
+    def levels(r):
+        s = r.scale_group.cpu().double().repeat_interleave(128, dim=1)
+        return torch.round(r.w_fake.cpu().double()[:, perm] / s)[:, : 4096 - 128]
+
+    diff = (levels(runs["cuda"]) - levels(runs["cpu"])).abs()
+    assert (diff > 0).double().mean().item() <= 0.005
+    assert (diff > 1).double().mean().item() <= 0.0005
+    errs = []
+    for r in runs.values():
+        d = (w.cpu() - r.w_fake.cpu()).double()
+        errs.append(torch.trace(d @ h.double() @ d.t()).item())
+    assert abs(errs[0] - errs[1]) <= 1e-2 * errs[1], errs

@@ -90,16 +90,39 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_p
                                           ("0", False), ("", False), ("false", False)])
 def test_main_refuses_quant_lmhead_it_cannot_honour(monkeypatch, tmp_path, value, raises):
     """``QEFT_QUANT_LMHEAD`` set as qeft_tpu/main.py reads it (any value but
-    "0", "" and "false") asks for an RTN int4 lm_head, which the port does
-    not have yet: main raises before it reads the checkpoint, naming A6."""
+    "0", "" and "false") asks ``main --load`` for an RTN int4 lm_head; the
+    port now honours it (``raises``: the value asks for the packed head).
+    The logits of a JAX-written checkpoint served as ``main --load`` serves
+    it match JAX's model with ``main``'s head (``rtn_pack_linear`` of the
+    f32 head) within 1e-4 of their scale, and main's eval runs on it."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from qeft_tpu.checkpoint import save_packed as jax_save_packed
+    from qeft_tpu.models import llama as jl
+    from qeft_tpu.pipeline import rtn_pack_linear as jax_rtn_pack_linear
+    from qeft_tpu_torch.models import llama as tl
+    from qeft_tpu_torch.ops.packing import QLinearParams
+    from tests.torch_parity import assert_close_to_scale, random_packed, torch_cfg
+
     monkeypatch.setenv("QEFT_QUANT_LMHEAD", value)
-    argv = ["--load", str(tmp_path / "absent"), "--device", "cpu", "--eval"]
-    if raises:
-        with pytest.raises(NotImplementedError, match="A6"):
-            torch_main.main(argv)
-    else:  # past the check: the absent checkpoint is what fails
-        with pytest.raises(FileNotFoundError):
-            torch_main.main(argv)
+    jparams = random_packed("tiny")
+    cfg = jl.LLAMA_PRESETS["tiny"]
+    path = str(tmp_path / "tiny_packed")
+    jax_save_packed(path, jparams, cfg)
+    params, _, _ = torch_main.load_for_serving(path, torch.device("cpu"))
+    assert isinstance(params["lm_head"], QLinearParams) == raises
+    if raises:  # qeft_tpu/main.py:91-100
+        jparams = {**jparams, "lm_head": jax_rtn_pack_linear(
+            jparams["lm_head"].astype(jnp.float32))}
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 12))
+    want = jl.llama_forward(jparams, jnp.asarray(tokens), cfg)
+    with torch.no_grad():
+        got = tl.llama_forward(params, torch.as_tensor(tokens), torch_cfg("tiny"))
+    assert_close_to_scale(got, want)
+    res = torch_main.main(["--load", path, "--device", "cpu", "--eval", "--eval_windows", "1",
+                           "--seqlen", "16"])
+    assert np.isfinite(res["ppl_synthetic"])
 
 
 def test_training_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_path):
@@ -182,3 +205,27 @@ def test_family_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch
     tokens, _ = generate(params, torch.zeros(1, 4, dtype=torch.int64), cache, cfg, 2, api=api,
                          device="cpu")
     assert tokens.shape == (1, 2)
+
+
+def test_quantize_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_path):
+    """extract_outidx, main's quantize path, convert and load_fake."""
+    from qeft_tpu_torch import convert, extract_outidx
+    from qeft_tpu_torch.checkpoint import load_fake, save_fake
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    common = ["--model", "tiny", "--target_rank", "8", "--groupsize", "64", "--nsamples", "1",
+              "--seqlen", "16", "--no_frob_norm"]
+    out = str(tmp_path / "oidx")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_outidx.main(common + ["--output_dir", out])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_main.main(common)
+    assert not os.path.exists(out)
+    cfg = LLAMA_PRESETS["tiny"]
+    fake = str(tmp_path / "fake")
+    save_fake(fake, init_params(cfg, device="cpu"), {}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_fake(fake)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.main([fake, str(tmp_path / "packed")])
+    assert load_fake(fake, device="cpu")[0]["embed"].device.type == "cpu"

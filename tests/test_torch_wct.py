@@ -13,6 +13,7 @@ import contextlib
 import io
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,11 +141,16 @@ def test_load_model_dispatches_on_the_format(bases, tmp_path):
     q = packed["layers"]["q"].oweight
     np.testing.assert_array_equal(wct["layers"]["qkv"].oweight[..., : q.shape[-1]].numpy(),
                                   q.numpy())
+    # a fake checkpoint (JAX-written) loads as its dense tree, member names kept
+    from qeft_tpu.models import init_params as jax_init
+
     fake = str(tmp_path / "fake")
-    with open(fake + ".json", "w") as f:
-        f.write('{"format": "fake"}')
-    with pytest.raises(NotImplementedError):
-        tckpt.load_model(fake, device="cpu")
+    dense = jax_init(CFG, jax.random.PRNGKey(0), dtype=jnp.float32)
+    jckpt.save_fake(fake, dense, {}, CFG)
+    tree, cfg, family = tckpt.load_model(fake, device="cpu")
+    assert family == "llama" and cfg.hidden_size == CFG.hidden_size
+    assert "q" in tree["layers"] and "qkv" not in tree["layers"]
+    np.testing.assert_array_equal(tree["layers"]["q"].numpy(), np.asarray(dense["layers"]["q"]))
 
 
 def _run(argv):
