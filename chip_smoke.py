@@ -109,7 +109,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase's peak device memory;
 28. quantize cli: ``extract_outidx``, ``main`` quantizing with ``--fake
    --packing --save`` and its fake-vs-packed oracle, ``convert`` and ``main
-   --load --eval --benchmark`` as subprocesses on ``tiny-v2``.
+   --load --eval --benchmark`` as subprocesses on ``tiny-v2``;
+29. family train (after opt, on its model): WCT of OPT-6.7B at full width
+   and depth -- 6 steps with run_finetune's defaults, K2 and K7 counted
+   per step against the layer structure (K2 twice a linear, K7 once but
+   for layer 0's q, k and v), step time, tokens/s, peak memory, idle share
+   -- and the training oracle (layers 0, 15 and 31): the loss against the
+   dense bf16 model, each weak-column gradient against the dense f32 model
+   no farther than the dense bf16 model's; then 2 steps of a 2-layer
+   Bloom-7b1 packed without the global reorder (the ``reorder_ids`` gather
+   differentiated on the card);
+30. family train kernels: K2 and K7 at M = 4 x 512 at the family shapes
+   (Falcon-7b qkv and fc1 at g = 64, Phi-2 fc1, OPT-6.7B fc2) against their
+   plain versions, timed beside their bounds and ``torch.matmul``;
+31. family quantize (after quantize cli): QEFT's quantizer at full width on
+   random bf16 weights -- OPT-6.7B at 4 layers (g = 128), Phi-2, Bloom-7b1
+   (with and without the global reorder) and Falcon-7b (g = 64, percdamp
+   1.0) at 2 layers, 8 synthetic crops of 2048 tokens (the phase's cut of
+   the calibration set), r = 128 -- with seconds for extraction, each block
+   and packing, peak memory, the packed checkpoint written and served, the
+   oracle (recovered fake vs packed PPL within 0.1 %, the true fake delta
+   printed), teacher-forced logits against the fake model and graph tokens
+   equal to the eager loop's;
+32. hf: a Hugging Face directory of OPT-6.7B at full width and 2 layers (two
+   shards and an index) written from the preset's tree and read back bit
+   for bit, then ``extract_outidx --model <dir>`` and ``main --model <dir>
+   --reorder --packing --eval`` as subprocesses.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON table sums its paths (by
@@ -145,6 +170,9 @@ ORACLE_LAYERS = (0, 15, 31)
 LOSS_RTOL = 1e-2  # of the dense loss; see phase_train_oracle()
 KERNEL_RTOL = 1e-2  # of max |plain|; see check()
 ORACLE_RTOL = 0.1  # of max |dense logit|; see phase_oracle()
+GRAD_RATIO = 1.25  # of the dense bf16 model's gradient error; see phase_family_train_oracle()
+# K7 faults the oracle is read with: dx scaled by each; the first must fail it
+FAULTS_DX = (0.8, 0.95, 0.99)
 # measure_engine_throughput's defaults; the self-draft of run_benchmark's example
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_CTX, ENGINE_GEN = 8, 16, 64, 128
 SPEC_DRAFT_LAYERS = 8
@@ -167,6 +195,19 @@ QUANT_PRESET, QUANT_LAYERS, QUANT_SAMPLES, QUANT_SEQ, QUANT_EVAL_WINDOWS = (
     "llama2-7b", 4, 32, 2048, 2)
 PPL_RTOL = 1e-3
 QUANT_CLI_PRESET = "tiny-v2"
+# the family-quantize phase: (family, preset, layers, group size, global
+# reorder), full width, the depth cut to the layers; FAMILY_QUANT_SAMPLES
+# calibration crops of QUANT_SEQ tokens (the reference's protocol takes 128);
+# FAMILY_QUANT_NEW greedy tokens after the 64-token prompt
+FAMILY_QUANT_RUNS = (("opt", "opt-6.7b", 4, 128, True), ("phi", "phi-2", 2, 128, True),
+                     ("bloom", "bloom-7b1", 2, 128, True), ("bloom", "bloom-7b1", 2, 128, False),
+                     ("falcon", "falcon-7b", 2, 64, True))
+FAMILY_QUANT_SAMPLES, FAMILY_QUANT_NEW = 8, 64
+# (label, K, N, group size) of the family linears K2 and K7 are timed at for
+# training: Falcon-7b's qkv and fc1 (K = 4544 = 71 groups of 64), Phi-2's
+# fc1, OPT-6.7B's fc2
+FAMILY_SHAPES = (("falcon-7b qkv", 4544, 4672, 64), ("falcon-7b fc1", 4544, 18176, 64),
+                 ("phi-2 fc1", 2560, 10240, 128), ("opt-6.7b fc2", 16384, 4096, 128))
 PATH_LAUNCHES: dict = {}  # launch counts of each main path, by path
 
 
@@ -929,10 +970,13 @@ def _sft_batches(cfg, seed: int = 42):
 
 
 def phase_train_kernels(cfg, params, bw, rows):
-    """K7 and K2 at the training shapes: M = 4 x 512 token rows."""
+    """K7 and K2 at the training shapes, M = 4 x 512 token rows: the four
+    Llama stages (the layer rotating over 32), then the family shapes
+    (FAMILY_SHAPES, a random 2-layer stack each), kept under the K2 and K7
+    rows as ``family_m2048``."""
     from qeft_tpu_torch.ops import qmm
     from qeft_tpu_torch.ops.qlinear import matmul_f32
-    from qeft_tpu_torch.testing import dense_linear
+    from qeft_tpu_torch.testing import dense_linear, random_packed_linear
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -945,38 +989,53 @@ def phase_train_kernels(cfg, params, bw, rows):
     k7 = rows["qgemm_t"] = Row("qgemm_t", "qeft_tpu_torch/csrc/qmm.cu",
                                "qeft_tpu/ops/pallas_qmm.py:691", True)
     k2 = Row("qgemm", "", "", True)  # K2 at the training shape, merged into its row below
-    log(f"[train-kernels] K7 qgemm_t and K2 qgemm vs plain, M={m}, layer rotating over 32")
-    for name in ("qkv", "o", "upgate", "down"):
-        p = layers[name]
+    shapes = [(name, lambda name=name: (layers[name], n_layers), False)
+              for name in ("qkv", "o", "upgate", "down")]
+    shapes += [(label, lambda k=k, n=n, g=g: (random_packed_linear(gen, 2, k, n, g, 128,
+                                                                   fan_in=True), 2), True)
+               for label, k, n, g in FAMILY_SHAPES]
+    log(f"[train-kernels] K7 qgemm_t and K2 qgemm vs plain, M={m}: the Llama stages (layer "
+        f"rotating over {n_layers}), then the family shapes (over 2)")
+    for label, make, is_family in shapes:
+        p, nl = make()
         k, n, r = p.in_features, p.out_features, p.n_outlier
         gy = randn(m, n)
-        tail = matmul_f32(gy, p.oweight[3].t())  # the weak-column product of the backward
-        err = check(f"K7 {name} {n}->{k}", qmm.qgemm_t(gy, p.layer(3), tail),
-                    qmm.qgemm_t_plain(f32(gy), f32(p.layer(3)), tail))
-        ms = time_ms(lambda i: qmm.qgemm_t(gy, p.layer(i % n_layers), tail))
-        plain = time_ms(lambda i: qmm.qgemm_t_plain(gy, p.layer(i % n_layers), tail),
-                        inner=2, reps=3)
+        tail = matmul_f32(gy, p.oweight[1].t())  # the weak-column product of the backward
+        err7 = check(f"K7 {label} {n}->{k}", qmm.qgemm_t(gy, p.layer(1), tail),
+                     qmm.qgemm_t_plain(f32(gy), f32(p.layer(1)), tail))
+        ms7 = time_ms(lambda i: qmm.qgemm_t(gy, p.layer(i % nl), tail))
+        plain7 = time_ms(lambda i: qmm.qgemm_t_plain(gy, p.layer(i % nl), tail),
+                         inner=2, reps=3)
         w = dense_linear(_one_layer(p, 0))[0]
-        lib = time_ms(lambda i: torch.matmul(gy, w.t()))
+        lib7 = time_ms(lambda i: torch.matmul(gy, w.t()))
         wbytes = k * n // 2 + 4 * (k // p.group_size) * n
-        nbytes = wbytes + 2 * m * (n + k) + 4 * m * r
-        b = k7.add(err, ms, plain, lib, nbytes, 2 * m * k * n, bw)
-        log(f"    K7 kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, torch.matmul on the "
-            f"dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]}); the "
-            f"kernel at {b[0] / ms:.1%} of its bound")
-
         x = randn(m, k)
-        err = check(f"K2 {name} {k}->{n}", qmm.qgemm(x, p.layer(3)),
-                    qmm.qgemm_plain(f32(x), f32(p.layer(3))))
-        ms = time_ms(lambda i: qmm.qgemm(x, p.layer(i % n_layers)))
-        plain = time_ms(lambda i: qmm.qgemm_plain(x, p.layer(i % n_layers)), inner=2, reps=3)
-        lib = time_ms(lambda i: torch.matmul(x, w))
+        err2 = check(f"K2 {label} {k}->{n}", qmm.qgemm(x, p.layer(1)),
+                     qmm.qgemm_plain(f32(x), f32(p.layer(1))))
+        ms2 = time_ms(lambda i: qmm.qgemm(x, p.layer(i % nl)))
+        plain2 = time_ms(lambda i: qmm.qgemm_plain(x, p.layer(i % nl)), inner=2, reps=3)
+        lib2 = time_ms(lambda i: torch.matmul(x, w))
         del w
-        nbytes = wbytes + 2 * r * n + 2 * m * (k + n)
-        b = k2.add(err, ms, plain, lib, nbytes, 2 * m * (k + r) * n, bw)
-        log(f"    K2 kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, torch.matmul on the "
-            f"dequantized weight {lib * 1e3:.1f} us, bound {b[0] * 1e3:.2f} us ({b[1]}); the "
-            f"kernel at {b[0] / ms:.1%} of its bound")
+        for name, row, err, ms, plain, lib, nbytes, flops in (
+                ("K7", k7, err7, ms7, plain7, lib7, wbytes + 2 * m * (n + k) + 4 * m * r,
+                 2 * m * k * n),
+                ("K2", k2, err2, ms2, plain2, lib2, wbytes + 2 * r * n + 2 * m * (k + n),
+                 2 * m * (k + r) * n)):
+            if not is_family:
+                b = row.add(err, ms, plain, lib, nbytes, flops, bw)
+            else:
+                b = bound_ms(nbytes, flops)
+                d = rows["qgemm_t" if name == "K7" else "qgemm"].d
+                d["max_abs_err"] = max(d["max_abs_err"], err)
+                d.setdefault("family_m2048", {})[label] = dict(
+                    ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=lib)
+            log(f"    {name} {label}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+                f"torch.matmul on the dequantized weight {lib * 1e3:.1f} us, bound "
+                f"{b[0] * 1e3:.2f} us ({b[1]}); the kernel at {b[0] / ms:.1%} of its bound, "
+                f"{ms / lib:.2f}x the library")
+        if is_family:
+            del p
+            torch.cuda.empty_cache()
     k7.d["per"] = f"one training layer's backward: qkv + o + upgate + down at M={m}"
     # ragged M: the last block of rows is partly past M
     p = layers["o"].layer(3)
@@ -1068,27 +1127,141 @@ def phase_train_oracle(cfg, params):
     return dict(loss_kernel=lk, loss_dense=ld, grad_rel_err=out)
 
 
-def train_step_flops(cfg, params) -> int:
+def _packed_linears(params, family):
+    """(the stacked packed linears of a layer by name, the names of those
+    that read the embedding at layer 0: the qkv stage)."""
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.ops.packing import QLinearParams
+
+    lins = {k: v for k, v in params["layers"].items() if isinstance(v, QLinearParams)}
+    first = [k for k in lins if k in get_model_meta(family).qkv + ("qkv",)]
+    return lins, first
+
+
+def phase_family_train_oracle(cfg, params, family, label):
+    """The training oracle of a family: one TRAIN_BATCH x TRAIN_SEQ batch
+    through the kernel path, through the dense bf16 model (plain PyTorch,
+    the same training forward) and through the dense model in f32 (every
+    leaf and activation f32: the reference the two bf16 paths round away
+    from).  The loss within LOSS_RTOL of the dense bf16 model's, as
+    phase_train_oracle bounds it.  Each weak-column slab's gradient at
+    ORACLE_LAYERS: the kernel path's relative Frobenius error against the
+    f32 model within GRAD_RATIO times the dense bf16 model's own (a kernel
+    adds no error beyond bf16's; a wrong kernel moves a gradient by its own
+    scale); Llama's comparison, max |diff| against the dense bf16 model over
+    its scale, printed beside it.  For OPT's ReLU fc1 no bf16 path comes
+    within 0.1 of the scale of the f32 gradient (PERF.md §6), so a
+    bound on it would hold the kernels to what bf16 cannot give.
+
+    The oracle is then read with planted faults, K7's ``dx`` scaled by each
+    of FAULTS_DX in every layer's backward: it must reject the first; the
+    largest ratio of the sound run and of each faulted one are printed and
+    returned, so that GRAD_RATIO is seen to lie between them."""
+    from qeft_tpu_torch.checkpoint import tree_map
+    from qeft_tpu_torch.finetune import causal_lm_loss, split_wct, train_forward, wct_loss
+    from qeft_tpu_torch.ops import qlinear
+    from qeft_tpu_torch.testing import dense_model
+
+    names = list(_packed_linears(params, family)[0])
+    ids, labels = next(_sft_batches(cfg))
+    loss, grads = {}, {}
+    real_qgemm_t = qlinear.qgemm_t
+    faults = [f"dx x {f}" for f in FAULTS_DX]
+    for tag, scale in (("kernel", None), *zip(faults, FAULTS_DX)):
+        if scale is not None:
+            qlinear.qgemm_t = lambda *a, **kw: real_qgemm_t(*a, **kw) * scale
+        try:
+            oweights, frozen = split_wct(params)
+            loss[tag] = wct_loss(oweights, frozen, ids, labels, cfg, remat=True, family=family)
+            loss[tag].backward()
+        finally:
+            qlinear.qgemm_t = real_qgemm_t
+        grads[tag] = {(n, l): oweights[n][l].grad.float() for n in names
+                      for l in ORACLE_LAYERS}
+        del oweights, frozen
+    for tag, dtype in (("dense bf16", torch.bfloat16), ("dense f32", torch.float32)):
+        dense = tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                         dense_model(params, dtype))
+        for n in names:
+            leaves = list(dense["layers"][n].unbind(0))
+            for l in ORACLE_LAYERS:
+                leaves[l] = leaves[l].detach().requires_grad_()
+            dense["layers"][n] = leaves
+        loss[tag] = causal_lm_loss(train_forward(dense, ids, cfg, True, family), labels)
+        loss[tag].backward()
+        r = params["layers"][names[0]].n_outlier
+        grads[tag] = {(n, l): dense["layers"][n][l].grad[-r:].float() for n in names
+                      for l in ORACLE_LAYERS}
+        del dense
+        torch.cuda.empty_cache()
+    lk, ld, lf = (loss[t].item() for t in ("kernel", "dense bf16", "dense f32"))
+    log(f"[{label}] batch {TRAIN_BATCH}x{TRAIN_SEQ}: loss kernel path {lk:.6f}, dense bf16 "
+        f"{ld:.6f}, dense f32 {lf:.6f}; |kernel - dense bf16| {abs(lk - ld):.3g} (bound "
+        f"{LOSS_RTOL * ld:.3g})")
+    ok = abs(lk - ld) <= LOSS_RTOL * ld
+    out = {}
+
+    def fro(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def max_rel(a, b):
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    ratios = {tag: [] for tag in ["kernel", *faults]}
+    for (n, l), gf in grads["dense f32"].items():
+        gk, gd = grads["kernel"][(n, l)], grads["dense bf16"][(n, l)]
+        ek, ed = fro(gk, gf), fro(gd, gf)
+        for tag in ratios:
+            ratios[tag].append(fro(grads[tag][(n, l)], gf) / ed)
+        good = bool(torch.isfinite(gk).all()) and ek <= GRAD_RATIO * ed
+        ok &= good
+        out[f"{n}{l}"] = dict(kernel_vs_f32=ek, bf16_vs_f32=ed, max_vs_bf16=max_rel(gk, gd),
+                              max_kernel_vs_f32=max_rel(gk, gf), max_bf16_vs_f32=max_rel(gd, gf),
+                              ratios={tag: r[-1] for tag, r in ratios.items()})
+        log(f"  dow {n} layer {l}: against the f32 model, relative Frobenius error kernel path "
+            f"{ek:.2%}, dense bf16 {ed:.2%}: ratio {ek / ed:.3f} (bound {GRAD_RATIO:.2f}; "
+            + ", ".join(f"{tag} {ratios[tag][-1]:.3f}" for tag in faults)
+            + f"); max |diff| over the scale: kernel vs dense bf16 {max_rel(gk, gd):.2%} "
+            f"(Llama's comparison), kernel vs f32 {max_rel(gk, gf):.2%}, dense bf16 vs f32 "
+            f"{max_rel(gd, gf):.2%} {'ok' if good else 'FAIL'}")
+    largest = {tag: max(r) for tag, r in ratios.items()}
+    caught = {tag: sum(x > GRAD_RATIO for x in ratios[tag]) for tag in faults}
+    log(f"[{label}] largest ratio (bound {GRAD_RATIO:.2f}): sound {largest['kernel']:.3f}; "
+        + "; ".join(f"K7's {tag} {largest[tag]:.3f}, failing {caught[tag]} of "
+                    f"{len(ratios[tag])} slabs" for tag in faults))
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"{label}: the training kernel path disagrees with the dense model")
+    if not caught[faults[0]]:
+        raise AssertionError(f"{label}: the oracle passed a K7 with {faults[0]}")
+    return dict(loss_kernel=lk, loss_dense=ld, loss_f32=lf, largest_ratio=largest,
+                slabs_failed=caught, grads=out)
+
+
+def train_step_flops(cfg, params, family="llama") -> int:
     """Operations of one train step as the port runs it: each packed linear
     forward twice (remat) over K + r rows, K7 over K rows except layer 0's
-    qkv, the two weak-column products; the plain attention's four products
-    forward, recomputed and twice backward; lm_head forward and its dx."""
+    qkv stage, the two weak-column products; the plain attention's four
+    products forward, recomputed and twice backward; lm_head forward and its
+    dx."""
     m, s = TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ
+    lins, first = _packed_linears(params, family)
     per_layer = 0
-    for name in ("qkv", "o", "upgate", "down"):
-        p = params["layers"][name]
+    for p in lins.values():
         k, n, r = p.in_features, p.out_features, p.n_outlier
         per_layer += 2 * (2 * m * (k + r) * n) + 2 * m * k * n + 2 * (2 * m * r * n)
     per_layer += 4 * (4 * TRAIN_BATCH * cfg.num_heads * s * s * cfg.head_dim)
-    qkv = params["layers"]["qkv"]
-    head = 2 * (2 * m * cfg.hidden_size * cfg.vocab_size)
-    return (cfg.num_layers * per_layer - 2 * m * qkv.in_features * qkv.out_features + head)
+    head = 2 * (2 * m * params["lm_head"].shape[0] * cfg.vocab_size)
+    no_dx = sum(2 * m * lins[k].in_features * lins[k].out_features for k in first)
+    return cfg.num_layers * per_layer - no_dx + head
 
 
-def phase_train(cfg, params):
-    """The WCT main path: TRAIN_STEPS steps of make_train_step at full depth
-    with run_finetune's defaults (lr 2e-4, cosine over 100 steps, warmup
-    0.03, clip 0.3, remat), launch counts checked per step."""
+def phase_train(cfg, params, family="llama", label="train", steps=TRAIN_STEPS):
+    """The WCT main path: ``steps`` steps of make_train_step with
+    run_finetune's defaults (lr 2e-4, cosine over 100 steps, warmup 0.03,
+    clip 0.3, remat), launch counts checked per step: K2 twice for every
+    packed linear (the forward and its recomputation), K7 once but for the
+    qkv stage of layer 0, whose input (the embedding) needs no gradient."""
     from torch.profiler import ProfilerActivity, profile
 
     from qeft_tpu_torch.finetune import (
@@ -1103,15 +1276,16 @@ def phase_train(cfg, params):
     tc = TrainConfig(learning_rate=2e-4, total_steps=100, warmup_ratio=0.03,
                      max_grad_norm=0.3, lr_schedule="cosine", remat=True)
     opt = make_optimizer(tc, oweights)
-    step = make_train_step(cfg, opt, remat=True)
+    step = make_train_step(cfg, opt, remat=True, family=family)
     data = _sft_batches(cfg)
     n_layers, tokens = cfg.num_layers, TRAIN_BATCH * TRAIN_SEQ
-    per_step = {"qgemm": 2 * 4 * n_layers, "qgemm_t": 4 * n_layers - 1}
+    lins, first = _packed_linears(params, family)
+    per_step = {"qgemm": 2 * len(lins) * n_layers, "qgemm_t": len(lins) * n_layers - len(first)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     losses, host_ms, dev_ms = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         ids, labels = next(data)
         before = dict(cuda_lib.launches)
         start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1127,21 +1301,22 @@ def phase_train(cfg, params):
         diff = {k: cuda_lib.launches[k] - before.get(k, 0) for k in cuda_lib.launches}
         diff = {k: v for k, v in diff.items() if v}
         supervised = int((labels[:, 1:] != -100).sum())
-        log(f"[train] step {i + 1}: loss {losses[-1]:.6f}, {host_ms[-1]:.1f} ms host clock, "
+        log(f"[{label}] step {i + 1}: loss {losses[-1]:.6f}, {host_ms[-1]:.1f} ms host clock, "
             f"{dev_ms[-1]:.1f} ms CUDA events, {tokens / host_ms[-1] * 1e3:.0f} tokens/s "
             f"({supervised} supervised), launches {diff}")
         if diff != per_step:
             raise AssertionError(f"step {i + 1} launched {diff}, expected {per_step}")
     counts = dict(cuda_lib.launches)
-    PATH_LAUNCHES["train"] = counts
+    PATH_LAUNCHES[label] = counts
     peak = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    log(f"[train] launches {counts}; expected {want}; peak device memory {peak:.3f} GB")
+    want = {k: v * steps for k, v in per_step.items()}
+    log(f"[{label}] launches {counts}; expected {want} ({per_step} a step); peak device memory "
+        f"{peak:.3f} GB")
     if counts != want:
         raise AssertionError("the training path did not launch each kernel as expected")
     med_host, med_dev = statistics.median(host_ms[1:]), statistics.median(dev_ms[1:])
-    flops = train_step_flops(cfg, params)
-    log(f"[train] steps 2-{TRAIN_STEPS}: median {med_host:.1f} ms host clock, {med_dev:.1f} ms "
+    flops = train_step_flops(cfg, params, family)
+    log(f"[{label}] steps 2-{steps}: median {med_host:.1f} ms host clock, {med_dev:.1f} ms "
         f"CUDA events -> {tokens / med_host * 1e3:.0f} tokens/s; {flops / 1e12:.2f} TFLOP a step, "
         f"bound {flops / PEAK_BF16 * 1e3:.1f} ms (operations)")
     if not all(l == l and abs(l) < float("inf") for l in losses):
@@ -1153,7 +1328,7 @@ def phase_train(cfg, params):
                 else [torch.equal(v, frozen_copy[k])])
         if not all(same):
             raise AssertionError(f"frozen buffer {k} changed")
-    log(f"[train] oweights moved by up to {moved:.4g}; frozen buffers unchanged")
+    log(f"[{label}] oweights moved by up to {moved:.4g}; frozen buffers unchanged")
     if not moved > 0:
         raise AssertionError("the oweights did not move")
     del frozen_copy, start
@@ -1164,11 +1339,11 @@ def phase_train(cfg, params):
         torch.cuda.synchronize()
     kernels, busy = kernel_times(prof)
     res = dict(losses=losses, host_ms=med_host, dev_ms=med_dev, tokens_s=tokens / med_host * 1e3,
-               peak_gb=peak, counts=counts)
+               peak_gb=peak, counts=counts, per_step=per_step)
     if busy == 0:
-        log("[train] device time not measured (the profiler recorded no CUDA kernel)")
+        log(f"[{label}] device time not measured (the profiler recorded no CUDA kernel)")
         return res
-    log(f"[train] profiled step: device busy {busy:.1f} ms against the median unprofiled step "
+    log(f"[{label}] profiled step: device busy {busy:.1f} ms against the median unprofiled step "
         f"{med_host:.1f} ms (host clock) -> idle share {max(0.0, 1 - busy / med_host):.1%}; "
         f"top kernels:")
     for name, ms in kernels[:10]:
@@ -2118,7 +2293,7 @@ def _quantize_breakdown(dense, calib, cfg, meta, args):
         return time.perf_counter() - tick, res
 
     blk = {k: v[0] for k, v in pl._member_layers(dense, cfg, meta).items()}
-    inps = pl._embed_tokens(dense["embed"], torch.as_tensor(calib, device="cuda"), cfg)
+    inps = pl._embed_tokens(dense, torch.as_tensor(calib, device="cuda"), cfg, meta)
     t = {}
     t["hessian forward"], (_, hs) = timed_s(lambda: pl.block_hessians(blk, inps, cfg, meta))
     t["re-forward"], _ = timed_s(lambda: pl.block_forward_batch(blk, inps, cfg, meta))
@@ -2343,6 +2518,235 @@ def phase_quantize_cli():
         raise AssertionError("main --load did not evaluate and benchmark the converted checkpoint")
     return dict(delta=delta)
 
+def phase_family_train(cfg, params):
+    """WCT of the other families: OPT-6.7B at full width and depth (the
+    packed model of phase opt), TRAIN_STEPS steps with run_finetune's
+    defaults and the training oracle (phase_family_train_oracle); then 2
+    steps of Bloom-7b1 packed without the global reorder at FAMILY_LAYERS
+    layers, so that the gradient of the ``reorder_ids`` gather runs on the
+    card."""
+    from qeft_tpu_torch.models.bloom import BLOOM_PRESETS
+    from qeft_tpu_torch.testing import build_packed_model
+
+    out = {"opt-6.7b": phase_train(cfg, params, "opt", "family-train opt-6.7b")}
+    out["opt-6.7b oracle"] = phase_family_train_oracle(cfg, params, "opt", "family-train oracle")
+    torch.cuda.empty_cache()
+    bcfg = dataclasses.replace(BLOOM_PRESETS["bloom-7b1"], num_layers=FAMILY_LAYERS)
+    bloom = build_packed_model(bcfg, seed=0, g=128, r=128, device="cuda", family="bloom",
+                               reorder=False)
+    out["bloom-7b1"] = phase_train(bcfg, bloom, "bloom", "family-train bloom-7b1 reorder_ids",
+                                   steps=2)
+    del bloom
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_quantize_one(family, preset, n_layers, g, reorder):
+    """One FAMILY_QUANT_RUNS entry: random bf16 weights at full width built
+    on the card, OGR extraction and GPTQ-OWQ (w4, MSE grid, r = 128) with or
+    without the global reorder on FAMILY_QUANT_SAMPLES synthetic crops of
+    QUANT_SEQ tokens, packing, the packed checkpoint written and served; the
+    oracle (recovered fake vs packed PPL within PPL_RTOL, the true fake
+    delta printed), teacher-forced logits of the packed model against the
+    fake one, and graph tokens equal to the eager loop's."""
+    import importlib
+
+    from qeft_tpu_torch import checkpoint as ckpt
+    from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.data import get_calibration_tokens, get_loaders
+    from qeft_tpu_torch.eval import eval_ppl
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.main import load_for_serving
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+    from qeft_tpu_torch.testing import dense_model
+
+    module = importlib.import_module(f"qeft_tpu_torch.models.{family}")
+    cfg = dataclasses.replace(getattr(module, f"{family.upper()}_PRESETS")[preset],
+                              num_layers=n_layers)
+    meta, api = get_model_meta(family), get_model_api(family)
+    tag = f"family-quantize {preset}{'' if reorder else ' reorder_ids'}"
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dense = module.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    calib = get_calibration_tokens("synthetic", FAMILY_QUANT_SAMPLES, 0, QUANT_SEQ,
+                                   vocab_size=cfg.vocab_size)
+    args = pl.QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=True, group_size=g),
+                           target_rank=128, nsamples=FAMILY_QUANT_SAMPLES, no_frob_norm=True,
+                           reorder=reorder, percdamp=1.0 if family == "falcon" else 0.01)
+    log(f"[{tag}] random bf16 {preset} at {n_layers} layers (full width) on the card; "
+        f"calibration {FAMILY_QUANT_SAMPLES} x {QUANT_SEQ} synthetic tokens; GPTQ-OWQ w4 g{g} MSE "
+        f"r=128 percdamp {args.percdamp}, "
+        + ("extraction, then the global reorder" if reorder else "per-linear weak columns"))
+    outidx = None
+    if reorder:
+        with counted(f"{tag} extract") as c:
+            tick = time.perf_counter()
+            outidx, _ = pl.extract_global_outidx(dense, calib, cfg, meta, args)
+            torch.cuda.synchronize()
+            out["extract_s"] = time.perf_counter() - tick
+        _expect(f"{tag} extraction (plain attention, no kernel)", c.counts, {})
+    args.no_frob_norm = False
+    with counted(f"{tag} calibration") as c:
+        tick = time.perf_counter()
+        fake, states = pl.quantize_model(dense, calib, cfg, meta, args, outidx)
+        torch.cuda.synchronize()
+        out["quantize_s"] = time.perf_counter() - tick
+    _expect(f"{tag} GPTQ calibration", c.counts, {})
+    out["quantize_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del dense
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "packed")
+        tick = time.perf_counter()
+        packed = pl.pack_model(fake, states, cfg, meta)
+        torch.cuda.synchronize()
+        out["pack_s"] = time.perf_counter() - tick
+        ckpt.save_packed(path, packed, cfg, family=family)
+        served, _, fam = load_for_serving(path, "cuda")
+    if fam != family or not all(
+            torch.equal(getattr(served["layers"][k], f), getattr(v, f))
+            for k, v in packed["layers"].items() if hasattr(v, "qweight")
+            for f in ("qweight", "scales", "scaled_zeros", "oweight")):
+        raise AssertionError(f"{tag}: the packed checkpoint did not load back bit for bit")
+    del packed
+    log(f"[{tag}] extraction {out.get('extract_s', 0.0):.1f} s, quantization "
+        f"{out['quantize_s']:.1f} s ({out['quantize_s'] / n_layers:.1f} s a block; each block's "
+        f"seconds printed above), pack_model {out['pack_s']:.2f} s; peak device memory by the "
+        f"end of the quantization {out['quantize_peak_gb']:.3f} GB")
+
+    test = get_loaders("synthetic", train=False, vocab_size=cfg.vocab_size)
+    windows, n_lin = QUANT_EVAL_WINDOWS, len(meta.all_linears) * n_layers
+    recovered = dense_model(served)
+    ppl = {}
+    for label, params, want in (("fake", fake, {}), ("recovered fake", recovered, {}),
+                                ("packed", served, {"qgemm": n_lin * windows})):
+        with counted(f"{tag} eval {label}") as c:
+            ppl[label] = eval_ppl(params, test, cfg, seqlen=QUANT_SEQ, max_windows=windows,
+                                  api=api, device="cuda")
+        _expect(f"{tag} eval of the {label} model", c.counts, want)
+    del recovered
+    delta = abs(ppl["packed"] - ppl["recovered fake"]) / ppl["recovered fake"]
+    fake_delta = abs(ppl["packed"] - ppl["fake"]) / ppl["fake"]
+    out.update(ppl_fake=ppl["fake"], ppl_recovered=ppl["recovered fake"],
+               ppl_packed=ppl["packed"], ppl_delta=delta, ppl_delta_fake=fake_delta)
+    log(f"[{tag}] synthetic ppl ({windows} windows of {QUANT_SEQ}): fake {ppl['fake']:.4f}, "
+        f"recovered fake {ppl['recovered fake']:.4f}, packed {ppl['packed']:.4f}; "
+        f"recovered-fake-vs-packed delta {delta:.4%} (bound {PPL_RTOL:.2%}), fake-vs-packed "
+        f"delta {fake_delta:.4%} (printed)")
+    if not (np.isfinite(ppl["fake"]) and np.isfinite(ppl["packed"]) and delta <= PPL_RTOL):
+        raise AssertionError(f"{tag}: the packed model's PPL disagrees with its fake model's")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen, device="cuda")
+
+    def run(graph):
+        cache = api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda")
+        return generate(served, prompt, cache, cfg, FAMILY_QUANT_NEW, api=api, device="cuda",
+                        graph=graph)[0]
+
+    run(True)  # warm-up: the capture
+    with counted(f"{tag} generate") as c:
+        tick = time.perf_counter()
+        got = run(True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - tick
+    _expect(f"{tag} generate from the packed checkpoint", c.counts,
+            {"qgemv": n_lin * (FAMILY_QUANT_NEW - 1), "qgemm": n_lin})
+    eager = run(False)
+    same = bool(torch.equal(got, eager))
+    log(f"[{tag}] generate: {PROMPT} + {FAMILY_QUANT_NEW} tokens in {dt:.3f} s through the graph; "
+        f"tokens equal to the eager loop's: {same}")
+    if not same or not ((got >= 0) & (got < cfg.vocab_size)).all():
+        raise AssertionError(f"{tag}: graph tokens differ from the eager loop's")
+    lp = _teacher_forced(served, cfg, api, prompt, got)
+    lf = _teacher_forced(fake, cfg, api, prompt, got)
+    diff, scale = (lp - lf).abs().amax(dim=-1), lf.abs().amax().item()
+    out.update(max_logit_diff=diff.max().item(), logit_scale=scale,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[{tag}] teacher-forced logits, packed vs fake: max |diff| {out['max_logit_diff']:.4g}, "
+        f"fake logit scale {scale:.4g}, bound {ORACLE_RTOL * scale:.4g}; argmax agreement "
+        f"{(lp.argmax(-1) == lf.argmax(-1)).sum().item()}/{FAMILY_QUANT_NEW}; peak device "
+        f"memory {out['peak_memory_gb']:.3f} GB")
+    if not (torch.isfinite(lp).all() and out["max_logit_diff"] <= ORACLE_RTOL * scale):
+        raise AssertionError(f"{tag}: the packed model's logits disagree with the fake model's")
+    del served, fake
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_quantize():
+    """QEFT's quantizer on OPT-6.7B, Phi-2, Bloom-7b1 (with and without the
+    global reorder) and Falcon-7b at full width (FAMILY_QUANT_RUNS)."""
+    return {f"{preset}{'' if reorder else ' reorder_ids'}": _family_quantize_one(
+        family, preset, n_layers, g, reorder)
+        for family, preset, n_layers, g, reorder in FAMILY_QUANT_RUNS}
+
+
+def phase_hf():
+    """A Hugging Face directory of OPT-6.7B at full width and FAMILY_LAYERS
+    layers, written from the preset's random bf16 tree in two shards with an
+    index (``testing.write_hf_opt``); ``load_hf_model`` gives the tree
+    written, bit for bit; then ``extract_outidx --model <dir>`` and ``main
+    --model <dir> --reorder --packing --eval`` as subprocesses."""
+    from qeft_tpu_torch.checkpoint import to_flat
+    from qeft_tpu_torch.models.hf_loader import load_hf_model
+    from qeft_tpu_torch.models.opt import OPT_PRESETS, init_params
+    from qeft_tpu_torch.testing import write_hf_opt
+
+    cfg = dataclasses.replace(OPT_PRESETS["opt-6.7b"], num_layers=FAMILY_LAYERS)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        hf = os.path.join(tmp, "opt-6.7b-2layers")
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        tick = time.perf_counter()
+        write_hf_opt(hf, params, cfg, shards=2)
+        out["write_s"] = time.perf_counter() - tick
+        tick = time.perf_counter()
+        loaded, lcfg, family = load_hf_model(hf, device="cuda")
+        torch.cuda.synchronize()
+        out["read_s"] = time.perf_counter() - tick
+        want, got = to_flat(params), to_flat(loaded)
+        same = (family == "opt" and lcfg == cfg and sorted(want) == sorted(got)
+                and all(np.array_equal(got[k], v) for k, v in want.items()))
+        size = sum(os.path.getsize(os.path.join(hf, f)) for f in os.listdir(hf))
+        log(f"[hf] opt-6.7b at {FAMILY_LAYERS} layers written as an HF directory ({size} bytes, "
+            f"2 shards) in {out['write_s']:.1f} s, read back in {out['read_s']:.1f} s: the tree "
+            f"equal bit for bit: {same}")
+        if not same:
+            raise AssertionError("load_hf_model did not read back the tree written")
+        del params, loaded, want, got
+        torch.cuda.empty_cache()
+        common = ["--model", hf, "--wbits", "4", "--target_rank", "128", "--groupsize", "128",
+                  "--nsamples", "8", "--seqlen", "2048"]
+        oidx = os.path.join(tmp, "oidx")
+        for label, argv in (
+                ("extract_outidx", ["-m", "qeft_tpu_torch.extract_outidx", *common,
+                                    "--no_frob_norm", "--output_dir", oidx]),
+                ("main", ["-m", "qeft_tpu_torch.main", *common, "--reorder", "--outidx_file",
+                          os.path.join(oidx, "w4_r128", "outidx.npy"), "--packing", "--save",
+                          os.path.join(tmp, "q"), "--eval", "--eval_windows", "1"])):
+            tick = time.perf_counter()
+            proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                                  cwd=root, timeout=600)
+            log(f"[hf] python {' '.join(argv[:2])} --model <HF dir> exit {proc.returncode} in "
+                f"{time.perf_counter() - tick:.1f} s:")
+            for line in [l for l in proc.stdout.strip().splitlines() if "block" not in l][-4:]:
+                log(f"    {line}")
+            if proc.returncode != 0:
+                log(proc.stderr[-3000:])
+                raise AssertionError(f"{label} --model <HF dir> failed")
+            out[label] = proc.stdout
+    fields = out["main"].split("fake-vs-packed delta ")
+    delta = float(fields[1].split("%")[0]) / 100 if len(fields) == 2 else float("nan")
+    if not delta < 1e-2:
+        raise AssertionError(f"main --model <HF dir>: fake-vs-packed delta {delta}")
+    return dict(delta=delta, write_s=out["write_s"], read_s=out["read_s"])
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
@@ -2415,12 +2819,15 @@ def main(argv=None) -> int:
     opt_params, opt_bytes = timed(phase_opt_model, opt_cfg)
     timed(phase_family_kernels, opt_cfg, opt_params, bw, rows)
     timed(phase_opt, opt_cfg, opt_params, opt_bytes)
+    timed(phase_family_train, opt_cfg, opt_params)
     del opt_params
     torch.cuda.empty_cache()
     timed(phase_families, rows)
     timed(phase_family_cli, opt_cfg)
     timed(phase_quantize)
     timed(phase_quantize_cli)
+    timed(phase_family_quantize)
+    timed(phase_hf)
     for key, row in rows.items():
         by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if c.get(key)}
         row.d["launches_by_path"] = by_path

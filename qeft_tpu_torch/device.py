@@ -9,7 +9,12 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` means the GPU.  Without one the call fails: the CPU is used
-    only when the caller names it (``device="cpu"``), never as a fallback."""
+    only when the caller names it (``device="cpu"``), never as a fallback.
+    Every entry point passes here, so the kernel-path environment variables
+    are checked here (`env.check`)."""
+    from qeft_tpu_torch import env
+
+    env.check()
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -7,8 +7,9 @@ takes positional ``model dataset``)::
     python -m qeft_tpu_torch.extract_outidx --model llama2-7b --dataset synthetic \\
         --wbits 4 --target_rank 128 --no_frob_norm --output_dir outidx
 
-``--model`` is a preset name (random weights from ``--seed``, built on the
-device); a Hugging Face directory raises (ROADMAP A6b).  ``--dataset`` is
+``--model`` is a preset name of any family (random weights from ``--seed``,
+built on the device) or a Hugging Face directory (``config.json`` and
+safetensors shards, read by ``models.hf_loader``).  ``--dataset`` is
 ``synthetic`` or a ``.npy`` token file.  Writes ``<output_dir>/w{bits}_r
 {rank}/outidx.npy`` and each qkv/ffn1 linear's own ids as ``layer{i}.
 {name}.npy``.  Runs on the GPU unless ``--device cpu`` is given.
@@ -28,7 +29,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 
 def add_common_quant_args(parser: argparse.ArgumentParser, model_required: bool = True) -> None:
     parser.add_argument("--model", required=model_required,
-                        help="preset name (llama2-7b, tiny, ...)")
+                        help="preset name (llama2-7b, opt-6.7b, tiny, ...) or a Hugging Face "
+                        "directory")
     parser.add_argument("--dataset", default="synthetic", help="synthetic | *.npy")
     parser.add_argument("--device", default=None, help="default: cuda (required)")
     parser.add_argument("--nsamples", type=int, default=128)
@@ -61,19 +63,29 @@ def resolve_dtype(name):
 def load_model_and_meta(model: str, dtype=None, device=None, seed: int = 0):
     """Preset name -> (random dense tree on ``device``, config, meta): f32
     unless ``dtype`` says otherwise, as the JAX package initialises presets
-    (the values come from a ``torch.Generator`` and differ from JAX's)."""
-    from qeft_tpu_torch.models.llama import LLAMA_PRESETS, init_params
+    (the values come from a ``torch.Generator`` and differ from JAX's).  A
+    directory with a ``config.json`` -> its Hugging Face checkpoint
+    (`models.hf_loader`), bf16 unless ``dtype`` says otherwise."""
+    import importlib
+
+    from qeft_tpu_torch.device import resolve_device
     from qeft_tpu_torch.models.registry import get_model_meta
 
-    if model in LLAMA_PRESETS:
-        cfg = LLAMA_PRESETS[model]
-        params = init_params(cfg, seed=seed, dtype=dtype or torch.float32, device=device)
-        return params, cfg, get_model_meta("gemma" if "gemma" in model else "llama")
+    device = resolve_device(device)
+    for family in ("llama", "opt", "phi", "bloom", "falcon"):
+        module = importlib.import_module(f"qeft_tpu_torch.models.{family}")
+        presets = getattr(module, f"{family.upper()}_PRESETS")
+        if model in presets:
+            cfg = presets[model]
+            params = module.init_params(cfg, seed=seed, dtype=dtype or torch.float32,
+                                        device=device)
+            return params, cfg, get_model_meta("gemma" if "gemma" in model else family)
     if os.path.isdir(model):
-        raise NotImplementedError(
-            f"{model}: reading a Hugging Face checkpoint is not ported yet (ROADMAP A6b: "
-            "models/hf_loader.py)")
-    raise ValueError(f"unknown model {model!r} (the llama presets: {sorted(LLAMA_PRESETS)})")
+        from qeft_tpu_torch.models.hf_loader import load_hf_model
+
+        params, cfg, family = load_hf_model(model, dtype=dtype or torch.bfloat16, device=device)
+        return params, cfg, get_model_meta(family)
+    raise ValueError(f"unknown model {model!r}: neither a preset nor a Hugging Face directory")
 
 
 def build_quantize_args(args):

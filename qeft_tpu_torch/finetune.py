@@ -7,7 +7,10 @@ slabs are per-layer f32 leaves, ``{stage: [L tensors of [r, N]]}``: a stacked
 ``[L, r, N]`` zero gradient for every slice.  The training forward
 differentiates through the packed GEMM (K2) and takes the transposed INT4
 GEMM (K7) for ``dx`` (``ops/qlinear.py``); each decoder block is
-rematerialised with ``torch.utils.checkpoint`` when ``remat`` is on.
+rematerialised with ``torch.utils.checkpoint`` when ``remat`` is on.  Every
+family trains: llama and gemma through their training block, OPT, Phi,
+Bloom and Falcon through their blocks under autograd (`train_forward`).
+Only the slabs train; biases, norms and the embeddings stay frozen.
 
 The optimizer is ``torch.optim.AdamW`` behind `WCTOptimizer`, which adds
 what the JAX chain ``MultiSteps(chain(clip_by_global_norm, adamw(schedule)))``
@@ -21,6 +24,7 @@ value for value, counted in applied updates (step 0 has lr 0).
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -124,15 +128,23 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return total / (targets != IGNORE_INDEX).sum().clamp(min=1)
 
 
-def _check_family(family: str) -> None:
-    if family not in ("llama", "gemma"):
-        raise NotImplementedError(f"WCT training of family {family!r} is not ported yet")
+def train_forward(params: Dict, tokens: torch.Tensor, cfg, remat: bool = True,
+                  family: str = "llama") -> torch.Tensor:
+    """The training forward of ``family`` (``qeft_tpu/finetune.py::
+    _train_forward``): llama and gemma run `llama_forward_train`; OPT, Phi,
+    Bloom and Falcon run their forward under autograd
+    (``models.common.forward_train``)."""
+    if family in ("llama", "gemma"):
+        return llama_forward_train(params, tokens, cfg, remat)
+    from qeft_tpu_torch.models import common
+
+    module = importlib.import_module(f"qeft_tpu_torch.models.{family}")
+    return common.forward_train(module.DECODER, params, tokens, cfg, remat)
 
 
 def wct_loss(oweights: Oweights, frozen: Dict, input_ids: torch.Tensor, labels: torch.Tensor,
-             cfg: LlamaConfig, remat: bool = True, family: str = "llama") -> torch.Tensor:
-    _check_family(family)
-    logits = llama_forward_train(merge_wct(oweights, frozen), input_ids, cfg, remat)
+             cfg, remat: bool = True, family: str = "llama") -> torch.Tensor:
+    logits = train_forward(merge_wct(oweights, frozen), input_ids, cfg, remat, family)
     return causal_lm_loss(logits, labels)
 
 
@@ -240,12 +252,11 @@ def make_optimizer(tc: TrainConfig, oweights: Oweights) -> WCTOptimizer:
     return WCTOptimizer(adamw, lr_factor(tc), tc.max_grad_norm, tc.grad_accum)
 
 
-def make_train_step(cfg: LlamaConfig, opt: WCTOptimizer, remat: bool = True,
+def make_train_step(cfg, opt: WCTOptimizer, remat: bool = True,
                     family: str = "llama"):
     """-> ``train_step(oweights, frozen, input_ids, labels) -> loss``: one
     forward and backward, then ``opt.step()``, which updates the leaves in
     place.  The loss stays on the device (no synchronisation)."""
-    _check_family(family)
 
     def train_step(oweights: Oweights, frozen: Dict, input_ids: torch.Tensor,
                    labels: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,9 @@ The surface of ``qeft_tpu/main.py``, with the port's flag convention
 
 The model API follows the checkpoint's family (llama, gemma, OPT, Phi,
 Bloom, Falcon); a WCT checkpoint loads as its base with the tuned slabs laid
-over it.  Quantization takes the llama presets (random weights from
-``--seed``; a Hugging Face directory raises, ROADMAP A6b).  With
+over it.  Quantization takes a preset of any family (random weights from
+``--seed``) or a Hugging Face directory (``--model <dir>``); Falcon is
+quantized at ``percdamp`` 1.0, as the reference does.  With
 ``QEFT_QUANT_LMHEAD`` set (any value but "0", "" and "false") ``--load``
 packs the lm_head round-to-nearest to int4 (g = 128), as the JAX package
 does.  Runs on the GPU unless ``--device cpu`` is given.  ``--benchmark N``
@@ -154,8 +155,9 @@ def _eval_api(params, family: str):
 
 
 def _quantize(args, device, results):
-    """The quantize path: the preset's random model, GPTQ-OWQ over the
-    calibration crops (with the global reorder from ``--outidx_file``)."""
+    """The quantize path: the preset's random model or the Hugging Face
+    checkpoint, GPTQ-OWQ over the calibration crops (with the global
+    reorder from ``--outidx_file``)."""
     params, cfg, meta = load_model_and_meta(args.model, resolve_dtype(args.dtype), device,
                                             args.seed)
     quantizers = None
@@ -167,8 +169,7 @@ def _quantize(args, device, results):
         qargs = build_quantize_args(args)
         qargs.reorder = args.reorder
         if meta.family == "falcon":  # the reference quantizes falcon at percdamp 1.0
-            raise NotImplementedError("quantizing falcon (percdamp 1.0) is not ported yet "
-                                      "(ROADMAP A6b)")
+            qargs.percdamp = 1.0
         tick = time.perf_counter()
         params, quantizers = quantize_model(params, calibration(args, cfg), cfg, meta, qargs,
                                             outidx)

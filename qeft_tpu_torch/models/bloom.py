@@ -130,9 +130,11 @@ def _alibi_bias(cfg: BloomConfig, n_keys: int, device) -> torch.Tensor:
 
 
 def bloom_block(layers: Dict, l: int, x: torch.Tensor, cfg: BloomConfig, mask: torch.Tensor,
-                rope=None, cache: Optional[Dict] = None, pos: int = 0) -> torch.Tensor:
+                rope=None, cache: Optional[Dict] = None, pos: int = 0,
+                capture: Optional[Dict] = None) -> torch.Tensor:
     """Decoder block ``l``; ``mask`` is the causal mask plus ALiBi (no
-    rotary embedding: ``rope`` is None)."""
+    rotary embedding: ``rope`` is None).  ``capture`` receives the four
+    stage inputs, as JAX's ``bloom_block(capture=True)`` returns them."""
     b, s, d = x.shape
     h, dh, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
     hn = layer_norm(x, layers["attn_ln"][l], layers["attn_ln_b"][l], eps)
@@ -147,7 +149,10 @@ def bloom_block(layers: Dict, l: int, x: torch.Tensor, cfg: BloomConfig, mask: t
     x = x + linear(layers, "dense", l, apply_o_reorder(ctx, None if o_reorder is None
                                                        else o_reorder[l]))
     h2 = layer_norm(x, layers["post_ln"][l], layers["post_ln_b"][l], eps)
-    return x + linear(layers, "fc2", l, gelu(linear(layers, "fc1", l, h2)))
+    h1 = gelu(linear(layers, "fc1", l, h2))
+    if capture is not None:
+        capture.update(qkv_in=hn, o_in=ctx, ffn1_in=h2, ffn2_in=h1)
+    return x + linear(layers, "fc2", l, h1)
 
 
 def _final(params: Dict, x: torch.Tensor, cfg: BloomConfig) -> torch.Tensor:

@@ -134,7 +134,7 @@ class Decoder:
     Phi, Bloom and Falcon is the embedding, the block and the head."""
     norm: str  # a per-layer leaf of every layer tree; its length is the depth
     embed: Callable  # (params, tokens [B, W], positions [W], cfg) -> x [B, W, D]
-    block: Callable  # (layers, l, x, cfg, mask, rope, cache, pos) -> x
+    block: Callable  # (layers, l, x, cfg, mask, rope, cache, pos, capture) -> x
     final: Callable  # (params, x, cfg) -> logits
     rope: Optional[Callable] = None  # (cfg, positions [1, W]) -> (cos, sin)
     score_bias: Optional[Callable] = None  # (cfg, n_keys, device) -> added to the mask
@@ -160,6 +160,48 @@ def forward_window(dec: Decoder, params: Dict, tokens: torch.Tensor, cache: Opti
     for l in range(layers[dec.norm].shape[0]):
         x = dec.block(layers, l, x, cfg, mask, rope, cache, pos)
     return dec.final(params, x, cfg), cache
+
+
+def pipeline_block_forward(dec: Decoder, layers: Dict, x: torch.Tensor, cfg,
+                           capture: Optional[Dict] = None) -> torch.Tensor:
+    """Block 0 of ``layers`` over a whole window x [B, S, D] without a cache,
+    as the quantization pipeline runs a dense block (the JAX families'
+    ``pipeline_block_forward``); ``capture`` receives the inputs of its four
+    quantization stages."""
+    mask, rope = full_window(dec, cfg, x.shape[1], x.device)
+    return dec.block(layers, 0, x, cfg, mask, rope, capture=capture)
+
+
+def full_window(dec: Decoder, cfg, s: int, device):
+    """(mask, rope) of a window of ``s`` tokens at position 0 without a
+    cache: the causal mask (plus the family's score bias) and the rotary
+    tables, if the family has them."""
+    positions = torch.arange(s, device=device)
+    mask = causal_bias(positions, s)
+    if dec.score_bias is not None:
+        mask = mask + dec.score_bias(cfg, s, device)
+    rope = None if dec.rope is None else dec.rope(cfg, positions[None, :])
+    return mask, rope
+
+
+def forward_train(dec: Decoder, params: Dict, tokens: torch.Tensor, cfg,
+                  remat: bool = True) -> torch.Tensor:
+    """`forward` under autograd: the blocks' packed linears run the autograd
+    linear (``ops.qlinear.qlinear_apply``: K2 forward, K7 for ``dx``, the
+    ``reorder_ids`` gather differentiated), each block rematerialised with
+    ``torch.utils.checkpoint`` when ``remat`` is on (the JAX package
+    checkpoints the whole forward: the same loss and gradients)."""
+    from torch.utils.checkpoint import checkpoint
+
+    mask, rope = full_window(dec, cfg, tokens.shape[1], tokens.device)
+    x = dec.embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device), cfg)
+    layers = params["layers"]
+    for l in range(layers[dec.norm].shape[0]):
+        if remat:
+            x = checkpoint(dec.block, layers, l, x, cfg, mask, rope, use_reentrant=False)
+        else:
+            x = dec.block(layers, l, x, cfg, mask, rope)
+    return dec.final(params, x, cfg)
 
 
 def forward(dec: Decoder, params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:

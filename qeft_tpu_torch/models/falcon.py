@@ -109,9 +109,11 @@ def init_params(cfg: FalconConfig, seed: int = 0, dtype=None, device=None) -> Di
 
 def falcon_block(layers: Dict, l: int, x: torch.Tensor, cfg: FalconConfig, mask: torch.Tensor,
                  rope: Tuple[torch.Tensor, torch.Tensor], cache: Optional[Dict] = None,
-                 pos: int = 0) -> torch.Tensor:
+                 pos: int = 0, capture: Optional[Dict] = None) -> torch.Tensor:
     """Parallel block ``l``: x + attn(ln_attn(x)) + mlp(ln_mlp(x)); ``rope``
-    the (cos, sin) tables of ``llama.rope_tables``."""
+    the (cos, sin) tables of ``llama.rope_tables``.  ``capture`` receives the
+    four stage inputs, as JAX's ``falcon_block(capture=True)`` returns them
+    (without ``mlp_ln`` qkv and fc1 share ln(x))."""
     b, s, _ = x.shape
     cos, sin = rope
     hq, hkv, dh, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.layer_norm_eps
@@ -129,8 +131,10 @@ def falcon_block(layers: Dict, l: int, x: torch.Tensor, cfg: FalconConfig, mask:
     o_reorder = layers.get("o_reorder")
     attn_out = linear(layers, "dense", l, apply_o_reorder(ctx, None if o_reorder is None
                                                           else o_reorder[l]))
-    mlp_out = linear(layers, "fc2", l, gelu(linear(layers, "fc1", l, h_mlp)))
-    return x + attn_out + mlp_out
+    h1 = gelu(linear(layers, "fc1", l, h_mlp))
+    if capture is not None:
+        capture.update(qkv_in=h, o_in=ctx, ffn1_in=h_mlp, ffn2_in=h1)
+    return x + attn_out + linear(layers, "fc2", l, h1)
 
 
 def _final(params: Dict, x: torch.Tensor, cfg: FalconConfig) -> torch.Tensor:

@@ -127,10 +127,14 @@ def _embed_opt(params: Dict, tokens: torch.Tensor, positions: torch.Tensor,
 
 
 def opt_block(layers: Dict, l: int, x: torch.Tensor, cfg: OPTConfig, mask: torch.Tensor,
-              rope=None, cache: Optional[Dict] = None, pos: int = 0) -> torch.Tensor:
+              rope=None, cache: Optional[Dict] = None, pos: int = 0,
+              capture: Optional[Dict] = None) -> torch.Tensor:
     """Decoder block ``l``; with ``cache`` its K/V are written at ``pos`` and
     attention reads the layer's whole cache under ``mask``.  OPT has no
-    rotary embedding (``rope`` is None)."""
+    rotary embedding (``rope`` is None).  ``capture`` receives the inputs of
+    the four quantization stages (``qkv_in``, ``o_in`` before the o gather,
+    ``ffn1_in``, ``ffn2_in``), as JAX's ``opt_block(capture=True)`` returns
+    them."""
     b, s, _ = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
     eps, pre = cfg.layer_norm_eps, cfg.do_layer_norm_before
@@ -138,6 +142,8 @@ def opt_block(layers: Dict, l: int, x: torch.Tensor, cfg: OPTConfig, mask: torch
     res = x
     if pre:
         x = layer_norm(x, layers["attn_ln"][l], layers["attn_ln_b"][l], eps)
+    if capture is not None:
+        capture["qkv_in"] = x
     q = linear(layers, "q", l, x).reshape(b, s, h, dh)
     kh = linear(layers, "k", l, x).reshape(b, s, h, dh).transpose(1, 2)
     vh = linear(layers, "v", l, x).reshape(b, s, h, dh).transpose(1, 2)
@@ -145,6 +151,8 @@ def opt_block(layers: Dict, l: int, x: torch.Tensor, cfg: OPTConfig, mask: torch
         kh, vh = cache_write(cache, l, kh, vh, pos)
     ctx = attention(q, kh, vh, mask)
     o_reorder = layers.get("o_reorder")
+    if capture is not None:
+        capture["o_in"] = ctx
     x = res + linear(layers, "o", l, apply_o_reorder(ctx, None if o_reorder is None
                                                       else o_reorder[l]))
     if not pre:
@@ -154,6 +162,8 @@ def opt_block(layers: Dict, l: int, x: torch.Tensor, cfg: OPTConfig, mask: torch
     if pre:
         x = layer_norm(x, layers["final_ln"][l], layers["final_ln_b"][l], eps)
     h1 = torch.relu(linear(layers, "fc1", l, x))
+    if capture is not None:
+        capture["ffn1_in"], capture["ffn2_in"] = x, h1
     x = res + linear(layers, "fc2", l, h1)
     if not pre:
         x = layer_norm(x, layers["final_ln"][l], layers["final_ln_b"][l], eps)

@@ -116,9 +116,11 @@ def _rope_partial(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 def phi_block(layers: Dict, l: int, x: torch.Tensor, cfg: PhiConfig, mask: torch.Tensor,
               rope: Tuple[torch.Tensor, torch.Tensor], cache: Optional[Dict] = None,
-              pos: int = 0) -> torch.Tensor:
+              pos: int = 0, capture: Optional[Dict] = None) -> torch.Tensor:
     """Parallel block ``l``: x + attn(ln(x)) + mlp(ln(x)); ``rope`` the
-    (cos, sin) tables of `phi_rope_tables`."""
+    (cos, sin) tables of `phi_rope_tables`.  ``capture`` receives the four
+    stage inputs, as JAX's ``phi_block(capture=True)`` returns them: qkv and
+    fc1 share ln(x)."""
     b, s, _ = x.shape
     cos, sin = rope
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -133,8 +135,10 @@ def phi_block(layers: Dict, l: int, x: torch.Tensor, cfg: PhiConfig, mask: torch
     o_reorder = layers.get("o_reorder")
     attn_out = linear(layers, "o", l, apply_o_reorder(ctx, None if o_reorder is None
                                                       else o_reorder[l]))
-    mlp_out = linear(layers, "fc2", l, gelu(linear(layers, "fc1", l, h)))
-    return x + attn_out + mlp_out
+    h1 = gelu(linear(layers, "fc1", l, h))
+    if capture is not None:
+        capture.update(qkv_in=h, o_in=ctx, ffn1_in=h, ffn2_in=h1)
+    return x + attn_out + linear(layers, "fc2", l, h1)
 
 
 def _final(params: Dict, x: torch.Tensor, cfg: PhiConfig) -> torch.Tensor:

@@ -14,7 +14,8 @@ serving and of every training layer: a per-linear ``reorder_ids`` gather
 first (outside the autograd function, as the JAX package keeps it outside
 its custom vjp), then `QLinearFunction`, whose forward runs K5 for at most
 `qmm.DECODE_MAX_TOKENS` rows (bias inside the kernel) and K2 above (bias
-added after it).  The stacked paths keep K1 and K6.
+added after it).  The stacked paths keep K1 and K6 (`env` says when a
+decode stage runs unfused or unstacked).
 
 The backward of `QLinearFunction` (the reference's ``QuantMatMulQEFT``, with
 the true transpose)::
@@ -34,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from qeft_tpu_torch import env
 from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.qmm import (
     DECODE_MAX_TOKENS,
@@ -54,23 +56,31 @@ def qlinear_fused_stage(x: torch.Tensor, p: QLinearParams, layer: int,
     ``[residual +] (rms_norm(x) if lnw else x) @ W``.
 
     Few rows run the fused decode matvec (norm and residual inside the
-    kernel); more rows run the norm in PyTorch and the GEMM with the residual
-    in its epilogue."""
+    kernel; under ``QEFT_FUSED_DECODE=0`` or ``QEFT_STACKED_GEMV=0`` the norm,
+    `qlinear_apply_stacked` and the residual add one after another); more
+    rows run the norm in PyTorch and the GEMM with the residual in its
+    epilogue."""
     tokens = x.numel() // x.shape[-1]
-    if tokens <= DECODE_MAX_TOKENS:
+    if tokens <= DECODE_MAX_TOKENS and env.FUSED_DECODE:
         return qgemv_stacked_fused(x, p, layer, lnw=lnw, residual=residual,
                                    eps=eps, one_offset=one_offset)
     if lnw is not None:
         x = rms_norm(x, lnw, eps, one_offset)
+    if tokens <= DECODE_MAX_TOKENS:
+        y = qlinear_apply_stacked(x, p, layer)
+        return y if residual is None else residual + y
     return qgemm(x, p.layer(layer), residual=residual)
 
 
 def qlinear_apply_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torch.Tensor:
     """``x @ W`` of layer ``layer`` of the stacked linear ``p``, no norm and
-    no residual: the plain decode matvec (K6) for few rows, the GEMM (K2) on
-    the layer's view for more."""
+    no residual: the plain decode matvec (K6; K5 on the layer's view under
+    ``QEFT_STACKED_GEMV=0``) for few rows, the GEMM (K2) on the layer's view
+    for more."""
     if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
-        return qgemv_stacked(x, p, layer)
+        if env.STACKED_GEMV:
+            return qgemv_stacked(x, p, layer)
+        return qgemv(x, p.layer(layer))
     return qgemm(x, p.layer(layer))
 
 

@@ -1,4 +1,4 @@
-"""The quantization pipeline of the llama family (GPTQ-OWQ with OGR's global
+"""The quantization pipeline of every family (GPTQ-OWQ with OGR's global
 reorder, packing), and the stage fusion of packed and dense trees.
 
 Counterpart of ``qeft_tpu/pipeline.py``:
@@ -22,13 +22,13 @@ The port's dense tree fuses ``qkv`` and ``upgate`` (``models.llama.
 init_params``); the pipeline quantizes their members one by one under
 JAX's names (``q``, ``k``, ``v``, ``up``, ``gate``), and the fake tree it
 returns carries those names, as JAX's does (`fuse_dense_stages` fuses it
-for the model functions).  The calibration forwards run K3 on the GPU
-(``ops.flash.flash_window_attention_any``), as JAX's run its flash kernel
-on the TPU.  Only the llama family (llama, gemma) is quantized here; OPT,
-Phi, Bloom and Falcon raise (ROADMAP A6b).  Everything stays on the
-model's device: the JAX package's host staging for its 16 GB chip
-(``_block_at`` to a device, ``_stack_host``, ``reorder_model_host``) is
-not carried over.
+for the model functions).  The llama family's calibration forwards run
+K3 on the GPU (``ops.flash.flash_window_attention_any``), as JAX's run its
+flash kernel on the TPU; OPT, Phi, Bloom and Falcon run their blocks
+(`models.common.pipeline_block_forward`) with the plain attention, as JAX's
+run XLA's.  Everything stays on the model's device: the JAX package's host
+staging for its 16 GB chip (``_block_at`` to a device, ``_stack_host``,
+``reorder_model_host``) is not carried over.
 """
 
 from __future__ import annotations
@@ -53,7 +53,10 @@ def _fuse_stage(layers: Dict, names: Sequence[str], fused_name: str) -> None:
     on its last axis); valid because they share one input permutation."""
     lins = [layers.pop(n) for n in names]
     if any(l.reorder_ids is not None for l in lins):
-        raise ValueError("stage fusion needs a statically reordered model")
+        raise NotImplementedError(
+            f"fusing {names} of a tree packed without the global reorder (per-linear "
+            "reorder_ids) is not ported (ROADMAP A6b: serving a llama tree packed without "
+            "the reorder); pack it with --reorder")
 
     def cat(field):
         parts = [getattr(l, field) for l in lins]
@@ -181,17 +184,14 @@ _ALL_STAGES = ("qkv", "out", "ffn1", "ffn2")
 _STAGE_CAP = {"qkv": "qkv_in", "out": "o_in", "ffn1": "ffn1_in", "ffn2": "ffn2_in"}
 
 
-def _check_family(meta: ModelMeta) -> None:
-    if meta.family not in ("llama", "gemma"):
-        raise NotImplementedError(
-            f"quantizing the {meta.family} family is not ported yet (ROADMAP A6b: the "
-            "calibration forwards of OPT, Phi, Bloom and Falcon)")
+def _is_llama(meta: ModelMeta) -> bool:
+    return meta.family in ("llama", "gemma")
 
 
-def _stage_widths(cfg) -> Dict[str, int]:
-    d = cfg.hidden_size
-    return {"qkv": d, "out": cfg.num_heads * cfg.head_dim, "ffn1": d,
-            "ffn2": cfg.intermediate_size}
+def _decoder(meta: ModelMeta):
+    import importlib
+
+    return importlib.import_module(f"qeft_tpu_torch.models.{meta.family}").DECODER
 
 
 def _stage_of(meta: ModelMeta, name: str) -> str:
@@ -207,11 +207,16 @@ def _member_layers(params: Dict, cfg, meta: ModelMeta) -> Dict[str, torch.Tensor
     return split_fused(params["layers"], meta, member_widths(cfg, meta))
 
 
-def _embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Block 0's input: the embedding rows, scaled by sqrt(hidden) for gemma."""
-    from qeft_tpu_torch.models.llama import _embed
+def _embed_tokens(params: Dict, tokens: torch.Tensor, cfg, meta: ModelMeta) -> torch.Tensor:
+    """Block 0's input, as the family's forward makes it: the embedding rows
+    (scaled by sqrt(hidden) for gemma; OPT's learned positions added and its
+    optional ``project_in`` applied; Bloom's embedding LayerNorm)."""
+    if _is_llama(meta):
+        from qeft_tpu_torch.models.llama import _embed
 
-    return _embed({"embed": embed}, tokens, cfg)
+        return _embed({"embed": params["embed"]}, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    return _decoder(meta).embed(params, tokens, positions, cfg)
 
 
 def _block_layers(blk: Dict[str, torch.Tensor], meta: ModelMeta) -> Dict[str, torch.Tensor]:
@@ -226,21 +231,33 @@ def _block_forward(blk, inps: torch.Tensor, cfg, meta: ModelMeta, stages=(),
     """The block over every calibration sample, one sample a call (the JAX
     ``scan``); -> (outputs [n, S, D] or None without ``outputs``, {stage:
     sum of x^T x} for ``stages``)."""
-    from qeft_tpu_torch.models.llama import llama_block, rope_tables
-    from qeft_tpu_torch.ops.flash import flash_window_attention_any
-
     n, s, _ = inps.shape
     layers = _block_layers(blk, meta)
-    cos, sin = rope_tables(cfg, torch.arange(s, device=inps.device)[None, :])
-    widths = _stage_widths(cfg)
-    hs = {st: torch.zeros(widths[st], widths[st], dtype=torch.float32, device=inps.device)
-          for st in stages}
+    if _is_llama(meta):
+        from qeft_tpu_torch.models.llama import llama_block, rope_tables
+        from qeft_tpu_torch.ops.flash import flash_window_attention_any
+
+        cos, sin = rope_tables(cfg, torch.arange(s, device=inps.device)[None, :])
+
+        def block(x, cap):
+            return llama_block(layers, 0, x, cfg, cos, sin, capture=cap,
+                               attend=flash_window_attention_any)
+    else:
+        from qeft_tpu_torch.models.common import pipeline_block_forward
+
+        dec = _decoder(meta)
+
+        def block(x, cap):
+            return pipeline_block_forward(dec, layers, x, cfg, cap)
+    # a stage's Hessian is as wide as its linears' inputs ([K, N] member tensors)
+    firsts = dict(zip(_ALL_STAGES, (meta.qkv[0], meta.out[0], meta.ffn1[0], meta.ffn2[0])))
+    hs = {st: torch.zeros(blk[firsts[st]].shape[0], blk[firsts[st]].shape[0],
+                          dtype=torch.float32, device=inps.device) for st in stages}
     outs = torch.empty_like(inps) if outputs else None
     with torch.no_grad():
         for i in range(n):
             cap = {} if stages else None
-            y = llama_block(layers, 0, inps[i: i + 1], cfg, cos, sin, capture=cap,
-                            attend=flash_window_attention_any)
+            y = block(inps[i: i + 1], cap)
             if outputs:
                 outs[i] = y[0]
             for st in stages:
@@ -298,13 +315,12 @@ def extract_global_outidx(params: Dict, calib_tokens: np.ndarray, cfg, meta: Mod
     linear of those stages adds ``diag(H) / mean`` of its Hessian diagonal
     (times its Frobenius error unless ``no_frob_norm``), so q/k/v count
     three times and up/gate twice, as in the JAX package."""
-    _check_family(meta)
     target_rank = args.target_rank
     if args.perhead is not None:
         target_rank = args.perhead * cfg.num_heads
     layers = _member_layers(params, cfg, meta)
     device = params["embed"].device
-    inps = _embed_tokens(params["embed"], torch.as_tensor(calib_tokens, device=device), cfg)
+    inps = _embed_tokens(params, torch.as_tensor(calib_tokens, device=device), cfg, meta)
     n_out = _n_out_dict(layers, meta, args)
     sensitivity = torch.zeros(cfg.hidden_size, dtype=torch.float32, device=device)
     per_layer = {}
@@ -339,14 +355,13 @@ def quantize_model(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
     changed.  The fake tree has member names and the model's dtype; with
     ``args.reorder`` it is globally reordered (`reorder_model`) and each
     block carries ``o_reorder``, the o-projection's input gather."""
-    _check_family(meta)
     if args.reorder and outidx is None:
         raise ValueError("the global reorder needs the extracted outidx "
                          "(run extract_global_outidx first)")
     spec = args.spec
     layers = _member_layers(params, cfg, meta)
     device = params["embed"].device
-    inps = _embed_tokens(params["embed"], torch.as_tensor(calib_tokens, device=device), cfg)
+    inps = _embed_tokens(params, torch.as_tensor(calib_tokens, device=device), cfg, meta)
     n_out = _n_out_dict(layers, meta, args)
     global_out = None if outidx is None else torch.as_tensor(
         np.asarray(outidx), dtype=torch.int32, device=device)
@@ -420,42 +435,64 @@ def reorder_model(params: Dict, quantizers: Dict, global_out: torch.Tensor, cfg,
     """OGR step 2: permute the model so the weak channels come last
     (``qeft_tpu/pipeline.py::reorder_model``).
 
-    The residual stream (embedding columns, norms, lm_head rows, qkv/ffn1
-    input rows, o/ffn2 output columns) by the global dense ids; the MLP's
-    inner dim (ffn1 output columns, ffn2 input rows) by ffn2's own ids; the
-    o-projection's input rows by o's own ids, whose gather
-    (``o_reorder``) the model applies at run time.  The group parameters
-    of each permuted output dimension follow it.  The layer tensors of
-    ``params`` are permuted in place, one ``[K, N]`` temporary at a time
-    (one copy of the model on the device); the returned tree holds them."""
+    The residual stream (embedding columns, OPT's learned positions, norms
+    and their biases, Bloom's embedding LayerNorm, lm_head rows, qkv/ffn1
+    input rows, o/ffn2 output columns and biases) by the global dense ids;
+    the MLP's inner dim (ffn1 output columns and biases, ffn2 input rows)
+    by ffn2's own ids; the o-projection's input rows by o's own ids, whose
+    gather (``o_reorder``) the model applies at run time.  The group
+    parameters of each permuted output dimension follow it.  A norm a block
+    lacks (Falcon-7b's ``mlp_ln``) is skipped; a tree whose stream passes
+    through ``project_in`` (opt-350m) raises, as in the JAX package.  The
+    layer tensors of ``params`` are permuted in place, one ``[K, N]``
+    temporary at a time (one copy of the model on the device); the returned
+    tree holds them."""
+    if "project_in" in params:
+        raise ValueError(
+            "global reorder is not supported for models whose residual stream passes through "
+            "embedding projections (opt-350m project_in/out): the token-embedding space and "
+            "the hidden stream have different widths.  Quantize without --reorder (per-linear "
+            "outlier path).")
     d = cfg.hidden_size
     device = params["embed"].device
     g_ids = sparse_to_dense_ids(torch.as_tensor(global_out, device=device), d).long()
     new = dict(params)
     new["embed"] = params["embed"][:, g_ids]
-    new["final_ln"] = params["final_ln"][g_ids]
     new["lm_head"] = params["lm_head"][g_ids]
+    if "embed_pos" in params:
+        new["embed_pos"] = params["embed_pos"][:, g_ids]
+    for key in ("final_ln", "final_ln_b", "embed_ln", "embed_ln_b"):
+        if key in params:
+            new[key] = params[key][g_ids]
     layers = {k: v for k, v in params["layers"].items() if k != "o_reorder"}
     (o_name,) = meta.out
     (f2_name,) = meta.ffn2
     hd = layers[o_name].shape[-2]
     o_reorder = torch.empty(cfg.num_layers, hd, dtype=torch.int32, device=device)
+
+    def permute(name, i, ids):  # a per-layer vector, if the block has it
+        if name in layers:
+            layers[name][i] = layers[name][i][ids]
+
     for i in range(cfg.num_layers):
         for name in meta.qkv + meta.ffn1:
             layers[name][i] = layers[name][i][g_ids]
         for ln in meta.ln:
-            if ln in layers:
-                layers[ln][i] = layers[ln][i][g_ids]
+            permute(ln, i, g_ids)
+            permute(ln + "_b", i, g_ids)
         o_ids = sparse_to_dense_ids(quantizers[(i, o_name)].out_ids, hd).long()
         layers[o_name][i] = layers[o_name][i][o_ids][:, g_ids]
+        permute(o_name + "_b", i, g_ids)
         o_reorder[i] = o_ids
         _permute_state_rows(quantizers, (i, o_name), g_ids)
         f_ids = sparse_to_dense_ids(quantizers[(i, f2_name)].out_ids,
                                     layers[f2_name].shape[-2]).long()
         for name in meta.ffn1:
             layers[name][i] = layers[name][i][:, f_ids]
+            permute(name + "_b", i, f_ids)
             _permute_state_rows(quantizers, (i, name), f_ids)
         layers[f2_name][i] = layers[f2_name][i][f_ids][:, g_ids]
+        permute(f2_name + "_b", i, g_ids)
         _permute_state_rows(quantizers, (i, f2_name), g_ids)
     layers["o_reorder"] = o_reorder
     new["layers"] = layers
@@ -504,8 +541,8 @@ def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch
     last already.  Without the reorder each linear's rows are put in its
     own outliers-last order and it keeps the input gather as
     ``reorder_ids``.  ``fuse_stages``: q/k/v -> ``qkv`` and up/gate ->
-    ``upgate`` (needs the reorder)."""
-    _check_family(meta)
+    ``upgate`` where `fused_stages` names them (needs the reorder; a family
+    with nothing to fuse raises, as in the JAX package)."""
 
     def cast_float(v):
         return v.to(dtype) if v.is_floating_point() else v
@@ -513,6 +550,12 @@ def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch
     new = {k: cast_float(v) for k, v in params.items() if k != "layers"}
     layers = params["layers"]
     reordered = "o_reorder" in layers
+    if fuse_stages and not fused_stages(meta):
+        raise ValueError(f"fuse_stages: family {meta.family!r} has no fusable stages (its qkv "
+                         "is already a single linear and its ffn1 is unary)")
+    if fuse_stages and not reordered:
+        raise ValueError("stage fusion needs a statically reordered model (shared input "
+                         "permutation); per-linear input gathers cannot be fused")
     blocks = []
     for i in range(cfg.num_layers):
         nb = {k: cast_float(v[i]) for k, v in layers.items() if k not in meta.all_linears}

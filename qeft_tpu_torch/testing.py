@@ -1,6 +1,7 @@
-"""Shape-faithful random packed models, built on the device from a seed, and
-the dense model a packed one stands for.  Test tooling: the machine with the
-card holds no checkpoint.
+"""Shape-faithful random packed models, built on the device from a seed, the
+dense model a packed one stands for, and a dense OPT tree written as a
+Hugging Face directory.  Test tooling: the machine with the card holds no
+checkpoint.
 
 Counterpart of ``qeft_tpu/testing.py``.  A llama model has its value
 distributions (random full-range words, scales in [0.01, 0.03), zero points
@@ -26,6 +27,9 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import json
+import os
+import struct
 from typing import Dict
 
 import torch
@@ -167,3 +171,78 @@ def dense_model(params: Dict, dtype=torch.bfloat16) -> Dict:
                 b = layers.get(name + "_b")
                 layers[name + "_b"] = leaf.bias if b is None else b + leaf.bias
     return {**params, "layers": layers}
+
+
+_ST_CODES = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
+             torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """``tensors`` in the safetensors format (what
+    ``models.hf_loader.read_safetensors`` reads): the header padded to 8
+    bytes, then each tensor's little-endian bytes in turn."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_CODES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for data in blobs:
+            f.write(data)
+
+
+def write_hf_opt(path: str, params: Dict, cfg, shards: int = 1) -> None:
+    """A dense OPT tree written as a Hugging Face directory (``config.json``
+    and safetensors, in ``shards`` files with a ``model.safetensors.index
+    .json`` when more than one): the inverse of ``models.hf_loader.
+    load_hf_opt``, each ``[K, N]`` linear stored as HF's ``[out, in]``."""
+    os.makedirs(path, exist_ok=True)
+    hf = {"model.decoder.embed_tokens.weight": params["embed"],
+          "model.decoder.embed_positions.weight": params["embed_pos"]}
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.out_proj", "fc1": "fc1", "fc2": "fc2"}
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        pre = f"model.decoder.layers.{i}."
+        for ours, theirs in (("attn_ln", "self_attn_layer_norm"),
+                             ("final_ln", "final_layer_norm")):
+            hf[pre + theirs + ".weight"] = layers[ours][i]
+            hf[pre + theirs + ".bias"] = layers[ours + "_b"][i]
+        for ours, theirs in names.items():
+            hf[pre + theirs + ".weight"] = layers[ours][i].t()
+            hf[pre + theirs + ".bias"] = layers[ours + "_b"][i]
+    if "final_ln" in params:
+        hf["model.decoder.final_layer_norm.weight"] = params["final_ln"]
+        hf["model.decoder.final_layer_norm.bias"] = params["final_ln_b"]
+    if "project_in" in params:
+        hf["model.decoder.project_in.weight"] = params["project_in"].t()
+        hf["model.decoder.project_out.weight"] = params["project_out"].t()
+    hf["lm_head.weight"] = params["lm_head"].t()
+    keys = list(hf)
+    files = [f"model-{j + 1:05d}-of-{shards:05d}.safetensors" for j in range(shards)]
+    if shards == 1:
+        files = ["model.safetensors"]
+    per = -(-len(keys) // shards)
+    weight_map = {}
+    for j, fname in enumerate(files):
+        part = keys[j * per: (j + 1) * per]
+        write_safetensors(os.path.join(path, fname), {k: hf[k] for k in part})
+        weight_map.update(dict.fromkeys(part, fname))
+    if shards > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    config = {"model_type": "opt", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "ffn_dim": cfg.ffn_dim, "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads,
+              "max_position_embeddings": cfg.max_position_embeddings,
+              "do_layer_norm_before": cfg.do_layer_norm_before,
+              "word_embed_proj_dim": cfg.embed_dim}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)

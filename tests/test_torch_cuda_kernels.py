@@ -19,7 +19,10 @@ dispatch with ``reorder_ids``; K1 and K6 at eight rows of K up to 28,672;
 P4's variants bit-identical from call to call; K3 over whole windows of
 2048 and 4096 rows (the calibration length and llama2-7b's eval window,
 and its f32 entry); K5 on the round-to-nearest packed llama2-7b head; GPTQ
-of one 4096 x 4096 linear on the card against the CPU; and the wrappers'
+of one 4096 x 4096 linear on the card against the CPU; K2 and K7 at the
+OPT, Phi and Falcon training shapes (K = 4544 at g = 64, K = 16384), the
+autograd linear with a bias and ``reorder_ids`` at 2048 rows, and a
+Falcon-width block quantized on the card against the CPU; and the wrappers'
 refusals.  They need an NVIDIA GPU and ``nvcc``
 and skip elsewhere:
 
@@ -749,3 +752,110 @@ def test_gptq_on_the_card_matches_the_cpu(gen):
         d = (w.cpu() - r.w_fake.cpu()).double()
         errs.append(torch.trace(d @ h.double() @ d.t()).item())
     assert abs(errs[0] - errs[1]) <= 1e-2 * errs[1], errs
+
+
+# the family linears' (K, N, g) at the training and prefill shapes: Falcon-7b's
+# qkv and fc1 (K = 4544, 71 groups of 64: 35.5 of K7's 128-column tiles), Phi-2's
+# fc1, OPT-6.7B's fc2 (K = 16384)
+FAMILY_SHAPES = [(4544, 4672, 64), (4544, 18176, 64), (2560, 10240, 128), (16384, 4096, 128)]
+
+
+@pytest.mark.parametrize("m", [64, 2048])
+@pytest.mark.parametrize("k,n,g", FAMILY_SHAPES)
+def test_qgemm_and_qgemm_t_at_the_family_shapes(gen, m, k, n, g):
+    """K2 (the forward, with the weak-column slab) and K7 (``dx``, with the
+    weak-column addend) at the OPT, Phi and Falcon shapes WCT and the
+    prefill run them, against the plain versions; one launch a call."""
+    p = _packed(gen, 1, k, n, g, 128).layer(0)
+    x = _randn(gen, m, k)
+    before = dict(cuda_lib.launches)
+    got = qmm.qgemm(x, p)
+    gy = _randn(gen, m, n)
+    tail = torch.randn(m, 128, generator=gen, device="cuda")
+    got_t = qmm.qgemm_t(gy, dataclasses.replace(p, oweight=None), tail)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["qgemm"] == before.get("qgemm", 0) + 1
+    assert cuda_lib.launches["qgemm_t"] == before.get("qgemm_t", 0) + 1
+    _close(got, qmm.qgemm_plain(_f32(x), _f32(p)))
+    _close(got_t, qmm.qgemm_t_plain(_f32(gy), _f32(dataclasses.replace(p, oweight=None)), tail))
+
+
+def test_autograd_linear_with_a_bias_and_reorder_ids_at_training_rows(gen):
+    """The training linear of a family packed without the global reorder at
+    2048 rows (4 x 512, run_finetune's batch): the ``reorder_ids`` gather
+    before K2, the bias after it, K7 for ``dx``; values and the gradients of
+    x, oweight and bias against autograd through the plain version in f32."""
+    k, n, m = 4544, 4672, 2048
+    p = _packed(gen, 1, k, n, 64, 128).layer(0)
+    ids = torch.randperm(k, generator=gen, device="cuda").to(torch.int32)
+    b = (torch.randn(n, generator=gen, device="cuda") * 0.5).to(torch.bfloat16).requires_grad_()
+    ow = (torch.randn(128, n, generator=gen, device="cuda") * 0.02).requires_grad_()
+    x = _randn(gen, m, k)
+    gy = _randn(gen, m, n)
+    xk = x.clone().requires_grad_()
+    before = dict(cuda_lib.launches)
+    y = qlinear_apply(xk, dataclasses.replace(p, oweight=ow, bias=b, reorder_ids=ids))
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["qgemm"] == before.get("qgemm", 0) + 1
+    assert cuda_lib.launches["qgemm_t"] == before.get("qgemm_t", 0) + 1
+    x32 = x.float().requires_grad_()
+    ow32, b32 = ow.detach().clone().requires_grad_(), b.detach().float().requires_grad_()
+    y32 = qmm.qgemm_plain(x32.index_select(-1, ids.long()),
+                          dataclasses.replace(_f32(p), oweight=ow32, bias=b32))
+    y32.backward(gy.float())
+    _close(y, y32.detach())
+    _close(xk.grad, x32.grad)
+    _close(b.grad, b32.grad)
+    err = (ow.grad - ow32.grad).abs().max().item()
+    assert err <= RTOL * ow32.grad.abs().max().item(), err
+
+
+def test_gptq_of_a_falcon_width_block_on_the_card_matches_the_cpu(gen):
+    """One Falcon-7b block at full width (4544, 71 heads, multi-query; fc2
+    18,176 columns) quantized by the pipeline on the card and on the CPU
+    from the same weights and calibration tokens (GPTQ-OWQ w4, g = 64,
+    min-max, r = 128, percdamp 1.0, per-linear weak columns): the same weak
+    sets, at most 0.5 % of the levels differ (compared where a group's
+    re-fit parameters agree: a flipped rounding moves the later groups'
+    min and max), and each linear's fake weight as far from the dense one,
+    in the Hessian's norm, within 1 %."""
+    from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.models.falcon import FALCON_PRESETS, init_params
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+
+    cfg = dataclasses.replace(FALCON_PRESETS["falcon-7b"], num_layers=1, dtype=torch.float32)
+    meta = get_model_meta("falcon")
+    dense = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    calib = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen, device="cuda").cpu().numpy()
+    args = pl.QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=False, group_size=64),
+                           target_rank=128, nsamples=4, percdamp=1.0, reorder=False)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tree = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                    {n: t.to(dev) for n, t in v.items()}) for k, v in dense.items()}
+        runs[dev] = pl.quantize_model(tree, calib, cfg, meta, args)
+    x = pl._embed_tokens(dense, torch.as_tensor(calib, device="cuda"), cfg, meta)
+    blk = {k: v[0] for k, v in dense["layers"].items()}
+    _, hs = pl.block_hessians(blk, x, cfg, meta)
+    differ = total = 0
+    for name in meta.all_linears:
+        (fc, sc), (ff, sf) = ((runs[d][0]["layers"][name][0].cpu().double(),
+                               runs[d][1][(0, name)]) for d in ("cuda", "cpu"))
+        assert torch.equal(sc.out_ids.cpu(), sf.out_ids)
+        ids = pl.sparse_to_dense_ids(sf.out_ids, fc.shape[0]).long()
+        keep = fc.shape[0] - sf.out_ids.shape[0]
+        s_c, s_f = sc.scale_group.cpu().double(), sf.scale_group.double()
+        rep = fc.shape[0] // s_c.shape[1]
+        same = ((s_c - s_f).abs() <= 1e-6 * s_f.abs()).t().repeat_interleave(rep, 0)[:keep]
+        d = (torch.round(fc[ids] / s_c.t().repeat_interleave(rep, 0))
+             - torch.round(ff[ids] / s_f.t().repeat_interleave(rep, 0)))[:keep].abs()
+        assert d[same].max().item() <= 1, name
+        differ += int((d > 0).sum())
+        total += d.numel()
+        h = (hs[pl._stage_of(meta, name)] * (2.0 / 4)).cpu().double()
+        w = blk[name].cpu().double()
+        errs = [torch.trace((w - f).t() @ h @ (w - f)).item() for f in (fc, ff)]
+        assert abs(errs[0] - errs[1]) <= 1e-2 * errs[1], (name, errs)
+    assert differ <= 0.005 * total, (differ, total)

@@ -1,5 +1,8 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points refuse to run on the CPU unless the caller names it."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``safetensors`` or ``transformers``, which the machine with the card lacks),
+its entry points refuse to run on the CPU unless the caller names it, and
+the JAX package's kernel-path environment variables are never ignored
+without a word."""
 
 import ast
 import os
@@ -25,7 +28,7 @@ from qeft_tpu_torch.serving import Engine, SpecEngine, measure_engine_throughput
 from qeft_tpu_torch.testing import build_packed_model
 
 PKG = Path(qeft_tpu_torch.__file__).parent
-BANNED = ("jax", "jaxlib", "ml_dtypes", "qeft_tpu")
+BANNED = ("jax", "jaxlib", "ml_dtypes", "qeft_tpu", "safetensors", "transformers")
 
 
 def _modules():
@@ -208,9 +211,12 @@ def test_family_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch
 
 
 def test_quantize_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch, tmp_path):
-    """extract_outidx, main's quantize path, convert and load_fake."""
+    """extract_outidx, main's quantize path, convert, load_fake and
+    load_hf_model."""
     from qeft_tpu_torch import convert, extract_outidx
     from qeft_tpu_torch.checkpoint import load_fake, save_fake
+    from qeft_tpu_torch.models.hf_loader import load_hf_model
+    from qeft_tpu_torch.testing import write_hf_opt
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     common = ["--model", "tiny", "--target_rank", "8", "--groupsize", "64", "--nsamples", "1",
@@ -229,3 +235,85 @@ def test_quantize_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypat
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.main([fake, str(tmp_path / "packed")])
     assert load_fake(fake, device="cpu")[0]["embed"].device.type == "cpu"
+    hf = str(tmp_path / "hf")
+    ocfg = opt.OPT_PRESETS["opt-tiny"]
+    write_hf_opt(hf, opt.init_params(ocfg, device="cpu"), ocfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_hf_model(hf)
+    assert load_hf_model(hf, device="cpu")[0]["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["QEFT_PALLAS", "QEFT_FLASH_ATTN", "QEFT_PALLAS_ATTN",
+                                  "QEFT_GEMV_F32W"])
+def test_ablation_env_vars_raise_naming_their_item(monkeypatch, tmp_path, name):
+    """An "off" value that asks for the JAX package's XLA arithmetic raises
+    at every entry point, naming A11; "1" asks for the kernels, which the
+    port runs anyway."""
+    from qeft_tpu_torch import extract_outidx
+    from qeft_tpu_torch.device import resolve_device
+
+    monkeypatch.setenv(name, "0")
+    with pytest.raises(NotImplementedError, match=f"{name}.*A11"):
+        resolve_device("cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        extract_outidx.main(["--model", "tiny", "--device", "cpu", "--target_rank", "8",
+                             "--output_dir", str(tmp_path)])
+    monkeypatch.setenv(name, "1")
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("name,want", [("QEFT_FUSED_DECODE", "qgemv_stacked"),
+                                       ("QEFT_STACKED_GEMV", "qgemv")])
+def test_kernel_selectors_pick_the_other_kernel(monkeypatch, name, want):
+    """``QEFT_FUSED_DECODE=0`` runs each decode stage as the norm, K6 and
+    the residual add; ``QEFT_STACKED_GEMV=0`` runs K5 on each layer's view
+    (as qeft_tpu's scan-sliced layers); the decode step's logits stay those
+    of the fused path within 1e-5 of their scale."""
+    from qeft_tpu_torch import env
+    from qeft_tpu_torch.device import resolve_device
+    from qeft_tpu_torch.ops import qlinear
+
+    for flag in ("STACKED_GEMV", "FUSED_DECODE"):
+        monkeypatch.setattr(env, flag, getattr(env, flag))
+    cfg = LLAMA_PRESETS["tiny"]
+    params = build_packed_model(cfg, g=64, r=8, dtype=torch.float32, device="cpu")
+    api = get_model_api("llama")
+    calls = []
+    for kernel in ("qgemv_stacked_fused", "qgemv_stacked", "qgemv"):
+        real = getattr(qlinear, kernel)
+        monkeypatch.setattr(qlinear, kernel, lambda *a, _k=kernel, _f=real, **kw:
+                            calls.append(_k) or _f(*a, **kw))
+
+    def step():
+        cache = init_kv_cache(cfg, 1, 8, dtype=torch.float32)
+        calls.clear()
+        with torch.no_grad():
+            logits, _ = api.decode_step(params, torch.tensor([[3]]), cache, 2, cfg)
+        return logits, set(calls)
+
+    fused, kernels = step()
+    assert kernels == {"qgemv_stacked_fused"}
+    monkeypatch.setenv(name, "0")
+    resolve_device("cpu")
+    got, kernels = step()
+    assert kernels == {want}
+    scale = fused.abs().max().item()
+    torch.testing.assert_close(got, fused, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("name", ["QEFT_ATTN_BLK", "QEFT_FLASH_BLKQ", "QEFT_FLASH_BLKK",
+                                  "QEFT_O_BAND", "QEFT_PAD_UPGATE", "QEFT_SEXP_REPEAT",
+                                  "QEFT_GEMV_TELE", "QEFT_GEMV_BN"])
+def test_tpu_tiling_knobs_warn_once_per_process(monkeypatch, name):
+    import warnings
+
+    from qeft_tpu_torch import env
+    from qeft_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(env, "_warned", set())
+    monkeypatch.setenv(name, "512")
+    with pytest.warns(RuntimeWarning, match=name):
+        resolve_device("cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        resolve_device("cpu")

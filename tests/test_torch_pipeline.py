@@ -402,14 +402,26 @@ def test_calibration_capture_matches_jax(runs):
 
 
 def test_quantizing_another_family_raises_naming_a6b():
+    """The other families quantize now (their parity with JAX is
+    tests/test_torch_family_quant.py); what of A6b is left raises naming
+    it: serving a llama tree packed without the global reorder, whose q/k/v
+    carry their own ``reorder_ids`` and cannot be fused."""
     from qeft_tpu_torch.models.opt import OPT_PRESETS, init_params
+    from tests.torch_parity import random_packed_linear
 
     cfg = OPT_PRESETS["opt-tiny"]
-    params = init_params(cfg, device="cpu")
+    params = init_params(cfg, dtype=torch.float32, device="cpu")
     meta = get_model_meta("opt")
-    for fn in (tpipe.extract_global_outidx, tpipe.quantize_model):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            fn(params, np.zeros((1, 8), np.int64), cfg, meta, _targs())
+    calib = np.zeros((1, 8), np.int64)
+    outidx, _ = tpipe.extract_global_outidx(params, calib, cfg, meta, _targs(nsamples=1))
+    fake, states = tpipe.quantize_model(params, calib, cfg, meta, _targs(nsamples=1), outidx)
+    assert outidx.shape == (8,) and "o_reorder" in fake["layers"] and len(states) == 12
+    lins = {}
+    for i, name in enumerate(("q", "k", "v")):
+        lins[name] = random_packed_linear(i, 2, 64, 64, 32, 8)
+        lins[name].reorder_ids = torch.stack([torch.randperm(64)] * 2).to(torch.int32)
+    with pytest.raises(NotImplementedError, match="A6b"):
+        tpipe.fuse_packed_stages({"layers": lins}, get_model_meta("llama"))
 
 
 def test_rtn_pack_linear_is_bit_exact_with_jax():

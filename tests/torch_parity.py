@@ -132,16 +132,18 @@ def family_presets(family):
     return jmod, getattr(jmod, key), getattr(tmod, key)
 
 
-def quantized_family(name, seed=5):
+def quantized_family(name, seed=5, reorder=None):
     """Preset ``name`` of FAMILY_MODELS quantized (GPTQ-OWQ, 4 bits, group
     32, rank 8, 2 x 16 calibration tokens) and packed in f32 by the JAX
     package, as tests/test_families.py does -> (JAX params, port params,
-    JAX config, port f32 config, family)."""
+    JAX config, port f32 config, family).  ``reorder`` overrides the
+    preset's global reorder."""
     from qeft_tpu.models.registry import get_model_meta as jax_meta
     from qeft_tpu.pipeline import QuantizeArgs, extract_global_outidx, pack_model, quantize_model
     from qeft_tpu.quant.quantizer import QuantSpec
 
-    family, reorder = FAMILY_MODELS[name]
+    family, preset_reorder = FAMILY_MODELS[name]
+    reorder = preset_reorder if reorder is None else reorder
     jmod, jpresets, tpresets = family_presets(family)
     cfg = jpresets[name]
     meta = jax_meta(family)
@@ -172,3 +174,14 @@ def random_packed_linear(seed, layers, k, n, g, r):
     ow = (rng.normal(size=(layers, r, n)) * 0.02).astype(np.float32) if r else None
     return QLinearParams(torch.from_numpy(qw), torch.from_numpy(sc), torch.from_numpy(sz),
                          oweight=None if ow is None else torch.from_numpy(ow), group_size=g)
+
+
+def states_to_port(states):
+    """JAX quantizer states {(block, name): QuantizerState} -> the port's."""
+    from qeft_tpu_torch.pipeline import QuantizerState
+
+    return {k: QuantizerState(
+        scale_group=torch.from_numpy(np.array(st.scale_group)),
+        zero_group=torch.from_numpy(np.array(st.zero_group)),
+        out_ids=torch.from_numpy(np.array(st.out_ids)), sym=st.sym, bits=st.bits,
+        group_size=st.group_size) for k, st in states.items()}
