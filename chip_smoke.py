@@ -53,6 +53,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 14. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
    wct_final --eval --benchmark`` on a 4-layer model of full width, written
    with ``save_packed``; the tuned model is served through K1-K4;
+14b. import (after the training oracle): the first 4 layers of the random
+   packed Llama-2-7B written as a reference (xvyaward/qeft) checkpoint with
+   ``torch.save``, imported on the card (codes bit-exact, float values
+   wherever fp16 holds them), ``generate`` 64 + 64 greedy tokens equal to
+   the source's through the graph, a WCT overlay on its slabs, the
+   ``import_reference`` CLI and ``main --load --eval`` as subprocesses;
 15. serving kernels: K6 (the tensor-core decode matvec) against its plain
    version, timed at M = 1, 4 and 8 with its share of the bound and the
    library's time;
@@ -99,8 +105,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bf16 weights built on the card: extraction (r = 128) and GPTQ-OWQ with
    the global reorder (w4, g = 128, MSE grid) on 32 synthetic crops of
    2048 tokens, K3 in every calibration forward (launches checked);
-   save_fake, pack_model (fused stages), save_packed and both loads, bit
-   for bit; the reference's oracle, fake-quant PPL against packed PPL (2
+   the GPTQ column blocks replayed from captured programs; block 0's time
+   by step, each linear's GPTQ captured and eagerly (bit-identical), and
+   the profiler over q's column loop both ways (device busy time against
+   the host clock a column); save_fake, pack_model (fused stages),
+   save_packed and both loads, bit for bit; the reference's oracle, fake-quant PPL against packed PPL (2
    windows of 2048, relative delta within 0.1 %), teacher-forced logits of
    the packed model against the fake one, and ``generate`` (64 + 256) from
    the packed checkpoint through the graph, tokens equal to the eager
@@ -109,7 +118,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase's peak device memory;
 28. quantize cli: ``extract_outidx``, ``main`` quantizing with ``--fake
    --packing --save`` and its fake-vs-packed oracle, ``convert`` and ``main
-   --load --eval --benchmark`` as subprocesses on ``tiny-v2``;
+   --load --eval --benchmark --eval_datasets synthetic,<.npy> --logfile``
+   (the line's keys checked) as subprocesses on ``tiny-v2``;
 29. family train (after opt, on its model): WCT of OPT-6.7B at full width
    and depth -- 6 steps with run_finetune's defaults, K2 and K7 counted
    per step against the layer structure (K2 twice a linear, K7 once but
@@ -134,7 +144,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 32. hf: a Hugging Face directory of OPT-6.7B at full width and 2 layers (two
    shards and an index) written from the preset's tree and read back bit
    for bit, then ``extract_outidx --model <dir>`` and ``main --model <dir>
-   --reorder --packing --eval`` as subprocesses.
+   --reorder --packing --eval`` as subprocesses;
+33. stream-equal: one random f32 tree of Llama-2-7B width at 2 layers,
+   quantized held in host memory (blocks streamed to the card) and on the
+   card: weak set, fake trees, states, packed codes, scales and slabs
+   bit-identical, packed checkpoints byte-equal, ``eval_ppl_streamed``
+   within 1e-4 of ``eval_ppl``;
+34. stream-70b: ``llama2-70b`` at full width and 2 layers, a random f32
+   tree in host memory (9.0 GB): extraction, the captured GPTQ,
+   ``reorder_model_host`` and the streamed pack, one block on the card at
+   a time (each block's seconds and device peak; a later peak 10 % over
+   the first's fails), ``generate`` 64 + 64 through K1-K4 (GQA 64 / 8),
+   the oracle, and ``eval_ppl_streamed`` of the host fake tree against
+   ``eval_ppl`` of it on the card.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON table sums its paths (by
@@ -208,6 +230,26 @@ FAMILY_QUANT_SAMPLES, FAMILY_QUANT_NEW = 8, 64
 # fc1, OPT-6.7B's fc2
 FAMILY_SHAPES = (("falcon-7b qkv", 4544, 4672, 64), ("falcon-7b fc1", 4544, 18176, 64),
                  ("phi-2 fc1", 2560, 10240, 128), ("opt-6.7b fc2", 16384, 4096, 128))
+# models larger than the card: stream (a) quantizes STREAM_A_LAYERS layers of
+# llama2-7b width twice (host-streamed and on the card) on STREAM_A_SAMPLES
+# crops, a cut of the calibration set (equality needs no more); stream (b)
+# STREAM_B_LAYERS layers of llama2-70b width held in host memory on
+# QUANT_SAMPLES crops, generating STREAM_NEW tokens (2 layers, not 4: a
+# 70B-width block takes 34-35 s on an H100 80GB HBM3 at 700 W, and at 4 the
+# whole run took 956 s, over its 900 s budget); a later block's device peak
+# may exceed the first's by STREAM_PEAK_GROWTH; eval_ppl_streamed within
+# STREAM_EVAL_RTOL of eval_ppl (qeft_tpu's own bound, tests/test_eval.py:67)
+STREAM_A_LAYERS, STREAM_A_SAMPLES = 2, 8
+STREAM_B_LAYERS, STREAM_NEW = 2, 64
+STREAM_PEAK_GROWTH, STREAM_EVAL_RTOL = 0.10, 1e-4
+# the import phase: the first IMPORT_LAYERS layers of the random packed
+# llama2-7b as a reference checkpoint, IMPORT_NEW greedy tokens
+IMPORT_LAYERS, IMPORT_NEW = 4, 64
+# profiler sessions tried for a call's kernels before an empty record stands
+PROFILE_ATTEMPTS = 3
+# the linears of the quantize phase's block 0 whose GPTQ is run eagerly
+# (graph=False) beside the captured run, and held bit-identical to it
+BREAKDOWN_EAGER = ("q", "down")
 PATH_LAUNCHES: dict = {}  # launch counts of each main path, by path
 
 
@@ -497,12 +539,17 @@ def _kernels_a_call(fn, calls: int = 16):
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(i)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        # a session that recorded no CUDA activity at all measured nothing
+        log(f"  the profiler recorded no CUDA kernel in session {attempt + 1}; profiling again")
     return sorted(e.key[:60] for e in events), sum(e.count for e in events) / calls
 
 
@@ -2279,9 +2326,16 @@ def _expect(label, counts, want):
 def _quantize_breakdown(dense, calib, cfg, meta, args):
     """Where a block's quantization time goes (block 0, host clock to a
     synchronisation): its calibration forwards (all four Hessians, and the
-    re-forward), the GPTQ column loop of each linear with its group re-fits
-    (`gptq_quantize`), one group's MSE grid and the Frobenius weighting of o
-    and down."""
+    re-forward), the GPTQ of each linear with its group re-fits
+    (`gptq_quantize`) as replays of the captured column programs (one
+    capture per linear shape, kept across the linears as `quantize_model`
+    keeps them), those of BREAKDOWN_EAGER also eagerly (``graph=False``,
+    each kernel launched from the host) and held bit-identical; one group's
+    MSE grid and the Frobenius weighting of o and down.  Then the profiler
+    over q's column loop, eager and captured: device busy time against the
+    host clock a column, and the kernels a column block launches."""
+    from torch.profiler import ProfilerActivity, profile
+
     from qeft_tpu_torch import pipeline as pl
     from qeft_tpu_torch.quant import gptq, outliers, quantizer
 
@@ -2297,21 +2351,64 @@ def _quantize_breakdown(dense, calib, cfg, meta, args):
     t = {}
     t["hessian forward"], (_, hs) = timed_s(lambda: pl.block_hessians(blk, inps, cfg, meta))
     t["re-forward"], _ = timed_s(lambda: pl.block_forward_batch(blk, inps, cfg, meta))
-    num = 40
+    num, loops, eager_s, columns, inputs = 40, gptq.ColumnLoops(), {}, 0, {}
     for name in meta.all_linears:
         h = hs[pl._stage_of(meta, name)] * (2.0 / args.nsamples)
         w = blk[name].t().float()
         ids, out_ids = outliers.hessian_sort_ids(torch.diagonal(h), 128)
-        t[f"gptq {name}"], _ = timed_s(lambda: gptq.gptq_quantize(w, h, args.spec, ids, out_ids,
-                                                                   num=num))
+        inputs[name] = (w, h, ids, out_ids)
+        columns += w.shape[1] - 128
+        t[f"gptq {name}"], got = timed_s(lambda: gptq.gptq_quantize(
+            w, h, args.spec, ids, out_ids, num=num, loops=loops))
+        if name in BREAKDOWN_EAGER:
+            eager_s[name], want = timed_s(lambda: gptq.gptq_quantize(
+                w, h, args.spec, ids, out_ids, num=num, graph=False))
+            if not all(torch.equal(getattr(got, f), getattr(want, f))
+                       for f in ("w_fake", "scale_group", "zero_group")):
+                raise AssertionError(f"the captured GPTQ of {name} differs from the eager one")
         if name in meta.out + meta.ffn2:
             t[f"frobenius {name}"], _ = timed_s(
                 lambda: outliers.frob_norm_error(w, args.spec, num=num))
     group = blk["up"].t()[:, :128].float()
     t["one mse group of up"], _ = timed_s(lambda: quantizer.find_params(group, args.spec, num))
+    group = blk["q"].t()[:, :128].float()
+    t["one mse group of q"], _ = timed_s(lambda: quantizer.find_params(group, args.spec, num))
     total = sum(v for k, v in t.items() if not k.startswith("one"))
+    replays = sum(loop.replays for loop in loops.values())
+    graphs = sum(len(loop.graphs) for loop in loops.values())
     log(f"[quantize] block 0's time by step (seconds; the GPTQ of a linear includes its group "
-        f"re-fits): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items()) + f"; sum {total:.2f}")
+        f"re-fits, its column blocks replayed from {graphs} captured programs): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in t.items()) + f"; sum {total:.2f}")
+    log(f"[quantize] the same GPTQ eagerly (graph=False): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in eager_s.items())
+        + f" (captured: " + ", ".join(f"{n} {t[f'gptq {n}']:.3f}" for n in eager_s)
+        + f"; bit-identical: {', '.join(eager_s)}); {replays} replays and "
+        f"{columns // 128 - replays} eager column blocks (the captures' first runs) a block, "
+        f"{columns} columns")
+    w, h, ids, out_ids = inputs["q"]
+    n_cols = w.shape[1] - 128
+    prof_out = {}
+    for label, kw in (("eager", dict(graph=False)), ("captured", dict(loops=loops))):
+        gptq.gptq_quantize(w, h, args.spec, ids, out_ids, num=num, **kw)  # warm
+        host_s, _ = timed_s(lambda: gptq.gptq_quantize(w, h, args.spec, ids, out_ids, num=num,
+                                                       **kw))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            gptq.gptq_quantize(w, h, args.spec, ids, out_ids, num=num, **kw)
+            torch.cuda.synchronize()
+        kernels, busy_ms = kernel_times(prof)
+        n_kernels = sum(e.count for e in prof.key_averages()
+                        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        prof_out[label] = dict(host_ms_a_column=host_s * 1e3 / n_cols,
+                               busy_ms_a_column=busy_ms / n_cols, kernels=n_kernels,
+                               kernels_a_block=n_kernels / (n_cols // 128))
+        log(f"[quantize] q's GPTQ {label}: host clock {host_s * 1e3 / n_cols:.4f} ms a column "
+            f"(unprofiled), device busy {busy_ms / n_cols:.4f} ms a column"
+            + (f" (idle {max(0.0, 1 - busy_ms / (host_s * 1e3)):.1%})" if busy_ms else
+               " (device time not measured: the profiler recorded no CUDA kernel)")
+            + f"; {n_kernels} kernels, {n_kernels / (n_cols // 128):.0f} a column block; top: "
+            + ", ".join(f"{k[:40]} {ms:.1f} ms" for k, ms in kernels[:4]))
+    t["eager"] = eager_s
+    t["profile_q"] = prof_out
     return t
 
 
@@ -2369,7 +2466,8 @@ def phase_quantize():
     _expect("GPTQ calibration (Hessian forward + re-forward of each block)", c.counts,
             {"flash_window_attention": 2 * k3})
     log(f"[quantize] extraction {out['extract_s']:.1f} s, quantization {out['quantize_s']:.1f} s "
-        f"({out['quantize_s'] / n_layers:.1f} s a block; each block's seconds printed above)")
+        f"({out['quantize_s'] / n_layers:.1f} s a block, the GPTQ column blocks replayed from "
+        f"captured programs; each block's seconds printed above)")
     out["block_breakdown_s"] = _quantize_breakdown(dense, calib, cfg, meta, args)
     del dense
     torch.cuda.empty_cache()
@@ -2488,6 +2586,8 @@ def phase_quantize_cli():
     with tempfile.TemporaryDirectory() as tmp:
         oidx = os.path.join(tmp, "oidx")
         save = os.path.join(tmp, "ckpt", "q")
+        npy, logfile = os.path.join(tmp, "tokens.npy"), os.path.join(tmp, "runs.jsonl")
+        np.save(npy, np.random.default_rng(4).integers(0, 512, 4096))  # tiny-v2's vocabulary
         for label, argv in (
                 ("extract_outidx", ["-m", "qeft_tpu_torch.extract_outidx", *common,
                                     "--no_frob_norm", "--output_dir", oidx]),
@@ -2497,7 +2597,8 @@ def phase_quantize_cli():
                 ("convert", ["-m", "qeft_tpu_torch.convert", save + "_fake", save + "_conv",
                              "--fuse_stages"]),
                 ("main --load", ["-m", "qeft_tpu_torch.main", "--load", save + "_conv",
-                                 "--eval", "--eval_windows", "2", "--benchmark", "32"])):
+                                 "--eval", "--eval_windows", "2", "--benchmark", "32",
+                                 "--eval_datasets", f"synthetic,{npy}", "--logfile", logfile])):
             tick = time.perf_counter()
             proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
                                   cwd=root, timeout=600)
@@ -2510,6 +2611,15 @@ def phase_quantize_cli():
                 log(proc.stderr[-3000:])
                 raise AssertionError(f"{label} failed")
             out[label] = proc.stdout
+        with open(logfile) as f:
+            lines = [json.loads(line) for line in f]
+    keys = {"model", "load", "eval_datasets", "logfile", "device", f"ppl_{npy}", "ppl_synthetic",
+            "decode_tokens_per_s"}
+    log(f"[quantize-cli] main --load --eval_datasets synthetic,<.npy> --logfile: {len(lines)} "
+        f"line, keys {sorted(lines[0]) if lines else None}")
+    if len(lines) != 1 or not keys <= set(lines[0]) or not all(
+            np.isfinite(lines[0][k]) for k in ("ppl_synthetic", f"ppl_{npy}")):
+        raise AssertionError("main --logfile did not write the run's line with its keys")
     fields = out["main"].split("fake-vs-packed delta ")
     delta = float(fields[1].split("%")[0]) / 100 if len(fields) == 2 else float("nan")
     if not delta < 1e-2:
@@ -2748,6 +2858,444 @@ def phase_hf():
     return dict(delta=delta, write_s=out["write_s"], read_s=out["read_s"])
 
 
+# ---------------------------------------------------------------------------
+# models larger than the card, and the reference's checkpoints
+
+
+class _Tee:
+    """stdout echoed as it comes and its lines kept (the pipeline prints
+    each block's seconds and peak device memory)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def blocks(self, kind):
+        """[(seconds, peak GB)] of the ``kind`` ("extract", "quantize") block lines."""
+        import re
+
+        pat = re.compile(rf"^{kind}: block \d+/\d+ in ([0-9.]+) s, peak ([0-9.]+) GB")
+        return [(float(m.group(1)), float(m.group(2))) for m in
+                (pat.match(line) for line in "".join(self.text).splitlines()) if m]
+
+
+def _blocks_hold_their_peak(tag, kind, blocks):
+    """Each block's seconds and peak; a later block's peak more than
+    STREAM_PEAK_GROWTH over the first's fails (a path that kept earlier
+    blocks on the card would grow with depth)."""
+    log(f"[{tag}] {kind} blocks (seconds, peak device GB): {blocks}")
+    if not blocks or any(peak > (1 + STREAM_PEAK_GROWTH) * blocks[0][1] for _, peak in blocks):
+        raise AssertionError(f"{tag}: a later {kind} block's device peak exceeds the first's "
+                             f"by more than {STREAM_PEAK_GROWTH:.0%}: {blocks}")
+
+
+def _on_card(tree):
+    from qeft_tpu_torch.checkpoint import tree_map
+
+    return tree_map(lambda t: t.to("cuda"), tree)
+
+
+def _stream_quantize(tag, tree, calib, cfg, meta, args, device, k3_per_block):
+    """Extraction, GPTQ-OWQ with the global reorder (the column blocks
+    captured) and packing (stages fused) of ``tree`` with the blocks on
+    ``device`` (None: where the tree lives), K3 counted in every
+    calibration forward; -> (outidx, fake, states, packed, seconds, tee)."""
+    from qeft_tpu_torch import pipeline as pl
+
+    n = cfg.num_layers
+    out, tee = {}, _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        with counted(f"{tag} extract") as c:
+            tick = time.perf_counter()
+            outidx, _ = pl.extract_global_outidx(tree, calib, cfg, meta,
+                                                 dataclasses.replace(args, no_frob_norm=True),
+                                                 device=device)
+            torch.cuda.synchronize()
+            out["extract_s"] = time.perf_counter() - tick
+        _expect(f"{tag} extraction", c.counts, {"flash_window_attention": n * k3_per_block})
+        with counted(f"{tag} calibration") as c:
+            tick = time.perf_counter()
+            fake, states = pl.quantize_model(tree, calib, cfg, meta, args, outidx, device=device)
+            torch.cuda.synchronize()
+            out["quantize_s"] = time.perf_counter() - tick
+        _expect(f"{tag} GPTQ calibration", c.counts,
+                {"flash_window_attention": 2 * n * k3_per_block})
+        tick = time.perf_counter()
+        packed = pl.pack_model(fake, states, cfg, meta, fuse_stages=True, device=device)
+        torch.cuda.synchronize()
+        out["pack_s"] = time.perf_counter() - tick
+    log(f"[{tag}] extraction {out['extract_s']:.1f} s, quantization {out['quantize_s']:.1f} s "
+        f"({out['quantize_s'] / n:.2f} s a block), pack_model {out['pack_s']:.2f} s")
+    return outidx, fake, states, packed, out, tee
+
+
+def phase_stream_equal():
+    """stream (a): one random f32 tree of Llama-2-7B width at STREAM_A_LAYERS
+    layers (``host_init_params``) quantized twice -- held in host memory
+    with its blocks streamed to the card, and copied to the card and
+    quantized there -- bit-identical: the weak set, the fake trees, every
+    quantizer state (scales, zeros, weak ids), the packed codes, scales and
+    slabs, and byte-equal packed checkpoints; then ``eval_ppl_streamed`` of
+    the host fake tree within 1e-4 relative of ``eval_ppl`` of the card's."""
+    from qeft_tpu_torch import checkpoint as ckpt
+    from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.data import get_calibration_tokens, get_loaders
+    from qeft_tpu_torch.eval import eval_ppl, eval_ppl_streamed
+    from qeft_tpu_torch.extract_outidx import host_init_params, tree_bytes
+    from qeft_tpu_torch.main import _eval_api
+    from qeft_tpu_torch.models import llama
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+
+    tag = "stream-equal"
+    cfg = dataclasses.replace(llama.LLAMA_PRESETS[QUANT_PRESET], num_layers=STREAM_A_LAYERS)
+    meta = get_model_meta("llama")
+    tick = time.perf_counter()
+    host = host_init_params(llama, cfg, 0, torch.float32)
+    init_s = time.perf_counter() - tick
+    card = _on_card(host)
+    calib = get_calibration_tokens("synthetic", STREAM_A_SAMPLES, 0, QUANT_SEQ,
+                                   vocab_size=cfg.vocab_size)
+    args = pl.QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=True, group_size=128),
+                           target_rank=128, nsamples=STREAM_A_SAMPLES)
+    log(f"[{tag}] random f32 {QUANT_PRESET} at {STREAM_A_LAYERS} layers (full width), drawn in "
+        f"host memory in {init_s:.1f} s ({tree_bytes(host) / 1e9:.2f} GB) and copied to the card; "
+        f"calibration {STREAM_A_SAMPLES} x {QUANT_SEQ}; w4 g128 MSE r=128, the global reorder")
+    runs = {}
+    for label, tree, device in (("streamed", host, "cuda"), ("resident", card, None)):
+        runs[label] = _stream_quantize(f"{tag} {label}", tree, calib, cfg, meta, args, device,
+                                       STREAM_A_SAMPLES)
+    (o_s, f_s, s_s, p_s, t_s, _), (o_r, f_r, s_r, p_r, t_r, _) = (runs["streamed"],
+                                                                  runs["resident"])
+    same = {"outidx": bool(np.array_equal(o_s, o_r))}
+    fs, fr = ckpt.to_flat(f_s), ckpt.to_flat(f_r)
+    same["fake trees"] = sorted(fs) == sorted(fr) and all(np.array_equal(fs[k], fr[k]) for k in fr)
+    same["states"] = sorted(s_s) == sorted(s_r) and all(
+        torch.equal(getattr(s_s[k], f), getattr(v, f).cpu()) for k, v in s_r.items()
+        for f in ("scale_group", "zero_group", "out_ids"))
+    for field in ("qweight", "scales", "scaled_zeros", "oweight"):
+        same[field] = all(torch.equal(getattr(p_s["layers"][k], field),
+                                      getattr(v, field).cpu())
+                          for k, v in p_r["layers"].items() if hasattr(v, "qweight"))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, k) for k in ("streamed", "resident")}
+        ckpt.save_packed(paths["streamed"], p_s, cfg)
+        ckpt.save_packed(paths["resident"], p_r, cfg)
+        blobs = [open(paths[k] + ".npz", "rb").read() for k in ("streamed", "resident")]
+        same["packed checkpoints, byte for byte"] = blobs[0] == blobs[1]
+        size = len(blobs[0])
+    del blobs, card, p_s, p_r
+    log(f"[{tag}] streamed vs resident, bit for bit: {same} (checkpoint {size} bytes)")
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: the streamed quantization differs from the resident one")
+
+    test = get_loaders("synthetic", train=False, vocab_size=cfg.vocab_size)
+    windows = QUANT_EVAL_WINDOWS
+    with counted(f"{tag} eval_ppl_streamed") as c:
+        tick = time.perf_counter()
+        ppl_s = eval_ppl_streamed(f_s, test, cfg, meta, seqlen=QUANT_SEQ, max_windows=windows,
+                                  device="cuda")
+        streamed_s = time.perf_counter() - tick
+    _expect(f"{tag} eval_ppl_streamed", c.counts,
+            {"flash_window_attention": STREAM_A_LAYERS * windows})
+    fused = pl.fuse_dense_stages(f_r, meta)
+    ppl_r = eval_ppl(fused, test, cfg, seqlen=QUANT_SEQ, max_windows=windows,
+                     api=_eval_api(fused, "llama"), device="cuda")
+    rel = abs(ppl_s - ppl_r) / ppl_r
+    log(f"[{tag}] eval_ppl_streamed of the host fake tree {ppl_s:.6f} ({streamed_s:.1f} s) vs "
+        f"eval_ppl of the card's {ppl_r:.6f}: relative {rel:.3g} (bound {STREAM_EVAL_RTOL:g})")
+    if not (np.isfinite(ppl_s) and rel <= STREAM_EVAL_RTOL):
+        raise AssertionError(f"{tag}: eval_ppl_streamed disagrees with eval_ppl")
+    del fused, f_r, f_s
+    torch.cuda.empty_cache()
+    return dict(streamed=t_s, resident=t_r, ppl_streamed=ppl_s, ppl=ppl_r, eval_rel=rel,
+                init_s=init_s)
+
+
+def phase_stream_70b():
+    """stream (b): ``llama2-70b`` at full width (hidden 8192, 64 query and 8
+    kv heads, ffn 28,672) and STREAM_B_LAYERS layers, a random f32 tree held
+    in host memory: extraction, GPTQ-OWQ with the captured column loop,
+    ``reorder_model_host`` and the streamed ``pack_model``, one block on the
+    card at a time on QUANT_SAMPLES x QUANT_SEQ calibration crops, each
+    block's seconds and peak device memory (a later block's peak above the
+    first's by more than STREAM_PEAK_GROWTH fails); then the packed model
+    served through K1-K4 (``generate`` 64 + STREAM_NEW through the graph,
+    tokens equal to the eager loop's, launches counted: GQA 64 / 8); the
+    reference's oracle (recovered fake vs packed PPL within PPL_RTOL, the
+    true fake delta printed); and ``eval_ppl_streamed`` of the host fake
+    tree against ``eval_ppl`` of it on the card."""
+    from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.data import get_calibration_tokens, get_loaders
+    from qeft_tpu_torch.eval import eval_ppl, eval_ppl_streamed
+    from qeft_tpu_torch.extract_outidx import host_init_params, tree_bytes
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.main import _eval_api
+    from qeft_tpu_torch.models import llama
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+    from qeft_tpu_torch.testing import dense_model
+
+    tag = "stream-70b"
+    cfg = dataclasses.replace(llama.LLAMA_PRESETS["llama2-70b"], num_layers=STREAM_B_LAYERS)
+    meta, api, n = get_model_meta("llama"), get_model_api("llama"), STREAM_B_LAYERS
+    tick = time.perf_counter()
+    host = host_init_params(llama, cfg, 0, torch.float32)
+    out = {"init_s": time.perf_counter() - tick, "host_gb": tree_bytes(host) / 1e9}
+    calib = get_calibration_tokens("synthetic", QUANT_SAMPLES, 0, QUANT_SEQ,
+                                   vocab_size=cfg.vocab_size)
+    args = pl.QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=True, group_size=128),
+                           target_rank=128, nsamples=QUANT_SAMPLES)
+    log(f"[{tag}] random f32 llama2-70b at {n} layers (full width: hidden 8192, 64/8 heads, "
+        f"ffn 28672) in host memory: {out['host_gb']:.2f} GB drawn in {out['init_s']:.1f} s; "
+        f"calibration {QUANT_SAMPLES} x {QUANT_SEQ}; w4 g128 MSE r=128, the global reorder")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, fake, states, packed, t, tee = _stream_quantize(tag, host, calib, cfg, meta, args, "cuda",
+                                                       QUANT_SAMPLES)
+    out.update(t)
+    del host
+    for kind in ("extract", "quantize"):
+        out[f"{kind}_blocks"] = tee.blocks(kind)
+        _blocks_hold_their_peak(tag, kind, out[f"{kind}_blocks"])
+    if fake["embed"].device.type != "cpu" or packed["embed"].device.type != "cpu":
+        raise AssertionError(f"{tag}: the streamed fake and packed trees should be on the host")
+
+    served = pl.fuse_packed_stages(_on_card(packed), meta)
+    del packed
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen, device="cuda")
+    steps = STREAM_NEW - 1
+
+    def run(graph):
+        cache = api.init_cache(cfg, 1, PROMPT + STREAM_NEW, dtype=torch.bfloat16, device="cuda")
+        return generate(served, prompt, cache, cfg, STREAM_NEW, api=api, device="cuda",
+                        graph=graph)[0]
+
+    run(True)  # warm-up: the capture
+    with counted(f"{tag} generate") as c:
+        tick = time.perf_counter()
+        got = run(True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - tick
+    _expect(f"{tag} generate from the packed model", c.counts,
+            {"qgemv_stacked_fused": 4 * n * steps, "decode_attention": n * steps,
+             "qgemm": 4 * n, "flash_window_attention": n})
+    eager = run(False)
+    same = bool(torch.equal(got, eager))
+    log(f"[{tag}] generate: {PROMPT} + {STREAM_NEW} tokens in {dt:.3f} s through the graph "
+        f"({STREAM_NEW / dt:.2f} tok/s); tokens equal to the eager loop's: {same}")
+    if not same or not ((got >= 0) & (got < cfg.vocab_size)).all():
+        raise AssertionError(f"{tag}: graph tokens differ from the eager loop's")
+
+    test = get_loaders("synthetic", train=False, vocab_size=cfg.vocab_size)
+    windows = QUANT_EVAL_WINDOWS
+    ppl = {}
+    with counted(f"{tag} eval_ppl_streamed") as c:
+        tick = time.perf_counter()
+        ppl["fake, streamed"] = eval_ppl_streamed(fake, test, cfg, meta, seqlen=QUANT_SEQ,
+                                                  max_windows=windows, device="cuda")
+        out["eval_streamed_s"] = time.perf_counter() - tick
+    _expect(f"{tag} eval_ppl_streamed", c.counts, {"flash_window_attention": n * windows})
+    fused = pl.fuse_dense_stages(_on_card(fake), meta)
+    del fake
+    recovered = dense_model(served)
+    for label, params, want in (
+            ("fake", fused, {"flash_window_attention": n * windows}),
+            ("recovered fake", recovered, {"flash_window_attention": n * windows}),
+            ("packed", served, {"qgemm": 4 * n * windows, "flash_window_attention": n * windows})):
+        with counted(f"{tag} eval {label}") as c:
+            ppl[label] = eval_ppl(params, test, cfg, seqlen=QUANT_SEQ, max_windows=windows,
+                                  api=_eval_api(params, "llama"), device="cuda")
+        _expect(f"{tag} eval of the {label} model", c.counts, want)
+    del fused, recovered, served
+    torch.cuda.empty_cache()
+    delta = abs(ppl["packed"] - ppl["recovered fake"]) / ppl["recovered fake"]
+    fake_delta = abs(ppl["packed"] - ppl["fake"]) / ppl["fake"]
+    rel = abs(ppl["fake, streamed"] - ppl["fake"]) / ppl["fake"]
+    out.update(ppl=ppl, ppl_delta=delta, ppl_delta_fake=fake_delta, eval_rel=rel,
+               generate_s=dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[{tag}] synthetic ppl ({windows} windows of {QUANT_SEQ}): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in ppl.items())
+        + f"; recovered-fake-vs-packed delta {delta:.4%} (bound {PPL_RTOL:.2%}), fake-vs-packed "
+        f"delta {fake_delta:.4%} (printed); eval_ppl_streamed vs eval_ppl of the fake tree: "
+        f"relative {rel:.3g} (bound {STREAM_EVAL_RTOL:g}) in {out['eval_streamed_s']:.1f} s; "
+        f"peak device memory since the last block {out['peak_memory_gb']:.3f} GB")
+    if not (all(np.isfinite(v) for v in ppl.values()) and delta <= PPL_RTOL
+            and rel <= STREAM_EVAL_RTOL):
+        raise AssertionError(f"{tag}: the oracle or the streamed eval failed")
+    return out
+
+
+def _llama_config_dir(path, cfg):
+    """A Hugging Face ``config.json`` for ``cfg`` (the config the importer's
+    ``--model <dir>`` reads)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta}, f)
+
+
+def phase_import(cfg, params):
+    """import: the random packed Llama-2-7B (its first IMPORT_LAYERS layers,
+    full width) written as a reference (xvyaward/qeft) packed checkpoint
+    with ``torch.save`` (``testing.write_reference_packed``), then imported
+    on the card: codes and ``o_reorder`` bit-exact, scales, zero points,
+    slabs, norms, embedding and head bit-exact wherever their bf16 value is
+    exact in fp16 (checked and counted); ``generate`` 64 + 64 through the
+    graph from the imported model, greedy tokens equal to the source's;
+    a WCT overlay (``write_reference_wct``) lands on its slabs; the
+    ``import_reference`` CLI (``--model`` a config directory) writes the
+    checkpoint the library does, and ``main --load ... --eval`` evaluates it
+    to the in-process PPL."""
+    from qeft_tpu_torch.data import get_loaders
+    from qeft_tpu_torch.eval import eval_ppl
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.import_reference import import_reference_packed, import_reference_wct
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.ops.packing import QLinearParams
+    from qeft_tpu_torch.pipeline import fuse_packed_stages
+    from qeft_tpu_torch.testing import write_reference_packed, write_reference_wct
+
+    tag, n = "import", IMPORT_LAYERS
+    small = dataclasses.replace(cfg, num_layers=n)
+    meta, api = get_model_meta("llama"), get_model_api("llama")
+    src = {**params, "layers": {k: (v.map(lambda t: t[:n]) if isinstance(v, QLinearParams)
+                                    else v[:n]) for k, v in params["layers"].items()}}
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref_packed.pth")
+        tick = time.perf_counter()
+        ckpt = write_reference_packed(src, small)
+        torch.save(ckpt, ref)
+        out["write_s"] = time.perf_counter() - tick
+        tick = time.perf_counter()
+        got, _ = import_reference_packed(ref, small, device="cuda")
+        torch.cuda.synchronize()
+        out["import_s"] = time.perf_counter() - tick
+        got = fuse_packed_stages(got, meta)
+        exact = {"codes": 0, "o_reorder": 0}
+        inexact = total = 0
+        for name, want in src["layers"].items():
+            have = got["layers"][name]
+            if isinstance(want, QLinearParams):
+                exact["codes"] += int(not torch.equal(have.qweight, want.qweight))
+                pairs = [(getattr(have, f), getattr(want, f))
+                         for f in ("scales", "scaled_zeros", "oweight")]
+            elif name == "o_reorder":
+                exact["o_reorder"] += int(not torch.equal(have, want))
+                pairs = []
+            else:
+                pairs = [(have, want)]
+            for h, w in pairs:
+                ok = w.to(torch.float16).to(w.dtype) == w
+                inexact += int((~ok).sum())
+                total += w.numel()
+                if not torch.equal(h[ok], w[ok]):
+                    raise AssertionError(f"{tag}: {name} differs where fp16 holds its value")
+        for key in ("embed", "final_ln", "lm_head"):
+            w = src[key]
+            ok = w.to(torch.float16).to(w.dtype) == w
+            inexact += int((~ok).sum())
+            total += w.numel()
+            if not torch.equal(got[key][ok], w[ok]):
+                raise AssertionError(f"{tag}: {key} differs where fp16 holds its value")
+        log(f"[{tag}] {n} layers of the random packed {QUANT_PRESET} written as a reference "
+            f"checkpoint ({os.path.getsize(ref)} bytes) in {out['write_s']:.1f} s, imported on "
+            f"the card in {out['import_s']:.1f} s: linears whose codes differ {exact['codes']}, "
+            f"o_reorder {exact['o_reorder']}; float values bit-exact wherever fp16 holds them, "
+            f"{inexact} of {total} ({inexact / total:.3g}) not exact in fp16 (subnormal there)")
+        if any(exact.values()):
+            raise AssertionError(f"{tag}: the imported codes differ from the source's")
+
+        prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT),
+                               generator=torch.Generator(device="cuda").manual_seed(3),
+                               device="cuda")
+        steps = IMPORT_NEW - 1
+        tokens = {}
+        for label, tree in (("source", src), ("imported", got)):
+            cache = api.init_cache(small, 1, PROMPT + IMPORT_NEW, dtype=torch.bfloat16,
+                                   device="cuda")
+            generate(tree, prompt, cache, small, IMPORT_NEW, api=api, device="cuda")  # capture
+            cache = api.init_cache(small, 1, PROMPT + IMPORT_NEW, dtype=torch.bfloat16,
+                                   device="cuda")
+            with counted(f"{tag} generate {label}") as c:
+                tokens[label] = generate(tree, prompt, cache, small, IMPORT_NEW, api=api,
+                                         device="cuda")[0]
+            _expect(f"{tag} generate from the {label} model", c.counts,
+                    {"qgemv_stacked_fused": 4 * n * steps, "decode_attention": n * steps,
+                     "qgemm": 4 * n, "flash_window_attention": n})
+        same = bool(torch.equal(tokens["source"], tokens["imported"]))
+        log(f"[{tag}] generate {PROMPT} + {IMPORT_NEW} through the graph: the imported model's "
+            f"greedy tokens equal the source's: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: the imported model generates other tokens")
+
+        hd = cfg.num_heads * cfg.head_dim
+        g = torch.Generator(device="cuda").manual_seed(4)
+        slabs = {(1, "q"): torch.randn(128, hd, generator=g, device="cuda") * 0.02,
+                 (n - 1, "down"): torch.randn(128, cfg.hidden_size, generator=g,
+                                              device="cuda") * 0.02}
+        wct = os.path.join(tmp, "wct.pth")
+        torch.save(write_reference_wct(slabs, ref), wct)
+        tuned, _ = import_reference_wct(wct, small, device="cuda")
+        landed = all(torch.equal(tuned["layers"][name].oweight[i],
+                                 w.to(torch.float16).to(torch.bfloat16))
+                     for (i, name), w in slabs.items())
+        kept = torch.equal(tuned["layers"]["q"].oweight[0],
+                           got["layers"]["qkv"].oweight[0][:, :hd])
+        log(f"[{tag}] WCT overlay: the tuned slabs landed on layer 1 q and layer {n - 1} down: "
+            f"{landed}; layer 0's q slab kept: {kept}")
+        if not (landed and kept):
+            raise AssertionError(f"{tag}: the WCT overlay did not land on its slabs")
+        del tuned
+
+        cfg_dir, dst = os.path.join(tmp, "config"), os.path.join(tmp, "imported")
+        _llama_config_dir(cfg_dir, small)
+        test = get_loaders("synthetic", train=False, vocab_size=cfg.vocab_size)
+        want = eval_ppl(got, test, small, seqlen=QUANT_SEQ, max_windows=1, api=api,
+                        device="cuda")
+        for label, argv in (
+                ("import_reference", ["-m", "qeft_tpu_torch.import_reference", ref, dst,
+                                      "--model", cfg_dir]),
+                ("main --load", ["-m", "qeft_tpu_torch.main", "--load", dst, "--eval",
+                                 "--eval_windows", "1", "--seqlen", str(QUANT_SEQ)])):
+            tick = time.perf_counter()
+            proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                                  cwd=root, timeout=600)
+            log(f"[{tag}] python {' '.join(argv[:2])} exit {proc.returncode} in "
+                f"{time.perf_counter() - tick:.1f} s:")
+            for line in proc.stdout.strip().splitlines()[-3:]:
+                log(f"    {line}")
+            if proc.returncode != 0:
+                log(proc.stderr[-3000:])
+                raise AssertionError(f"{tag}: {label} failed")
+            out[label] = proc.stdout
+        fields = out["main --load"].split("synthetic ppl: ")
+        ppl = float(fields[1].split()[0]) if len(fields) == 2 else float("nan")
+        log(f"[{tag}] main --load of the CLI's checkpoint: ppl {ppl:.4f}; in process {want:.4f}")
+        if not abs(ppl - want) <= 1e-4 * want:
+            raise AssertionError(f"{tag}: main --load of the imported checkpoint: ppl {ppl}, "
+                                 f"expected {want}")
+    del got, src
+    torch.cuda.empty_cache()
+    return dict(write_s=out["write_s"], import_s=out["import_s"], ppl=want, inexact=inexact)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["attention", "matvec"], default=None,
@@ -2811,6 +3359,7 @@ def main(argv=None) -> int:
     timed(phase_train, cfg, params)
     timed(phase_cli, cfg)
     timed(phase_train_oracle, cfg, params)
+    timed(phase_import, cfg, params)
     del params  # the Llama model's tensors, before OPT-6.7B is built
     torch.cuda.empty_cache()
     from qeft_tpu_torch.models.opt import OPT_PRESETS
@@ -2828,6 +3377,8 @@ def main(argv=None) -> int:
     timed(phase_quantize_cli)
     timed(phase_family_quantize)
     timed(phase_hf)
+    timed(phase_stream_equal)
+    timed(phase_stream_70b)
     for key, row in rows.items():
         by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if c.get(key)}
         row.d["launches_by_path"] = by_path

@@ -274,6 +274,14 @@ def load_fake(path: str, device=None):
     return params, states, cfg_from_dict(manifest["config"], family), family
 
 
+def checkpoint_bytes(path: str) -> int:
+    """Bytes of the arrays a `load_model` of ``path`` reads (the ``.npz``;
+    a WCT checkpoint's base)."""
+    if _manifest(path)["format"] == "wct":
+        path = _manifest(path)["base_path"]
+    return os.path.getsize(_paths(path)[0])
+
+
 def load_model(path: str, device=None):
     """Dispatch on the manifest's format: ``packed``, ``wct`` or ``fake``.
     -> (params, config, family), as ``qeft_tpu.checkpoint.load_model``;

@@ -60,15 +60,80 @@ def resolve_dtype(name):
     return None if name in (None, "auto") else _DTYPES[name]
 
 
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a tree (``meta`` tensors included)."""
+    from qeft_tpu_torch.checkpoint import tree_map
+
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel() * t.element_size()) or t, tree)
+    return sum(sizes)
+
+
+_POOL = (1 << 24) + 1  # odd: rows of power-of-two width fall out of step at each wrap
+
+
+def host_init_params(module, cfg, seed: int = 0, dtype=torch.float32):
+    """A family's random dense tree in host memory, shaped as its
+    ``init_params`` makes it, at the speed of a copy
+    (``qeft_tpu/extract_outidx.py::_fast_host_init``): drawing each of a
+    70B model's 69 G values from a CPU ``torch.Generator`` takes minutes, so
+    one pool of 2^24 + 1 normal values is drawn from it (seed ``seed``),
+    scaled and cast once per distinct scale, and tiled into each leaf from a
+    rolling offset.  Leaves by role: norm
+    scales 1, biases 0, embeddings N(0, 0.02^2), matrices N(0, 1/K) in the
+    ``[K, N]`` layout."""
+    spec = module.init_params(cfg, seed=seed, dtype=dtype, device="meta")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    pool = torch.randn(_POOL, generator=gen)
+    pools = {}
+    offset = 0
+
+    def draw(scale: float, shape) -> torch.Tensor:
+        nonlocal offset
+        if scale not in pools:
+            pools[scale] = (pool * scale).to(dtype)
+        src = pools[scale]
+        n = int(np.prod(shape))
+        out = torch.empty(n, dtype=dtype)
+        pos, off = 0, offset
+        while pos < n:
+            k = min(_POOL - off, n - pos)
+            out[pos: pos + k] = src[off: off + k]
+            pos, off = pos + k, (off + k) % _POOL
+        offset = off
+        return out.reshape(shape)
+
+    def fill(name: str, t: torch.Tensor) -> torch.Tensor:
+        if "ln" in name and not name.endswith("_b"):
+            return torch.ones(t.shape, dtype=t.dtype)
+        if name.endswith("_b"):
+            return torch.zeros(t.shape, dtype=t.dtype)
+        if "embed" in name:
+            return draw(0.02, t.shape)
+        return draw(float(t.shape[-2]) ** -0.5 if t.dim() >= 2 else 1.0, t.shape)
+
+    params = {k: fill(k, v) for k, v in spec.items() if k != "layers"}
+    params["layers"] = {k: fill(k, v) for k, v in spec["layers"].items()}
+    return params
+
+
 def load_model_and_meta(model: str, dtype=None, device=None, seed: int = 0):
-    """Preset name -> (random dense tree on ``device``, config, meta): f32
-    unless ``dtype`` says otherwise, as the JAX package initialises presets
-    (the values come from a ``torch.Generator`` and differ from JAX's).  A
+    """Preset name -> (random dense tree, config, meta): f32 unless
+    ``dtype`` says otherwise, as the JAX package initialises presets (the
+    values come from a ``torch.Generator`` and differ from JAX's).  A
     directory with a ``config.json`` -> its Hugging Face checkpoint
-    (`models.hf_loader`), bf16 unless ``dtype`` says otherwise."""
+    (`models.hf_loader`), bf16 unless ``dtype`` says otherwise.
+
+    The tree is placed on ``device`` when it fits there twice (the tree and
+    its quantized copy) beside `device.DEVICE_MARGIN`; a larger one stays in
+    host memory (a preset drawn by `host_init_params`), and the pipeline
+    streams its blocks to the card, as the JAX package holds a model larger
+    than its chip on the host."""
     import importlib
 
-    from qeft_tpu_torch.device import resolve_device
+    from qeft_tpu_torch.checkpoint import tree_map
+    from qeft_tpu_torch.device import fits_on_device, resolve_device
     from qeft_tpu_torch.models.registry import get_model_meta
 
     device = resolve_device(device)
@@ -76,14 +141,18 @@ def load_model_and_meta(model: str, dtype=None, device=None, seed: int = 0):
         module = importlib.import_module(f"qeft_tpu_torch.models.{family}")
         presets = getattr(module, f"{family.upper()}_PRESETS")
         if model in presets:
-            cfg = presets[model]
-            params = module.init_params(cfg, seed=seed, dtype=dtype or torch.float32,
-                                        device=device)
-            return params, cfg, get_model_meta("gemma" if "gemma" in model else family)
+            cfg, dtype = presets[model], dtype or torch.float32
+            meta = get_model_meta("gemma" if "gemma" in model else family)
+            spec = module.init_params(cfg, seed=seed, dtype=dtype, device="meta")
+            if fits_on_device(2 * tree_bytes(spec), device):
+                return module.init_params(cfg, seed=seed, dtype=dtype, device=device), cfg, meta
+            return host_init_params(module, cfg, seed, dtype), cfg, meta
     if os.path.isdir(model):
         from qeft_tpu_torch.models.hf_loader import load_hf_model
 
-        params, cfg, family = load_hf_model(model, dtype=dtype or torch.bfloat16, device=device)
+        params, cfg, family = load_hf_model(model, dtype=dtype or torch.bfloat16, device="cpu")
+        if fits_on_device(2 * tree_bytes(params), device):
+            params = tree_map(lambda t: t.to(device), params)
         return params, cfg, get_model_meta(family)
     raise ValueError(f"unknown model {model!r}: neither a preset nor a Hugging Face directory")
 

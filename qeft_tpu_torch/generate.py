@@ -176,3 +176,20 @@ def generate(params: Dict, prompt: torch.Tensor, cache: Dict, cfg, max_new_token
             done = done | (nxt == eos_id)
         tokens[:, i] = nxt
     return tokens, cache
+
+
+def generate_simple(params: Dict, prompt: torch.Tensor, cfg, max_new_tokens: int,
+                    max_len: Optional[int] = None, sc: SampleConfig = SampleConfig(),
+                    cache_dtype=None, api: Optional[ModelApi] = None,
+                    device=None) -> torch.Tensor:
+    """`generate` with the cache allocated for the caller
+    (``qeft_tpu/generate.py::generate_simple``): ``max_len`` slots (default
+    prompt + new tokens) of ``cache_dtype`` (default the config's).  Runs on
+    the card unless ``device="cpu"`` is given.  -> tokens [B,
+    max_new_tokens]."""
+    device = resolve_device(device)
+    api = api or get_model_api("llama")
+    b, s = prompt.shape
+    cache = api.init_cache(cfg, b, max_len or (s + max_new_tokens), dtype=cache_dtype,
+                           device=device)
+    return generate(params, prompt, cache, cfg, max_new_tokens, sc, api=api, device=device)[0]

@@ -23,7 +23,17 @@ over it.  Quantization takes a preset of any family (random weights from
 quantized at ``percdamp`` 1.0, as the reference does.  With
 ``QEFT_QUANT_LMHEAD`` set (any value but "0", "" and "false") ``--load``
 packs the lm_head round-to-nearest to int4 (g = 128), as the JAX package
-does.  Runs on the GPU unless ``--device cpu`` is given.  ``--benchmark N``
+does.  Runs on the GPU unless ``--device cpu`` is given.
+
+A model larger than the card stays in host memory: a preset or Hugging
+Face model too large to quantize on the card (``load_model_and_meta``) is
+quantized and packed block by block, and a checkpoint that does not fit
+(``device.fits_on_device``) is read to the host; ``--eval`` of a llama-
+family tree held on the host runs ``eval_ppl_streamed``, one block on the
+card at a time, as JAX's ``stream_eval`` rule picks it.  ``--eval_datasets
+a,b`` evaluates each set (default: ``--dataset``), and ``--logfile`` appends
+one JSON line ``{"model", **args, **results}``, as the JAX package writes
+it.  ``--benchmark N``
 reports (a) decode throughput of generate(): a 64-token prompt, then N
 greedy tokens, timed after one warm-up run; and (b) the per-token protocol:
 N data tokens fed one at a time through the decode step, each step timed to
@@ -35,22 +45,30 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
 import os
 import time
 
 import numpy as np
 import torch
 
-from qeft_tpu_torch.checkpoint import load_model, save_fake, save_packed
+from qeft_tpu_torch.checkpoint import (
+    checkpoint_bytes,
+    load_model,
+    save_fake,
+    save_packed,
+    tree_map,
+)
 from qeft_tpu_torch.data import get_loaders
-from qeft_tpu_torch.device import resolve_device
-from qeft_tpu_torch.eval import eval_ppl
+from qeft_tpu_torch.device import fits_on_device, resolve_device
+from qeft_tpu_torch.eval import eval_ppl, eval_ppl_streamed
 from qeft_tpu_torch.extract_outidx import (
     add_common_quant_args,
     build_quantize_args,
     calibration,
     load_model_and_meta,
     resolve_dtype,
+    tree_bytes,
 )
 from qeft_tpu_torch.generate import generate
 from qeft_tpu_torch.models.api import get_model_api
@@ -129,8 +147,12 @@ def quant_lmhead_enabled() -> bool:
 def load_for_serving(path: str, device) -> tuple:
     """A checkpoint as ``main --load`` serves it -> (params, config,
     family): a packed (or WCT) tree stage-fused, a fake one fused into the
-    dense stages, and the lm_head packed under ``QEFT_QUANT_LMHEAD``."""
-    params, cfg, family = load_model(path, device=device)
+    dense stages, and the lm_head packed under ``QEFT_QUANT_LMHEAD``.  On
+    ``device`` where it fits there (`device.fits_on_device`), else in host
+    memory."""
+    device = torch.device(device)
+    home = device if fits_on_device(checkpoint_bytes(path), device) else torch.device("cpu")
+    params, cfg, family = load_model(path, device=home)
     meta = get_model_meta(family)
     params = fuse_dense_stages(params, meta) if _is_dense(params) else fuse_packed_stages(
         params, meta)
@@ -141,6 +163,27 @@ def load_for_serving(path: str, device) -> tuple:
 
 def _is_dense(params) -> bool:
     return not any(isinstance(v, QLinearParams) for v in params["layers"].values())
+
+
+def _streamed(params, device: torch.device) -> bool:
+    """Whether a tree is held in host memory while the run is on the card
+    (a model larger than the card): its blocks stream."""
+    return device.type == "cuda" and params["embed"].device.type == "cpu"
+
+
+def _ppl(params, test, cfg, meta, seqlen, windows, device) -> float:
+    """PPL of a tree where it lives: a llama-family tree held in host
+    memory while the run is on the card streams its blocks
+    (`eval_ppl_streamed`, JAX's ``stream_eval`` rule); any other evaluates
+    whole (`eval_ppl`)."""
+    if _streamed(params, device):
+        if meta.family not in ("llama", "gemma"):
+            raise ValueError(f"a {meta.family} model held in host memory cannot be evaluated: "
+                             "eval_ppl_streamed covers the llama family, as JAX's does")
+        return eval_ppl_streamed(params, test, cfg, meta, seqlen=seqlen, max_windows=windows,
+                                 device=device)
+    return eval_ppl(params, test, cfg, seqlen=seqlen, max_windows=windows,
+                    api=_eval_api(params, meta.family), device=device)
 
 
 def _eval_api(params, family: str):
@@ -172,7 +215,7 @@ def _quantize(args, device, results):
             qargs.percdamp = 1.0
         tick = time.perf_counter()
         params, quantizers = quantize_model(params, calibration(args, cfg), cfg, meta, qargs,
-                                            outidx)
+                                            outidx, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         results["quantize_time_s"] = time.perf_counter() - tick
@@ -192,8 +235,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--fuse_stages", action="store_true",
                         help="pack q/k/v -> qkv and up/gate -> upgate (needs --reorder)")
     parser.add_argument("--eval", action="store_true", help="PPL over --eval_windows")
+    parser.add_argument("--eval_datasets", default="",
+                        help="comma list of sets to evaluate (default: --dataset)")
     parser.add_argument("--eval_windows", type=int, default=0)
     parser.add_argument("--benchmark", type=int, default=0, help="tokens to decode")
+    parser.add_argument("--logfile", default="", help="append the run's JSON line here")
     args = parser.parse_args(argv)
     if not args.load and not args.model:
         parser.error("give --model (quantize) or --load (a checkpoint)")
@@ -220,35 +266,45 @@ def main(argv=None) -> dict:
             save_fake(args.save + "_fake", params, quantizers, cfg, family=family)
             print(f"fake ckpt -> {args.save}_fake.npz")
         if args.packing:
-            packed = pack_model(params, quantizers, cfg, meta, fuse_stages=args.fuse_stages)
+            packed = pack_model(params, quantizers, cfg, meta, fuse_stages=args.fuse_stages,
+                                device=device)
             save_packed(args.save + "_packed", packed, cfg, family=family)
             print(f"packed ckpt -> {args.save}_packed.npz")
-    params = fuse_dense_stages(params, meta) if _is_dense(params) else params
+    if _is_dense(params) and not _streamed(params, device):
+        params = fuse_dense_stages(params, meta)
 
     if args.eval:
-        test = get_loaders(args.dataset, train=False, vocab_size=cfg.vocab_size)
         seqlen = args.seqlen or cfg.max_position_embeddings
-        ppl = eval_ppl(params, test, cfg, seqlen=seqlen, max_windows=args.eval_windows,
-                       api=_eval_api(params, family), device=device)
-        results[f"ppl_{args.dataset}"] = ppl
-        print(f"{args.dataset} ppl: {ppl:.4f}")
         if packed is not None:
-            # the reference's oracle: the packed path's PPL against the
-            # fake-quantized model's
-            ppl_packed = eval_ppl(fuse_packed_stages(packed, meta), test, cfg, seqlen=seqlen,
-                                  max_windows=args.eval_windows, api=get_model_api(family),
-                                  device=device)
-            delta = abs(ppl_packed - ppl) / max(ppl, 1e-9)
-            results[f"ppl_{args.dataset}_packed"] = ppl_packed
-            results["fake_vs_packed_delta"] = delta
-            print(f"{args.dataset} ppl (packed): {ppl_packed:.4f}  (fake-vs-packed delta "
-                  f"{delta:.4%})")
+            packed = fuse_packed_stages(packed, meta)
+            if _streamed(packed, device) and fits_on_device(tree_bytes(packed), device):
+                packed = tree_map(lambda t: t.to(device), packed)  # one transfer, not per window
+        for ds in [s.strip() for s in args.eval_datasets.split(",") if s.strip()] or [
+                args.dataset]:
+            test = get_loaders(ds, train=False, vocab_size=cfg.vocab_size)
+            ppl = _ppl(params, test, cfg, meta, seqlen, args.eval_windows, device)
+            results[f"ppl_{ds}"] = ppl
+            print(f"{ds} ppl: {ppl:.4f}")
+            if packed is not None:
+                # the reference's oracle: the packed path's PPL against the
+                # fake-quantized model's
+                ppl_packed = _ppl(packed, test, cfg, meta, seqlen, args.eval_windows, device)
+                delta = abs(ppl_packed - ppl) / max(ppl, 1e-9)
+                results[f"ppl_{ds}_packed"] = ppl_packed
+                results["fake_vs_packed_delta"] = delta
+                print(f"{ds} ppl (packed): {ppl_packed:.4f}  (fake-vs-packed delta "
+                      f"{delta:.4%})")
     if args.benchmark:
         results.update(benchmark(params, cfg, get_model_api(family), args.benchmark, device,
                                  args.dataset, args.seed))
     if device.type == "cuda":
         results["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
-        print(f"peak device memory {results['peak_memory_gb']:.3f} GB")
+        since = " (since the last quantized block's start)" if quantizers is not None else ""
+        print(f"peak device memory {results['peak_memory_gb']:.3f} GB{since}")
+    if args.logfile:
+        with open(args.logfile, "a") as f:
+            f.write(json.dumps({"model": args.model, **vars(args), **results}, default=str)
+                    + "\n")
     return results
 
 

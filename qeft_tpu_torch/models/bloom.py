@@ -21,6 +21,7 @@ import torch
 
 from qeft_tpu_torch.device import resolve_device
 from qeft_tpu_torch.models.common import (
+    init_generator,
     Decoder,
     attention,
     cache_write,
@@ -87,8 +88,7 @@ def init_params(cfg: BloomConfig, seed: int = 0, dtype=None, device=None) -> Dic
     a ``torch.Generator``."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     d, f, n = cfg.hidden_size, cfg.ffn_dim, cfg.num_layers
 
     def lin(kin, kout, lead=()):

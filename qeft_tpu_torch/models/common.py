@@ -25,6 +25,15 @@ from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.qlinear import qlinear_apply
 
 
+def init_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The ``torch.Generator`` a family's ``init_params`` draws from, seeded;
+    on the ``meta`` device (the tree's shapes and dtypes without values) a
+    CPU one, since a generator cannot live there."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
     """Normalised in f32 (biased variance), cast to x's dtype, then scaled
     and shifted in x's dtype, as ``qeft_tpu/models/opt.py::layer_norm``

@@ -21,6 +21,7 @@ import torch
 
 from qeft_tpu_torch.device import resolve_device
 from qeft_tpu_torch.models.common import (
+    init_generator,
     Decoder,
     attention,
     cache_write,
@@ -79,8 +80,7 @@ def init_params(cfg: FalconConfig, seed: int = 0, dtype=None, device=None) -> Di
     exist); values from a ``torch.Generator``."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     d, f, n = cfg.hidden_size, cfg.ffn_dim, cfg.num_layers
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 

@@ -107,12 +107,14 @@ def _head(params, lin, has) -> torch.Tensor:
     return params["embed"].t().contiguous()  # tied embeddings
 
 
-def load_hf_llama(path: str, dtype=torch.bfloat16):
+def config_from_hf(path: str):
+    """The ``LlamaConfig`` of a llama-family Hugging Face directory's
+    ``config.json`` (gemma's numerics where ``model_type`` says so)."""
     from qeft_tpu_torch.models.llama import LlamaConfig
 
     hc = _hf_config(path)
     gemma = hc.get("model_type", "llama").lower() == "gemma"
-    cfg = LlamaConfig(
+    return LlamaConfig(
         vocab_size=hc["vocab_size"], hidden_size=hc["hidden_size"],
         intermediate_size=hc["intermediate_size"], num_layers=hc["num_hidden_layers"],
         num_heads=hc["num_attention_heads"],
@@ -121,6 +123,10 @@ def load_hf_llama(path: str, dtype=torch.bfloat16):
         max_position_embeddings=hc.get("max_position_embeddings", 4096),
         rms_norm_eps=hc.get("rms_norm_eps", 1e-5), rope_theta=hc.get("rope_theta", 10000.0),
         act="gelu_tanh" if gemma else "silu", rms_one_offset=gemma, embed_scale=gemma)
+
+
+def load_hf_llama(path: str, dtype=torch.bfloat16):
+    cfg = config_from_hf(path)
     _, arr, lin, has = _loaders(path, dtype)
     names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
              "o": "self_attn.o_proj", "up": "mlp.up_proj", "gate": "mlp.gate_proj",

@@ -47,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from qeft_tpu_torch.device import resolve_device
-from qeft_tpu_torch.models.common import write_window
+from qeft_tpu_torch.models.common import init_generator, write_window
 from qeft_tpu_torch.ops.attention import (
     decode_attention,
     decode_attention_plain,
@@ -150,8 +150,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0, dtype=None, device=None) -> Dic
     ``torch.Generator`` and differ from JAX's."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     d, f, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 

@@ -18,6 +18,7 @@ import torch
 
 from qeft_tpu_torch.device import resolve_device
 from qeft_tpu_torch.models.common import (
+    init_generator,
     Decoder,
     attention,
     cache_write,
@@ -84,8 +85,7 @@ def init_params(cfg: OPTConfig, seed: int = 0, dtype=None, device=None) -> Dict:
     The values come from a ``torch.Generator`` and differ from JAX's."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     d, f, n, e = cfg.hidden_size, cfg.ffn_dim, cfg.num_layers, cfg.embed_dim
 
     def lin(kin, kout, lead=()):

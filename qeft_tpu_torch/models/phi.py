@@ -20,6 +20,7 @@ import torch
 
 from qeft_tpu_torch.device import resolve_device
 from qeft_tpu_torch.models.common import (
+    init_generator,
     Decoder,
     attention,
     cache_write,
@@ -72,8 +73,7 @@ def init_params(cfg: PhiConfig, seed: int = 0, dtype=None, device=None) -> Dict:
     a ``torch.Generator``."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
 

@@ -26,9 +26,17 @@ for the model functions).  The llama family's calibration forwards run
 K3 on the GPU (``ops.flash.flash_window_attention_any``), as JAX's run its
 flash kernel on the TPU; OPT, Phi, Bloom and Falcon run their blocks
 (`models.common.pipeline_block_forward`) with the plain attention, as JAX's
-run XLA's.  Everything stays on the model's device: the JAX package's host
-staging for its 16 GB chip (``_block_at`` to a device, ``_stack_host``,
-``reorder_model_host``) is not carried over.
+run XLA's.
+
+A tree that lives on the card is quantized and packed there.  A tree held
+in host memory (a model larger than the card, ``extract_outidx.
+load_model_and_meta``) streams when the caller names the device the blocks
+run on, as JAX streams its host trees and the reference moves blocks
+between CPU and GPU: each block moves to that device (`_block_at`), is
+forwarded, its Hessians built and its linears quantized there, and goes
+back into host arrays allocated once; the calibration activations stay on
+the device.  `reorder_model_host` permutes the host tree leaf by leaf, and
+`pack_model` packs it block by block (`_to_host`, `_stack_host`).
 """
 
 from __future__ import annotations
@@ -40,9 +48,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from qeft_tpu_torch.checkpoint import tree_map
 from qeft_tpu_torch.models.registry import ModelMeta
 from qeft_tpu_torch.ops.packing import QLinearParams, pack_layer
-from qeft_tpu_torch.quant.gptq import LayerQuantResult, gptq_quantize, gram
+from qeft_tpu_torch.quant.gptq import ColumnLoops, LayerQuantResult, gptq_quantize, gram
 from qeft_tpu_torch.quant.outliers import frob_norm_error, hessian_sort_ids, select_global_outliers
 from qeft_tpu_torch.quant.quantizer import QuantSpec, find_params
 from qeft_tpu_torch.quant.reorder import sparse_to_dense_ids
@@ -308,26 +317,96 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _placement(params: Dict, device) -> Tuple[torch.device, bool]:
+    """-> (the device the blocks run on, whether they stream from the host).
+    ``device=None``: where the tree lives.  A tree in host memory streams to
+    the device the caller names (``"cpu"`` included: the branch then runs
+    with host and device the same)."""
+    home = params["embed"].device
+    if device is None:
+        return home, False
+    device = torch.device(device)
+    if home.type != "cpu" and home.type != device.type:
+        raise ValueError(f"the tree lives on {home}: it streams only from the host, not to "
+                         f"{device}")
+    return device, home.type == "cpu"
+
+
+def _block_at(layers: Dict, i: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Block ``i`` of a stacked layers tree on ``device``: views where the
+    tree lives there, copies where it lives on the host."""
+    return {k: v[i].to(device) for k, v in layers.items()}
+
+
+def _to_host(tree):
+    """A block's tensors and packed linears, or a quantizer state, in host
+    memory."""
+    if isinstance(tree, QuantizerState):
+        return dataclasses.replace(tree, **{f: None if getattr(tree, f) is None
+                                            else getattr(tree, f).cpu()
+                                            for f in ("scale_group", "zero_group", "out_ids",
+                                                      "perm_ids")})
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _stack_host(blocks) -> Dict:
+    """Per-block trees (tensors and packed linears) stacked ``[L, ...]``
+    where they live."""
+    return {k: (_stack_linears([b[k] for b in blocks])
+                if isinstance(blocks[0][k], QLinearParams)
+                else torch.stack([b[k] for b in blocks]))
+            for k in blocks[0]}
+
+
+def _top_at(params: Dict, device: torch.device) -> Dict:
+    """The leaves outside the blocks that block 0's input needs (the
+    embedding, OPT's positions and projection, Bloom's embedding norm) on
+    ``device``."""
+    return {k: v.to(device) for k, v in params.items() if k not in ("layers", "lm_head")}
+
+
+def _block_done(kind: str, i: int, n_layers: int, tick: float, device: torch.device) -> None:
+    """A block's line: its seconds and, on the card, its peak device memory
+    (the peak statistic is reset at each block's start)."""
+    _sync(device)
+    line = f"{kind}: block {i + 1}/{n_layers} in {time.perf_counter() - tick:.2f} s"
+    if device.type == "cuda":
+        line += f", peak {torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB"
+    print(line, flush=True)
+
+
+def _block_start(device: torch.device) -> float:
+    """On the card each block starts with the allocator's cache released:
+    what the card holds beside the tree is one block's working set, not the
+    fragments of every block before it."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    return time.perf_counter()
+
+
 def extract_global_outidx(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
-                          args: QuantizeArgs) -> Tuple[np.ndarray, Dict]:
+                          args: QuantizeArgs, device=None) -> Tuple[np.ndarray, Dict]:
     """OGR step 1: the sorted global top-``target_rank`` channels (int32)
     and each qkv/ffn1 linear's own weak ids {(block, name): ids}.  Every
     linear of those stages adds ``diag(H) / mean`` of its Hessian diagonal
     (times its Frobenius error unless ``no_frob_norm``), so q/k/v count
-    three times and up/gate twice, as in the JAX package."""
+    three times and up/gate twice, as in the JAX package.  ``device``: where
+    the blocks run (`_placement`; a host tree streams there)."""
     target_rank = args.target_rank
     if args.perhead is not None:
         target_rank = args.perhead * cfg.num_heads
+    device, _ = _placement(params, device)
     layers = _member_layers(params, cfg, meta)
-    device = params["embed"].device
-    inps = _embed_tokens(params, torch.as_tensor(calib_tokens, device=device), cfg, meta)
+    inps = _embed_tokens(_top_at(params, device), torch.as_tensor(calib_tokens, device=device),
+                         cfg, meta)
     n_out = _n_out_dict(layers, meta, args)
     sensitivity = torch.zeros(cfg.hidden_size, dtype=torch.float32, device=device)
     per_layer = {}
     n_layers = cfg.num_layers
     for i in range(n_layers):
-        tick = time.perf_counter()
-        blk = {k: v[i] for k, v in layers.items()}
+        tick = _block_start(device)
+        blk = _block_at(layers, i, device)
         outs, h_sums = block_hessians(blk, inps, cfg, meta, stages=("qkv", "ffn1"))
         for stage, names in (("qkv", meta.qkv), ("ffn1", meta.ffn1)):
             h_diag_base = torch.diagonal(h_sums[stage]) * (2.0 / args.nsamples)
@@ -339,29 +418,35 @@ def extract_global_outidx(params: Dict, calib_tokens: np.ndarray, cfg, meta: Mod
                 per_layer[(i, name)] = out_ids.cpu().numpy()
                 sensitivity = sensitivity + h_diag / torch.mean(h_diag)
         inps = outs
-        _sync(device)
-        print(f"extract: block {i + 1}/{n_layers} in {time.perf_counter() - tick:.2f} s",
-              flush=True)
+        del blk, outs, h_sums
+        _block_done("extract", i, n_layers, tick, device)
     outidx = select_global_outliers(sensitivity, target_rank)
     return outidx.cpu().numpy().astype(np.int32), per_layer
 
 
 def quantize_model(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
-                   args: QuantizeArgs, outidx: Optional[np.ndarray] = None) -> Tuple[Dict, Dict]:
+                   args: QuantizeArgs, outidx: Optional[np.ndarray] = None,
+                   device=None) -> Tuple[Dict, Dict]:
     """Layerwise GPTQ-OWQ of every block -> (fake tree, {(block, name):
     QuantizerState}).
 
     ``params`` is a dense tree, fused or with member names; it is not
-    changed.  The fake tree has member names and the model's dtype; with
-    ``args.reorder`` it is globally reordered (`reorder_model`) and each
-    block carries ``o_reorder``, the o-projection's input gather."""
+    changed.  The fake tree has member names and the model's dtype, and
+    lives where ``params`` does (a streamed tree's blocks and states come
+    back into host arrays allocated once); with ``args.reorder`` it is
+    globally reordered (`reorder_model`, `reorder_model_host`) and each
+    block carries ``o_reorder``, the o-projection's input gather.
+    ``device``: where the blocks run (`_placement`).  On the card the GPTQ
+    column blocks replay programs captured once per linear shape and kept
+    for the whole model (`gptq.ColumnLoops`)."""
     if args.reorder and outidx is None:
         raise ValueError("the global reorder needs the extracted outidx "
                          "(run extract_global_outidx first)")
     spec = args.spec
+    device, streamed = _placement(params, device)
     layers = _member_layers(params, cfg, meta)
-    device = params["embed"].device
-    inps = _embed_tokens(params, torch.as_tensor(calib_tokens, device=device), cfg, meta)
+    inps = _embed_tokens(_top_at(params, device), torch.as_tensor(calib_tokens, device=device),
+                         cfg, meta)
     n_out = _n_out_dict(layers, meta, args)
     global_out = None if outidx is None else torch.as_tensor(
         np.asarray(outidx), dtype=torch.int32, device=device)
@@ -373,13 +458,15 @@ def quantize_model(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
     stage_order = ([(meta.qkv, ("qkv",)), (meta.out, ("out",)), (meta.ffn1, ("ffn1",)),
                     (meta.ffn2, ("ffn2",))] if args.true_sequential
                    else [(meta.all_linears, _ALL_STAGES)])
+    # the outputs where the tree lives: on the host for a streamed tree
     out_layers = {k: (torch.empty_like(v, memory_format=torch.contiguous_format)
                       if k in meta.all_linears else v.clone())
                   for k, v in layers.items() if k != "o_reorder"}
     quantizers: Dict = {}
+    loops = ColumnLoops()  # the GPTQ column programs, one per linear shape
     for i in range(cfg.num_layers):
-        tick = time.perf_counter()
-        blk = {k: v[i] for k, v in layers.items() if k != "o_reorder"}
+        tick = _block_start(device)
+        blk = _block_at({k: v for k, v in layers.items() if k != "o_reorder"}, i, device)
         new_blk = dict(blk)
         h_sums = None
         for names, stages in stage_order:
@@ -387,21 +474,25 @@ def quantize_model(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
                 _, h_sums = _block_forward(new_blk, inps, cfg, meta, stages, outputs=False)
             for name in names:
                 _quantize_one(name, blk, new_blk, h_sums, quantizers, i, meta, args,
-                              global_out, n_out, num_groups)
+                              global_out, n_out, num_groups, loops)
+        del h_sums
         inps = block_forward_batch(new_blk, inps, cfg, meta)
         for name in meta.all_linears:
             out_layers[name][i] = new_blk[name]
-        _sync(device)
-        print(f"quantize: block {i + 1}/{cfg.num_layers} in {time.perf_counter() - tick:.2f} s",
-              flush=True)
+            if streamed:
+                quantizers[(i, name)] = _to_host(quantizers[(i, name)])
+        del blk, new_blk
+        _block_done("quantize", i, cfg.num_layers, tick, device)
+    del loops
     new_params = {**params, "layers": out_layers}
     if args.reorder:
-        new_params = reorder_model(new_params, quantizers, global_out, cfg, meta)
+        reorder = reorder_model_host if streamed else reorder_model
+        new_params = reorder(new_params, quantizers, global_out, cfg, meta)
     return new_params, quantizers
 
 
 def _quantize_one(name, blk, new_blk, h_sums, quantizers, i, meta, args, global_out, n_out,
-                  num_groups) -> None:
+                  num_groups, loops) -> None:
     """GPTQ of linear ``name`` of block ``i``: its fake weight into
     ``new_blk``, its state into ``quantizers``."""
     spec = args.spec
@@ -415,7 +506,7 @@ def _quantize_one(name, blk, new_blk, h_sums, quantizers, i, meta, args, global_
                                     outidx=global_out if is_global else None,
                                     actorder=args.act_order)
     res: LayerQuantResult = gptq_quantize(w_nk, h, spec, ids, out_ids, percdamp=args.percdamp,
-                                          num=num_groups, rtn=args.rtn)
+                                          num=num_groups, rtn=args.rtn, loops=loops)
     new_blk[name] = res.w_fake.t().to(blk[name].dtype)
     quantizers[(i, name)] = QuantizerState(
         scale_group=res.scale_group, zero_group=res.zero_group, out_ids=res.out_ids,
@@ -499,6 +590,20 @@ def reorder_model(params: Dict, quantizers: Dict, global_out: torch.Tensor, cfg,
     return new
 
 
+def reorder_model_host(params: Dict, quantizers: Dict, global_out, cfg,
+                       meta: ModelMeta) -> Dict:
+    """OGR step 2 on a tree held in host memory (``qeft_tpu/pipeline.py::
+    reorder_model_host``): `reorder_model`'s permutations, which already go
+    leaf by leaf and block by block in place (one ``[K, N]`` temporary at a
+    time), run where the tree lives; the quantizer states are on the host
+    too, as a streamed `quantize_model` leaves them."""
+    if params["embed"].device.type != "cpu":
+        raise ValueError(f"reorder_model_host: the tree lives on {params['embed'].device}; "
+                         "use reorder_model")
+    return reorder_model(params, quantizers, torch.as_tensor(np.asarray(
+        global_out.cpu() if isinstance(global_out, torch.Tensor) else global_out)), cfg, meta)
+
+
 # ---------------------------------------------------------------------------
 # packing
 
@@ -532,7 +637,7 @@ def _stack_linears(lins) -> QLinearParams:
 
 
 def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch.bfloat16,
-               fuse_stages: bool = False) -> Dict:
+               fuse_stages: bool = False, device=None) -> Dict:
     """Every quantized linear of a fake tree swapped for its packed form,
     stacked ``[L, ...]``, bit for bit as ``qeft_tpu/pipeline.py::
     pack_model``; float leaves cast to ``dtype``.
@@ -542,11 +647,14 @@ def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch
     own outliers-last order and it keeps the input gather as
     ``reorder_ids``.  ``fuse_stages``: q/k/v -> ``qkv`` and up/gate ->
     ``upgate`` where `fused_stages` names them (needs the reorder; a family
-    with nothing to fuse raises, as in the JAX package)."""
+    with nothing to fuse raises, as in the JAX package).  ``device``: where
+    the packing runs (`_placement`): a tree in host memory is packed there
+    block by block and the packed blocks come back to the host."""
 
     def cast_float(v):
         return v.to(dtype) if v.is_floating_point() else v
 
+    device, streamed = _placement(params, device)
     new = {k: cast_float(v) for k, v in params.items() if k != "layers"}
     layers = params["layers"]
     reordered = "o_reorder" in layers
@@ -558,10 +666,11 @@ def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch
                          "permutation); per-linear input gathers cannot be fused")
     blocks = []
     for i in range(cfg.num_layers):
-        nb = {k: cast_float(v[i]) for k, v in layers.items() if k not in meta.all_linears}
+        blk = _block_at(layers, i, device)
+        nb = {k: cast_float(v) for k, v in blk.items() if k not in meta.all_linears}
         for name in meta.all_linears:
             st: QuantizerState = quantizers[(i, name)]
-            w_kn = layers[name][i]
+            w_kn = blk[name]
             k_in = w_kn.shape[0]
             group = st.group_size if st.group_size > 0 else k_in
             reorder_ids = None
@@ -571,12 +680,12 @@ def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch
                         "--act_order quantization cannot be packed with the static global "
                         "reorder: its group parameters follow each linear's own permutation; "
                         "pack without --reorder or quantize without --act_order")
-                reorder_ids = st.perm_ids.to(device=w_kn.device, dtype=torch.int32)
+                reorder_ids = st.perm_ids.to(device=device, dtype=torch.int32)
             elif not reordered and st.out_ids.shape[0] > 0:
-                reorder_ids = sparse_to_dense_ids(st.out_ids.to(w_kn.device), k_in)
+                reorder_ids = sparse_to_dense_ids(st.out_ids.to(device), k_in)
             if reorder_ids is not None:
                 w_kn = w_kn[reorder_ids.long()]
-            lin = pack_layer(w_kn, st.scale_group, st.zero_group,
+            lin = pack_layer(w_kn, st.scale_group.to(device), st.zero_group.to(device),
                              n_outlier=int(st.out_ids.shape[0]), group_size=group, sym=st.sym,
                              bits=st.bits, dtype=dtype)
             lin.reorder_ids = reorder_ids
@@ -584,9 +693,6 @@ def pack_model(params: Dict, quantizers: Dict, cfg, meta: ModelMeta, dtype=torch
         if fuse_stages:
             for fused, names in fused_stages(meta).items():
                 _fuse_stage(nb, names, fused)
-        blocks.append(nb)
-    new["layers"] = {k: (_stack_linears([b[k] for b in blocks])
-                         if isinstance(blocks[0][k], QLinearParams)
-                         else torch.stack([b[k] for b in blocks]))
-                     for k in blocks[0]}
+        blocks.append(_to_host(nb) if streamed else nb)
+    new["layers"] = _stack_host(blocks)
     return new

@@ -246,3 +246,78 @@ def write_hf_opt(path: str, params: Dict, cfg, shards: int = 1) -> None:
               "word_embed_proj_dim": cfg.embed_dim}
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f, indent=1)
+
+
+def _awq_pack(codes_nk: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """int codes [N, K] -> int16 [N//4, K] in the AWQ interleave: nibble i
+    of word (row, col) is the code at flat index ``src[row, col, i]``."""
+    nib = codes_nk.reshape(-1).to(torch.int32)[src]  # [N//4, K, 4]
+    word = nib[..., 0] | nib[..., 1] << 4 | nib[..., 2] << 8 | nib[..., 3] << 12
+    return torch.where(word >= 1 << 15, word - (1 << 16), word).to(torch.int16)
+
+
+def write_reference_packed(params: Dict, cfg) -> Dict:
+    """A packed llama tree (fused stages or member names, the global
+    reorder) as the reference's packed checkpoint dict, the input of
+    ``import_reference.import_reference_packed`` (``torch.save`` it):
+    int16 ``qweight`` [OC/4, IC] pushed through the AWQ interleave's forward
+    source map, fp16 ``scales`` / ``scaled_zeros`` [G, OC], the slab
+    ``oweight`` [OC, r] fp16 and ``outlieridx`` (the o-projection's from
+    ``o_reorder``), and ``quantinfos`` with ``reorder=True``.  Test
+    tooling: the port writes no reference checkpoints otherwise."""
+    from argparse import Namespace
+
+    from qeft_tpu_torch.import_reference import _HF_LLAMA_LINEARS, _awq_nibble_source_map
+    from qeft_tpu_torch.ops.packing import unpack_codes
+    from qeft_tpu_torch.pipeline import member_widths, split_fused
+
+    meta = get_model_meta("llama")
+    layers = params["layers"]
+    widths = member_widths(cfg, meta)
+    lins = {n: l for n, l in layers.items() if isinstance(l, QLinearParams)}
+    per_field = {f: split_fused({n: getattr(l, f) for n, l in lins.items()}, meta, widths)
+                 for f in ("qweight", "scales", "scaled_zeros", "oweight")}
+    g = next(iter(lins.values())).group_size
+    fp16 = torch.float16
+    sd, quantinfos, maps = {}, {}, {}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        sd[pre + "input_layernorm.weight"] = layers["input_ln"][i].to(fp16).cpu()
+        sd[pre + "post_attention_layernorm.weight"] = layers["post_ln"][i].to(fp16).cpu()
+        for ours, theirs in _HF_LLAMA_LINEARS.items():
+            theirs = pre + theirs  # the module path and its dot
+            qw = per_field["qweight"][ours][i]
+            codes_nk = unpack_codes(qw.contiguous(), g).t()  # [N, K]
+            n, k = codes_nk.shape
+            if (n, k) not in maps:
+                maps[(n, k)] = torch.from_numpy(_awq_nibble_source_map(n, k)).to(qw.device)
+            ow = per_field["oweight"][ours][i]
+            r = ow.shape[0]
+            sd[theirs + "qweight"] = _awq_pack(codes_nk, maps[(n, k)]).cpu()
+            sd[theirs + "scales"] = per_field["scales"][ours][i].to(fp16).cpu()
+            sd[theirs + "scaled_zeros"] = per_field["scaled_zeros"][ours][i].to(fp16).cpu()
+            sd[theirs + "oweight"] = ow.t().to(fp16).contiguous().cpu()
+            if ours == "o" and "o_reorder" in layers:
+                sd[theirs + "outlieridx"] = layers["o_reorder"][i][k - r:].to(
+                    torch.int64).cpu()
+            else:
+                sd[theirs + "outlieridx"] = torch.arange(k - r, k)
+            quantinfos[theirs[:-1]] = Namespace(bits=4, sym=False, group_size=g, n_out=r,
+                                                 reorder=True)
+    sd["model.embed_tokens.weight"] = params["embed"].to(fp16).cpu()
+    sd["model.norm.weight"] = params["final_ln"].to(fp16).cpu()
+    sd["lm_head.weight"] = params["lm_head"].t().to(fp16).contiguous().cpu()
+    return {"model_state_dict": sd, "quantinfos": quantinfos, "packing": True,
+            "dtype": fp16, "bits": 4, "group_size": g}
+
+
+def write_reference_wct(slabs: Dict, base_path: str) -> Dict:
+    """A reference WCT checkpoint dict (the tuned slabs only) over the
+    reference packed checkpoint at ``base_path``: ``slabs`` {(layer, name):
+    [r, N] slab} as ``oweight_state_dict`` entries [N, r] fp16 under the
+    reference's module paths."""
+    from qeft_tpu_torch.import_reference import _HF_LLAMA_LINEARS
+
+    return {"oweight_state_dict": {
+        f"model.layers.{i}.{_HF_LLAMA_LINEARS[name][:-1]}": w.t().to(torch.float16)
+        .contiguous().cpu() for (i, name), w in slabs.items()}, "base_path": base_path}

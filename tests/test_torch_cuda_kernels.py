@@ -859,3 +859,91 @@ def test_gptq_of_a_falcon_width_block_on_the_card_matches_the_cpu(gen):
         errs = [torch.trace((w - f).t() @ h @ (w - f)).item() for f in (fc, ff)]
         assert abs(errs[0] - errs[1]) <= 1e-2 * errs[1], (name, errs)
     assert differ <= 0.005 * total, (differ, total)
+
+
+@pytest.mark.parametrize("ic", [4096, 11008])
+def test_captured_gptq_equals_the_eager_run(gen, ic):
+    """GPTQ-OWQ of a linear of 4096 or 11,008 columns (w4, g = 128, MSE
+    grid, r = 128), its column blocks as replays of captured programs and
+    eagerly (``graph=False``): fake weights, scales and zeros bit-identical
+    (the same kernels in the same order); a second linear of the same
+    shape replays the programs the first captured, also bit-identical."""
+    from qeft_tpu_torch.quant import gptq, outliers
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+
+    spec = QuantSpec(bits=4, sym=False, mse=True, group_size=128)
+    col = torch.exp(torch.randn(ic, generator=gen, device="cuda"))
+    h = gptq.hessian_from_inputs(torch.randn(1024, ic, generator=gen, device="cuda") * col)
+    ids, out_ids = outliers.hessian_sort_ids(torch.diagonal(h), 128)
+    loops = gptq.ColumnLoops()
+    for _ in range(2):
+        w = torch.randn(4096, ic, generator=gen, device="cuda") * ic ** -0.5
+        graph = gptq.gptq_quantize(w, h, spec, ids, out_ids, loops=loops)
+        eager = gptq.gptq_quantize(w, h, spec, ids, out_ids, graph=False)
+        torch.cuda.synchronize()
+        for field in ("w_fake", "scale_group", "zero_group"):
+            assert torch.equal(getattr(graph, field), getattr(eager, field)), field
+    (loop,) = loops.values()
+    blocks = -(-(ic - 128) // 128)
+    assert len(loop.graphs) == 1 and loop.replays == 2 * blocks - 1
+
+
+def test_streamed_quantization_on_the_card_equals_the_resident_one(gen):
+    """A 2-layer model of width 512 (tiny-v2) in f32, held on the host and
+    streamed to the card block by block, against the same tree on the card:
+    the weak set, the fake tree, every quantizer state and the packed tree
+    bit-identical."""
+    from qeft_tpu_torch import checkpoint as ckpt
+    from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.extract_outidx import host_init_params
+    from qeft_tpu_torch.models import llama
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.quant.quantizer import QuantSpec
+
+    cfg = dataclasses.replace(llama.LLAMA_PRESETS["tiny-v2"], num_layers=2)
+    meta = get_model_meta("llama")
+    host = host_init_params(llama, cfg, 0, torch.float32)
+    card = ckpt.tree_map(lambda t: t.cuda(), host)
+    calib = torch.randint(0, cfg.vocab_size, (8, 256), generator=gen, device="cuda").cpu().numpy()
+    args = pl.QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=True, group_size=128),
+                           target_rank=32, nsamples=8, no_frob_norm=True)
+    runs = {}
+    for label, tree, device in (("streamed", host, "cuda"), ("resident", card, None)):
+        outidx, _ = pl.extract_global_outidx(tree, calib, cfg, meta, args, device=device)
+        fake, states = pl.quantize_model(tree, calib, cfg, meta, args, outidx, device=device)
+        packed = pl.pack_model(fake, states, cfg, meta, fuse_stages=True, device=device)
+        runs[label] = (outidx, ckpt.to_flat(fake), states, ckpt.to_flat(packed))
+    (o_s, f_s, s_s, p_s), (o_r, f_r, s_r, p_r) = runs["streamed"], runs["resident"]
+    assert (o_s == o_r).all()
+    for got, want in ((f_s, f_r), (p_s, p_r)):
+        assert sorted(got) == sorted(want)
+        assert all((got[k] == want[k]).all() for k in want)
+    for key, st in s_r.items():
+        for field in ("scale_group", "zero_group", "out_ids"):
+            assert torch.equal(getattr(s_s[key], field), getattr(st, field).cpu()), key
+
+
+def test_an_imported_reference_checkpoint_serves_on_the_card(gen):
+    """A random packed 2-layer model of width 512 written in the reference's
+    format, imported on the card: codes bit-exact, and ``generate`` through
+    the graph (K1-K4) gives the source model's greedy tokens."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.import_reference import import_reference_packed
+    from qeft_tpu_torch.models import llama
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.pipeline import fuse_packed_stages
+    from qeft_tpu_torch.testing import build_packed_model, write_reference_packed
+
+    cfg = dataclasses.replace(llama.LLAMA_PRESETS["tiny-v2"], num_layers=2)
+    src = build_packed_model(cfg, seed=1, g=128, r=32, device="cuda")
+    got, family = import_reference_packed("unused.pth", cfg,
+                                          ckpt=write_reference_packed(src, cfg), device="cuda")
+    got = fuse_packed_stages(got, get_model_meta(family))
+    for name in ("qkv", "o", "upgate", "down"):
+        assert torch.equal(got["layers"][name].qweight, src["layers"][name].qweight)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device="cuda")
+    tokens = []
+    for params in (src, got):
+        cache = llama.init_kv_cache(cfg, 1, 48, device="cuda")
+        tokens.append(generate(params, prompt, cache, cfg, 32, device="cuda")[0])
+    assert torch.equal(tokens[0], tokens[1])

@@ -362,7 +362,7 @@ def test_clis_quantize_every_family_on_the_cpu(name, tmp_path, monkeypatch):
     class Seen(Exception):
         pass
 
-    def record(params, calib, cfg, meta, qargs, outidx):
+    def record(params, calib, cfg, meta, qargs, outidx, **placement):
         seen.append(qargs.percdamp)
         raise Seen
 

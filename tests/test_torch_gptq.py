@@ -154,3 +154,70 @@ def test_gptq_matches_jax(case):
     out = np.asarray(out_j)
     np.testing.assert_allclose(rt.w_fake.numpy()[:, out], np.asarray(rj.w_fake)[:, out],
                                rtol=1e-4, atol=1e-5)
+
+
+def _per_column_gptq(w_perm, h_perm, spec, n_nonout, percdamp=0.01, num=40, rtn=False):
+    """The column loop as it ran before it became a static block program:
+    each block sliced at its offset, the trailing update over the columns
+    right of the block only (``w[:, i2:] -= err_blk @ u[i1:i2, i2:]``)."""
+    from qeft_tpu_torch.quant.quantizer import find_params, quantize
+
+    oc, ic = w_perm.shape
+    g = spec.group_size if spec.group_size > 0 else ic
+    n_blocks = -(-n_nonout // g)
+    w = w_perm.clone()
+    w[:, h_perm.diagonal() == 0] = 0.0
+    u = None if rtn else tg._cholesky_inv_upper(h_perm, percdamp)
+    scales, zeros = [], []
+    for b in range(n_blocks):
+        i1, i2 = b * g, (b + 1) * g
+        active = min(g, n_nonout - i1)
+        w_blk = w[:, i1:i2].clone()
+        w_params = w_blk.clone()
+        w_params[:, active:] = 0.0
+        p = find_params(w_params, spec, num)
+        if rtn:
+            q_blk = w_blk.clone()
+            q_blk[:, :active] = quantize(w_blk[:, :active], p.scale[:, None], p.zero[:, None],
+                                         spec)
+        else:
+            q_blk, err_blk = tg._quantize_block(w_blk, p.scale, p.zero, u[i1:i2, i1:i2],
+                                                active, spec)
+            w[:, i2:] -= err_blk @ u[i1:i2, i2:]
+        w[:, i1:i2] = q_blk
+        scales.append(p.scale)
+        zeros.append(p.zero)
+    return w, torch.stack(scales, dim=1), torch.stack(zeros, dim=1)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if "actorder" not in c])
+@pytest.mark.parametrize("n_out", [16, 40])
+def test_block_program_equals_the_per_column_loop(case, n_out):
+    """The block program (`ColumnLoop`: columns gathered at a device
+    offset, the trailing update over the whole width with the factor's rows
+    zeroed left of the block) against the sliced per-column loop, on the
+    CPU: bit for bit, fake weights, scales and zeros, also where the last
+    dense block is partial (n_out 40 of g 64 or 128) and where one
+    `ColumnLoop` serves two linears of a shape in turn."""
+    spec_kw, _, kw, dead = CASES[case]
+    spec = TSpec(**spec_kw)
+    w, x = _inputs(4, dead=dead)
+    h = tg.hessian_from_inputs(torch.from_numpy(x))
+    ids, _ = to.hessian_sort_ids(torch.diagonal(h), n_out)
+    w_perm = torch.from_numpy(w)[:, ids]
+    h_perm = h[ids][:, ids]
+    n_nonout = w.shape[1] - n_out
+    num, rtn = kw.get("num", 40), kw.get("rtn", False)
+    want = _per_column_gptq(w_perm, h_perm, spec, n_nonout, num=num, rtn=rtn)
+    loops = tg.ColumnLoops()
+    for weight in (w_perm, w_perm.flip(0)):
+        got = tg.gptq_quantize_permuted(weight, h_perm, spec, n_nonout, num=num, rtn=rtn,
+                                        loops=loops)
+        ref = want if weight is w_perm else _per_column_gptq(weight, h_perm, spec, n_nonout,
+                                                             num=num, rtn=rtn)
+        g = spec.group_size if spec.group_size > 0 else w.shape[1]
+        n_blocks = -(-n_nonout // g)
+        assert torch.equal(got[0], ref[0])
+        assert torch.equal(got[1][:, :n_blocks], ref[1])
+        assert torch.equal(got[2][:, :n_blocks], ref[2])
+    assert len(loops) == 1

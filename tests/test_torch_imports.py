@@ -317,3 +317,80 @@ def test_tpu_tiling_knobs_warn_once_per_process(monkeypatch, name):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         resolve_device("cpu")
+
+
+def test_this_slices_modules_are_scanned_for_banned_imports():
+    """import_reference, eval (eval_ppl_streamed), generate
+    (generate_simple) and the streaming pipeline are among the modules the
+    two tests above hold to the ban on jax, qeft_tpu, safetensors and
+    transformers."""
+    mods = {m for _, m in _modules()}
+    assert {"qeft_tpu_torch.import_reference", "qeft_tpu_torch.eval",
+            "qeft_tpu_torch.generate", "qeft_tpu_torch.pipeline",
+            "qeft_tpu_torch.extract_outidx"} <= mods
+
+
+def test_streaming_and_import_entry_points_raise_without_a_gpu_unless_cpu_is_named(
+        monkeypatch, tmp_path):
+    """import_reference_packed / _wct and the import_reference CLI,
+    eval_ppl_streamed and generate_simple."""
+    from qeft_tpu_torch import import_reference as imp
+    from qeft_tpu_torch.eval import eval_ppl_streamed
+    from qeft_tpu_torch.generate import generate_simple
+    from qeft_tpu_torch.models.registry import get_model_meta
+    from qeft_tpu_torch.testing import write_reference_packed, write_reference_wct
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LLAMA_PRESETS["tiny"]
+    params = build_packed_model(cfg, g=64, r=8, dtype=torch.float32, device="cpu")
+    ckpt = write_reference_packed(params, cfg)
+    src = str(tmp_path / "ref.pth")
+    torch.save(ckpt, src)
+    wct = write_reference_wct({}, src)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imp.import_reference_packed(src, cfg, ckpt=ckpt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imp.import_reference_wct(src, cfg, ckpt=wct)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imp.main([src, str(tmp_path / "out"), "--model", "tiny"])
+    assert not os.path.exists(str(tmp_path / "out.npz"))
+    assert imp.import_reference_packed(src, cfg, ckpt=ckpt, device="cpu")[0]["embed"].device \
+        .type == "cpu"
+    assert imp.import_reference_wct(src, cfg, ckpt=wct, device="cpu")[1] == "llama"
+    dense = init_params(cfg, device="cpu")
+    stream = torch.zeros(64, dtype=torch.int64).numpy()
+    meta = get_model_meta("llama")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_ppl_streamed(dense, stream, cfg, meta, seqlen=16, max_windows=1)
+    assert eval_ppl_streamed(dense, stream, cfg, meta, seqlen=16, max_windows=1,
+                             device="cpu") > 0
+    prompt = torch.zeros(1, 4, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_simple(params, prompt, cfg, 2)
+    assert generate_simple(params, prompt, cfg, 2, device="cpu").shape == (1, 2)
+
+
+def test_main_accepts_eval_datasets_and_logfile(tmp_path):
+    """``--eval_datasets`` (a comma list; a set the port cannot read raises
+    naming A7b) and ``--logfile`` (one JSON line appended per run)."""
+    import json
+
+    import numpy as np
+
+    cfg = LLAMA_PRESETS["tiny"]
+    path = str(tmp_path / "tiny_packed")
+    save_packed(path, build_packed_model(cfg, g=64, r=8, dtype=torch.float32, device="cpu"),
+                cfg)
+    npy = str(tmp_path / "tokens.npy")
+    np.save(npy, np.random.default_rng(0).integers(0, cfg.vocab_size, 256))
+    log = str(tmp_path / "runs.jsonl")
+    argv = ["--load", path, "--device", "cpu", "--eval", "--seqlen", "32", "--eval_windows",
+            "2", "--eval_datasets", f"synthetic,{npy}", "--logfile", log]
+    res = torch_main.main(argv)
+    torch_main.main(argv)
+    lines = [json.loads(line) for line in open(log)]
+    assert len(lines) == 2 and lines[0] == lines[1]
+    assert lines[0]["eval_datasets"] == f"synthetic,{npy}" and lines[0]["load"] == path
+    assert lines[0]["ppl_synthetic"] == res["ppl_synthetic"] and f"ppl_{npy}" in lines[0]
+    with pytest.raises(NotImplementedError, match="A7b"):
+        torch_main.main(argv[:-4] + ["--eval_datasets", "wikitext2"])

@@ -137,3 +137,52 @@ def test_main_on_a_jax_written_checkpoint(models, tmp_path):
     np.testing.assert_allclose(res["ppl_synthetic"], ref, rtol=1e-4)
     assert res["decode_tokens_per_s"] > 0 and np.isfinite(res["streaming_ppl"])
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_generate_simple_gives_jax_tokens(models, name):
+    """``generate_simple`` allocates the cache itself: greedy tokens equal
+    to ``qeft_tpu.generate.generate_simple``'s."""
+    from qeft_tpu.generate import generate_simple as jax_generate_simple
+    from qeft_tpu_torch.generate import generate_simple
+    from qeft_tpu_torch.models.api import get_model_api
+
+    jparams, tparams, jcfg, tcfg = models[name]
+    prompt = _tokens(jcfg.vocab_size, (2, 9), 5)
+    ref = jax_generate_simple(jparams, jnp.asarray(prompt), jcfg, 10, cache_dtype=jnp.float32)
+    got = generate_simple(tparams, torch.from_numpy(prompt), tcfg, 10, cache_dtype=torch.float32,
+                          api=get_model_api(MODELS[name][0]), device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_main_eval_datasets_and_logfile_match_jax(models, tmp_path, monkeypatch):
+    """``main --load <ckpt> --eval --eval_datasets synthetic,<.npy>
+    --logfile``: the port's line holds every key of JAX's line, with the
+    same argument values and each set's PPL within 1e-4 relative (JAX rounds
+    it to 4 decimals); the port adds its ``device`` flag and result."""
+    import json
+
+    from qeft_tpu import main as jax_main
+
+    jparams, _, jcfg, _ = models["tiny"]
+    path = str(tmp_path / "tiny_packed")
+    save_packed(path, jparams, jcfg, family="llama")
+    npy = str(tmp_path / "tokens.npy")
+    np.save(npy, _tokens(jcfg.vocab_size, (512,), 6))
+    flags = ["--load", path, "--eval", "--seqlen", "32", "--eval_windows", "2",
+             "--eval_datasets", f"synthetic,{npy}"]
+    jlog, tlog = str(tmp_path / "jax.jsonl"), str(tmp_path / "port.jsonl")
+    monkeypatch.setattr("sys.argv", ["main", "tiny", "synthetic", *flags, "--logfile", jlog])
+    with contextlib.redirect_stdout(io.StringIO()):
+        jax_main.main()
+        torch_main.main(["--model", "tiny", "--dataset", "synthetic", "--device", "cpu", *flags,
+                         "--logfile", tlog])
+    (want,), (got,) = ([json.loads(line) for line in open(p)] for p in (jlog, tlog))
+    assert set(want) - {"trust_remote_code"} <= set(got), set(want) - set(got)
+    assert set(got) - set(want) == {"device"}
+    for key, value in want.items():
+        if key.startswith("ppl_"):
+            np.testing.assert_allclose(got[key], value, rtol=1e-4, err_msg=key)
+        elif key not in ("logfile", "trust_remote_code"):
+            assert got[key] == value, key
+    assert got["logfile"] == tlog and {"ppl_synthetic", f"ppl_{npy}"} <= set(got)
