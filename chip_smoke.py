@@ -53,7 +53,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 14. cli: ``run_finetune`` (save at step 2, resume to 4) and ``main --load
    wct_final --eval --benchmark`` on a 4-layer model of full width, written
    with ``save_packed``; the tuned model is served through K1-K4;
-14b. import (after the training oracle): the first 4 layers of the random
+14b. import (after the training oracle): the first 2 layers of the random
    packed Llama-2-7B written as a reference (xvyaward/qeft) checkpoint with
    ``torch.save``, imported on the card (codes bit-exact, float values
    wherever fp16 holds them), ``generate`` 64 + 64 greedy tokens equal to
@@ -73,7 +73,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    graph step's host clock, busy time and idle share (OPT-6.7B and the
    families likewise in their phases);
 19. engine: ``measure_engine_throughput`` with its defaults (8 slots, 16
-   requests of 64 + 128, burst 16) over bf16 and int8 caches, then one
+   requests of 64 + 128, burst 16) but one timed serve after the warm-up
+   (``ENGINE_REPS``) over a bf16 cache; then, over bf16 and int8 caches, one
    counted serve -- launches per tick, every request checked against the
    single-sequence path -- and a profiled burst with K3's share of the tick;
 20. spec: ``SpecEngine`` with an 8-layer self-draft (gamma 4) over the same
@@ -100,8 +101,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    against the plain versions; prefill 64 + 32 greedy each, launch counts
    and the dense-model oracle;
 26. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
-   ``run_benchmark --method qeft --load`` as subprocesses;
-27. quantize: QEFT's quantizer at full Llama-2-7B width, 4 layers of random
+   ``run_benchmark --method qeft --load`` as two subprocesses run together;
+27. quantize: QEFT's quantizer at full Llama-2-7B width, 2 layers of random
    bf16 weights built on the card: extraction (r = 128) and GPTQ-OWQ with
    the global reorder (w4, g = 128, MSE grid) on 32 synthetic crops of
    2048 tokens, K3 in every calibration forward (launches checked);
@@ -116,7 +117,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    loop's, with the dense head (K1-K4) and with QEFT_QUANT_LMHEAD=1 (K5
    for the head); seconds for extraction, each block and packing, and the
    phase's peak device memory;
-28. quantize cli: ``extract_outidx``, ``main`` quantizing with ``--fake
+28. quantize cli (in a thread beside family quantize: subprocesses only):
+   ``extract_outidx``, ``main`` quantizing with ``--fake
    --packing --save`` and its fake-vs-packed oracle, ``convert`` and ``main
    --load --eval --benchmark --eval_datasets synthetic,<.npy> --logfile``
    (the line's keys checked) as subprocesses on ``tiny-v2``;
@@ -133,19 +135,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (Falcon-7b qkv and fc1 at g = 64, Phi-2 fc1, OPT-6.7B fc2) against their
    plain versions, timed beside their bounds and ``torch.matmul``;
 31. family quantize (after quantize cli): QEFT's quantizer at full width on
-   random bf16 weights -- OPT-6.7B at 4 layers (g = 128), Phi-2, Bloom-7b1
+   random bf16 weights -- OPT-6.7B at 2 layers (g = 128), Phi-2, Bloom-7b1
    (with and without the global reorder) and Falcon-7b (g = 64, percdamp
-   1.0) at 2 layers, 8 synthetic crops of 2048 tokens (the phase's cut of
+   1.0) at 1 layer, 8 synthetic crops of 2048 tokens (the phase's cut of
    the calibration set), r = 128 -- with seconds for extraction, each block
    and packing, peak memory, the packed checkpoint written and served, the
    oracle (recovered fake vs packed PPL within 0.1 %, the true fake delta
    printed), teacher-forced logits against the fake model and graph tokens
    equal to the eager loop's;
-32. hf: a Hugging Face directory of OPT-6.7B at full width and 2 layers (two
+32. hf: a Hugging Face directory of OPT-6.7B at full width and 1 layer (two
    shards and an index) written from the preset's tree and read back bit
    for bit, then ``extract_outidx --model <dir>`` and ``main --model <dir>
-   --reorder --packing --eval`` as subprocesses;
-33. stream-equal: one random f32 tree of Llama-2-7B width at 2 layers,
+   --reorder --packing --eval`` as subprocesses, in a thread beside
+   stream-equal;
+33. stream-equal: one random f32 tree of Llama-2-7B width at 1 layer,
    quantized held in host memory (blocks streamed to the card) and on the
    card: weak set, fake trees, states, packed codes, scales and slabs
    bit-identical, packed checkpoints byte-equal, ``eval_ppl_streamed``
@@ -156,7 +159,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    a time (each block's seconds and device peak; a later peak 10 % over
    the first's fails), ``generate`` 64 + 64 through K1-K4 (GQA 64 / 8),
    the oracle, and ``eval_ppl_streamed`` of the host fake tree against
-   ``eval_ppl`` of it on the card.
+   ``eval_ppl`` of it on the card;
+35. parallel (after import, on the Llama-2-7B): K1 and K6 at the stage
+   shapes one rank runs (7B at tp 2 from rank 0's shards: down's 43 groups;
+   70B width at tp 4: qkv 8192 -> 2560, upgate 8192 -> 14,336, o and down
+   without a slab) against their plain versions, timed beside their bounds
+   and ``torch.matmul``; then two ranks on the card (``parallel.multihost.
+   launch_ranks``, the kernels built here first; Gloo through pinned host
+   memory, since NCCL refuses two ranks on one card): the time of one
+   psum, ``tp_generate`` at tp 2 (64 + 32 greedy, 320 slots, bf16 and int8
+   caches), ``Engine(mesh)`` at tp 2 (the engine's 16 requests, 16 new
+   tokens each), ``pp_generate`` at pp 2 (batch 4 in 2 microbatches, 64 +
+   32), ``llama_prefill_sp`` at sp 2 over S = 4096 and 16
+   ``llama_decode_step_sp`` steps, ``MultiHostEngine`` over the two ranks
+   as dp replicas; every rank's launches checked per token and layer, its
+   decode step's host clock and device busy time printed (the collectives
+   host-staged: no speed result), every output held against the
+   single-device path here (teacher-forced logits within ORACLE_RTOL of the
+   logit scale; the replicas' tokens equal to the engine phase's); then
+   ``run_benchmark --tp 2`` (engine and qeft) as subprocesses;
+36. parallel4: four ranks on the card: ``tp_generate`` at tp 4 on 2 layers
+   of Llama-2-70B width (16 query over 2 kv heads a rank) and
+   ``tppp_generate`` at pp 2 x tp 2 on the Llama-2-7B (batch 2), 64 + 32
+   each, checked the same way.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON table sums its paths (by
@@ -176,7 +201,9 @@ import os
 import statistics
 import subprocess
 import sys
+import shutil
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -197,6 +224,10 @@ GRAD_RATIO = 1.25  # of the dense bf16 model's gradient error; see phase_family_
 FAULTS_DX = (0.8, 0.95, 0.99)
 # measure_engine_throughput's defaults; the self-draft of run_benchmark's example
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_CTX, ENGINE_GEN = 8, 16, 64, 128
+ENGINE_REPS = 1  # timed serves after the warm-up (the function's default 2: time budget)
+# tokens of each eager decode loop held against a graph-run generate, and of
+# the serving-cli runs (cut from 256 and 128 for the time budget)
+GRAPH_EAGER_TOKENS, SERVING_CLI_GEN = 64, 64
 SPEC_DRAFT_LAYERS = 8
 OPT_LINEARS = ("q", "k", "v", "o", "fc1", "fc2")
 WIDE_K = (13824, 16384, 28672)  # llama2-13b / OPT-6.7B fc2 / 70B down
@@ -207,6 +238,7 @@ K1_STAGES = (("qkv", True, False), ("o", False, True), ("upgate", True, False),
 FAMILY_RUNS = (("phi", "phi-2", 128, True), ("bloom", "bloom-7b1", 128, False),
                ("falcon", "falcon-7b", 64, True))
 FAMILY_LAYERS, FAMILY_NEW = 2, 32
+HF_LAYERS = 1  # the hf phase's OPT-6.7B directory (cut from 2 for the time budget)
 # K3 windows without a cache: eval_ppl at 512, the calibration length, llama2-7b's context
 FULL_WINDOWS = (512, 2048, 4096)
 # the quantize phase: llama2-7b at full width, its depth cut to QUANT_LAYERS;
@@ -214,16 +246,16 @@ FULL_WINDOWS = (512, 2048, 4096)
 # QUANT_EVAL_WINDOWS windows of QUANT_SEQ; PPL_RTOL bounds the relative
 # fake-vs-packed PPL delta (the reference's oracle; it recorded 0.04 % at 13B)
 QUANT_PRESET, QUANT_LAYERS, QUANT_SAMPLES, QUANT_SEQ, QUANT_EVAL_WINDOWS = (
-    "llama2-7b", 4, 32, 2048, 2)
+    "llama2-7b", 2, 32, 2048, 2)
 PPL_RTOL = 1e-3
 QUANT_CLI_PRESET = "tiny-v2"
 # the family-quantize phase: (family, preset, layers, group size, global
 # reorder), full width, the depth cut to the layers; FAMILY_QUANT_SAMPLES
 # calibration crops of QUANT_SEQ tokens (the reference's protocol takes 128);
 # FAMILY_QUANT_NEW greedy tokens after the 64-token prompt
-FAMILY_QUANT_RUNS = (("opt", "opt-6.7b", 4, 128, True), ("phi", "phi-2", 2, 128, True),
-                     ("bloom", "bloom-7b1", 2, 128, True), ("bloom", "bloom-7b1", 2, 128, False),
-                     ("falcon", "falcon-7b", 2, 64, True))
+FAMILY_QUANT_RUNS = (("opt", "opt-6.7b", 2, 128, True), ("phi", "phi-2", 1, 128, True),
+                     ("bloom", "bloom-7b1", 1, 128, True), ("bloom", "bloom-7b1", 1, 128, False),
+                     ("falcon", "falcon-7b", 1, 64, True))
 FAMILY_QUANT_SAMPLES, FAMILY_QUANT_NEW = 8, 64
 # (label, K, N, group size) of the family linears K2 and K7 are timed at for
 # training: Falcon-7b's qkv and fc1 (K = 4544 = 71 groups of 64), Phi-2's
@@ -239,12 +271,28 @@ FAMILY_SHAPES = (("falcon-7b qkv", 4544, 4672, 64), ("falcon-7b fc1", 4544, 1817
 # whole run took 956 s, over its 900 s budget); a later block's device peak
 # may exceed the first's by STREAM_PEAK_GROWTH; eval_ppl_streamed within
 # STREAM_EVAL_RTOL of eval_ppl (qeft_tpu's own bound, tests/test_eval.py:67)
-STREAM_A_LAYERS, STREAM_A_SAMPLES = 2, 8
+STREAM_A_LAYERS, STREAM_A_SAMPLES = 1, 8
 STREAM_B_LAYERS, STREAM_NEW = 2, 64
 STREAM_PEAK_GROWTH, STREAM_EVAL_RTOL = 0.10, 1e-4
+# the parallel phases (ranks sharing the card): PAR_NEW greedy tokens after
+# the PROMPT-token prompt for tp, pp and tp x pp, TP_ENGINE_GEN for each of
+# the engine's requests on the tp mesh (every rank's decode step waits on
+# 4 host-staged Gloo collectives a layer, about a millisecond each at 2
+# ranks on the H100 machine: the token counts are cut to keep the whole run
+# in its time budget, PERF.md section 4); pp at PP_BATCH rows in PP_MICRO
+# microbatches; sp over SP_SEQ tokens (llama2-7b's eval window), then
+# SP_DECODE decode steps, its prefill logits compared every SP_ROW_STRIDE-th
+# row; tp 4 on TP70_LAYERS layers of llama2-70b width (the depth of
+# stream-70b); tp x pp at TPPP_BATCH rows; the run_benchmark --tp
+# subprocesses generate TP_CLI_GEN tokens a request; GLOO_PROBES collectives
+# timed on each rank
+PAR_NEW, TP_ENGINE_GEN, PP_BATCH, PP_MICRO = 32, 16, 4, 2
+SP_SEQ, SP_DECODE, SP_ROW_STRIDE = 4096, 16, 64
+TP70_LAYERS, TPPP_BATCH, TP_CLI_GEN, GLOO_PROBES = STREAM_B_LAYERS, 2, 8, 50
+SERVED: dict = {}  # the engine phase's served tokens, by cache
 # the import phase: the first IMPORT_LAYERS layers of the random packed
 # llama2-7b as a reference checkpoint, IMPORT_NEW greedy tokens
-IMPORT_LAYERS, IMPORT_NEW = 4, 64
+IMPORT_LAYERS, IMPORT_NEW = 2, 64
 # profiler sessions tried for a call's kernels before an empty record stands
 PROFILE_ATTEMPTS = 3
 # the linears of the quantize phase's block 0 whose GPTQ is run eagerly
@@ -1671,25 +1719,26 @@ def _graph_case(label, family, cfg, params, prompt, tokens, seconds, quantized=F
     from qeft_tpu_torch.models.api import get_model_api
 
     api = get_model_api(family)
-    n = tokens.shape[1]
+    n = min(tokens.shape[1], GRAPH_EAGER_TOKENS)
     cache = api.init_cache(cfg, 1, CACHE, dtype=torch.bfloat16, device="cuda", quantized=quantized)
     torch.cuda.synchronize()
     tick = time.perf_counter()
     eager, _ = generate(params, prompt, cache, cfg, n, api=api, device="cuda", graph=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - tick
-    same = torch.equal(eager, tokens)
+    same = torch.equal(eager, tokens[:, :n])
     wall, busy, kernels = _graph_step_profile(family, cfg, params, prompt, quantized)
     idle = "not measured" if busy == 0 else f"{max(0.0, 1 - busy / wall):.1%}"
-    log(f"[graph] {label}: {PROMPT} + {n} tokens, graph {n / seconds:.2f} tok/s, eager loop "
-        f"{n / dt:.2f} tok/s (host clock, prefill included); graph step {wall:.3f} ms host clock, "
-        f"device busy {busy:.3f} ms -> idle share {idle}; tokens identical to the eager loop: "
-        f"{same}")
+    log(f"[graph] {label}: graph {tokens.shape[1] / seconds:.2f} tok/s ({PROMPT} + "
+        f"{tokens.shape[1]}), eager loop {n / dt:.2f} tok/s ({PROMPT} + {n}; host clock, prefill "
+        f"included); graph step {wall:.3f} ms host clock, device busy {busy:.3f} ms -> idle "
+        f"share {idle}; the first {n} tokens identical to the eager loop's: {same}")
     for name, ms in kernels[:4]:
         log(f"    {ms * 1e3:9.1f} us  {name[:90]}")
     if not same:
         raise AssertionError(f"{label}: the graph and the eager loop chose other tokens")
-    return dict(graph_tok_s=n / seconds, eager_tok_s=n / dt, graph_step_ms=wall, busy_ms=busy,
+    return dict(graph_tok_s=tokens.shape[1] / seconds, eager_tok_s=n / dt, graph_step_ms=wall,
+                busy_ms=busy,
                 idle=None if busy == 0 else max(0.0, 1 - busy / wall))
 
 
@@ -1858,15 +1907,18 @@ def phase_engine(cfg, params):
     n = cfg.num_layers
     for label, env in (("engine bf16", {}), ("engine int8", {"QEFT_KV_DTYPE": "int8"})):
         with environ(**env):
-            with counted(f"{label} measure") as c:
-                tick = time.perf_counter()
-                tps = measure_engine_throughput(params, cfg, device="cuda")
-                wall = time.perf_counter() - tick
-            log(f"[{label}] measure_engine_throughput (defaults): {tps:.2f} served tokens/s "
-                f"(best of 2 serves after a warm-up; {wall:.1f} s in all); launches {c.counts}")
-            for k in ("qgemv_stacked", "qgemm", "flash_window_attention"):
-                if not c.counts.get(k):
-                    raise AssertionError(f"{label}: launched no {k}")
+            tps = None
+            if not env:  # over int8 the counted serve below is the measurement (time budget)
+                with counted(f"{label} measure") as c:
+                    tick = time.perf_counter()
+                    tps = measure_engine_throughput(params, cfg, reps=ENGINE_REPS, device="cuda")
+                    wall = time.perf_counter() - tick
+                log(f"[{label}] measure_engine_throughput (defaults, reps={ENGINE_REPS}): "
+                    f"{tps:.2f} served tokens/s ({wall:.1f} s in all, a warm-up serve included); "
+                    f"launches {c.counts}")
+                for k in ("qgemv_stacked", "qgemm", "flash_window_attention"):
+                    if not c.counts.get(k):
+                        raise AssertionError(f"{label}: launched no {k}")
             prompts = _engine_prompts(cfg)
             eng = Engine(params, cfg, max_batch=ENGINE_SLOTS, max_len=ENGINE_CTX + ENGINE_GEN + 1,
                          burst=16, device="cuda")
@@ -1890,8 +1942,10 @@ def phase_engine(cfg, params):
             outputs = [r.output for r in sorted(done, key=lambda r: r.request_id)]
             if any(len(o) != ENGINE_GEN for o in outputs):
                 raise AssertionError(f"{label}: a request was not served in full")
+            SERVED[label] = outputs
             res = _check_served(cfg, params, prompts, outputs, label, bool(env))
-            res.update(_profile_burst(cfg, params, prompts, label))
+            if not env:  # one profiled burst, over bf16 (time budget)
+                res.update(_profile_burst(cfg, params, prompts, label))
         out[label] = dict(tokens_s=tps, serve_tokens_s=tokens / wall, ms_per_tick=wall / ticks * 1e3,
                           ticks=ticks, launches_per_tick=per_tick, **res)
     return out
@@ -2007,7 +2061,7 @@ def phase_serving_cli():
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             res = run_benchmark.main(["--method", method, "--reps", "1", "--gen",
-                                      str(ENGINE_GEN)] + extra)
+                                      str(SERVING_CLI_GEN)] + extra)
         line = buf.getvalue().strip().splitlines()[-1]
         log(f"[serving-cli] run_benchmark --method {method} {' '.join(extra)}: {line}")
         if json.loads(line) != res:
@@ -2293,23 +2347,31 @@ def phase_family_cli(cfg):
         save_packed(base, build_packed_model(small, seed=5, g=128, r=128, device="cuda",
                                              family="opt"), small, family="opt")
         torch.cuda.empty_cache()
-        for label, argv in (
-                ("main", ["-m", "qeft_tpu_torch.main", "--load", base, "--eval", "--eval_windows",
-                          "1", "--seqlen", "512", "--benchmark", "64"]),
-                ("run_benchmark", ["-m", "qeft_tpu_torch.run_benchmark", "--method", "qeft",
-                                   "--load", base])):
-            tick = time.perf_counter()
-            proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
-                                  cwd=root, timeout=600)
-            lines = proc.stdout.strip().splitlines()
-            log(f"[family-cli] python {' '.join(argv[:2])} --load <2-layer opt-6.7b> ... exit "
-                f"{proc.returncode} in {time.perf_counter() - tick:.1f} s:")
-            for line in lines[-4:]:
-                log(f"    {line}")
-            if proc.returncode != 0:
-                log(proc.stderr[-3000:])
-                raise AssertionError(f"{label} on an OPT checkpoint failed")
-            out[label] = proc.stdout
+        runs = {"main": ["-m", "qeft_tpu_torch.main", "--load", base, "--eval",
+                         "--eval_windows", "1", "--seqlen", "512", "--benchmark", "64"],
+                "run_benchmark": ["-m", "qeft_tpu_torch.run_benchmark", "--method", "qeft",
+                                  "--load", base]}
+        tick = time.perf_counter()
+        procs = {label: subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True, cwd=root)
+                 for label, argv in runs.items()}  # the two run together
+        try:
+            for label, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                log(f"[family-cli] python {' '.join(runs[label][:2])} --load <2-layer "
+                    f"opt-6.7b> ... exit {proc.returncode}, {time.perf_counter() - tick:.1f} s "
+                    "after both started:")
+                for line in stdout.strip().splitlines()[-4:]:
+                    log(f"    {line}")
+                if proc.returncode != 0:
+                    log(stderr[-3000:])
+                    raise AssertionError(f"{label} on an OPT checkpoint failed")
+                out[label] = stdout
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     if "family opt" not in out["main"] or "synthetic ppl" not in out["main"]:
         raise AssertionError("main did not serve the OPT checkpoint as OPT")
     if not json.loads(out["run_benchmark"].strip().splitlines()[-1])["tokens_per_s"] > 0:
@@ -2797,21 +2859,22 @@ def phase_family_quantize():
 
 
 def phase_hf():
-    """A Hugging Face directory of OPT-6.7B at full width and FAMILY_LAYERS
+    """A Hugging Face directory of OPT-6.7B at full width and HF_LAYERS
     layers, written from the preset's random bf16 tree in two shards with an
     index (``testing.write_hf_opt``); ``load_hf_model`` gives the tree
     written, bit for bit; then ``extract_outidx --model <dir>`` and ``main
-    --model <dir> --reorder --packing --eval`` as subprocesses."""
+    --model <dir> --reorder --packing --eval`` as subprocesses, in a thread
+    beside the next phase (`_hf_cli`, returned running)."""
     from qeft_tpu_torch.checkpoint import to_flat
     from qeft_tpu_torch.models.hf_loader import load_hf_model
     from qeft_tpu_torch.models.opt import OPT_PRESETS, init_params
     from qeft_tpu_torch.testing import write_hf_opt
 
-    cfg = dataclasses.replace(OPT_PRESETS["opt-6.7b"], num_layers=FAMILY_LAYERS)
-    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(OPT_PRESETS["opt-6.7b"], num_layers=HF_LAYERS)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        hf = os.path.join(tmp, "opt-6.7b-2layers")
+    tmp = tempfile.mkdtemp()
+    try:
+        hf = os.path.join(tmp, "opt-6.7b-hf")
         params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
         tick = time.perf_counter()
         write_hf_opt(hf, params, cfg, shards=2)
@@ -2824,13 +2887,26 @@ def phase_hf():
         same = (family == "opt" and lcfg == cfg and sorted(want) == sorted(got)
                 and all(np.array_equal(got[k], v) for k, v in want.items()))
         size = sum(os.path.getsize(os.path.join(hf, f)) for f in os.listdir(hf))
-        log(f"[hf] opt-6.7b at {FAMILY_LAYERS} layers written as an HF directory ({size} bytes, "
+        log(f"[hf] opt-6.7b at {HF_LAYERS} layers written as an HF directory ({size} bytes, "
             f"2 shards) in {out['write_s']:.1f} s, read back in {out['read_s']:.1f} s: the tree "
             f"equal bit for bit: {same}")
         if not same:
             raise AssertionError("load_hf_model did not read back the tree written")
         del params, loaded, want, got
         torch.cuda.empty_cache()
+    except BaseException:
+        shutil.rmtree(tmp)
+        raise
+    return _Beside(_hf_cli, tmp, hf)
+
+
+def _hf_cli(tmp, hf):
+    """``extract_outidx`` and ``main --model <dir>`` on the HF directory
+    ``hf`` as subprocesses (subprocesses only: run beside the next phase);
+    removes ``tmp`` after."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    try:
         common = ["--model", hf, "--wbits", "4", "--target_rank", "128", "--groupsize", "128",
                   "--nsamples", "8", "--seqlen", "2048"]
         oidx = os.path.join(tmp, "oidx")
@@ -2851,11 +2927,13 @@ def phase_hf():
                 log(proc.stderr[-3000:])
                 raise AssertionError(f"{label} --model <HF dir> failed")
             out[label] = proc.stdout
+    finally:
+        shutil.rmtree(tmp)
     fields = out["main"].split("fake-vs-packed delta ")
     delta = float(fields[1].split("%")[0]) / 100 if len(fields) == 2 else float("nan")
     if not delta < 1e-2:
         raise AssertionError(f"main --model <HF dir>: fake-vs-packed delta {delta}")
-    return dict(delta=delta, write_s=out["write_s"], read_s=out["read_s"])
+    return dict(delta=delta)
 
 
 # ---------------------------------------------------------------------------
@@ -3296,6 +3374,616 @@ def phase_import(cfg, params):
     return dict(write_s=out["write_s"], import_s=out["import_s"], ppl=want, inexact=inexact)
 
 
+# ---------------------------------------------------------------------------
+# parallel serving: ranks that share the card, each its own process, their
+# collectives over Gloo through pinned host memory (NCCL refuses two ranks
+# on one device), so collective time is host-staged and no speed result
+
+
+def _rank_part(out, name, fn):
+    """``fn()`` as main path ``name`` of this rank: the launch counts set to
+    0 just before it and read just after, with its host-clock seconds."""
+    from qeft_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    tick = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - tick
+    res["launches"] = dict(cuda_lib.launches)
+    out[name] = res
+
+
+def _collective_ms(mesh, axis, rank):
+    """Milliseconds of one host-staged psum of a [1, 4096] bf16 row over
+    ``axis`` (GLOO_PROBES of them after a warm-up), as each tp stage
+    pays it."""
+    x = torch.ones(1, 4096, dtype=torch.bfloat16, device=mesh.device)
+    for _ in range(5):
+        mesh.psum(x, axis)
+    torch.cuda.synchronize()
+    tick = time.perf_counter()
+    for _ in range(GLOO_PROBES):
+        mesh.psum(x, axis)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - tick) * 1e3 / GLOO_PROBES
+    log(f"[parallel rank {rank}] one psum of 8 KiB over {axis} ({mesh.shape[axis]} ranks): "
+        f"{ms:.3f} ms (Gloo through pinned host memory)")
+    return ms
+
+
+def _rank_step_profile(label, step, rank, n=4):
+    """Host clock and device busy time of a decode step on this rank (the
+    profiler's kernels; the staging copies of the collectives apart)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    tick = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - tick) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels, _ = kernel_times(prof, n)
+    copies = sum(ms for name, ms in kernels if name.startswith("Memcpy"))
+    busy = sum(ms for name, ms in kernels if not name.startswith("Memcpy"))
+    log(f"[parallel rank {rank}] {label} decode step: host clock {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms in kernels (+ {copies:.3f} ms of staging copies); the collectives are "
+        "host-staged Gloo on one card, not a speed result")
+    return dict(wall_ms=wall, busy_ms=busy, copy_ms=copies)
+
+
+def _parallel_rank(cfg, prompt, prompts, long_prompt, started):
+    """One of the two ranks of phase ``parallel``: the Llama-2-7B of phase
+    model (seed 0) built on the card; tp_generate at tp 2 over bf16 and int8
+    caches, Engine(mesh) at tp 2, pp_generate at pp 2, the sp prefill and
+    decode at sp 2, and MultiHostEngine over the two ranks as dp replicas.
+    Host values only come back."""
+    import torch.distributed as dist
+
+    from qeft_tpu_torch.models.llama import init_kv_cache
+    from qeft_tpu_torch.parallel.mesh import make_mesh, shard_tree
+    from qeft_tpu_torch.parallel.pp import pp_generate
+    from qeft_tpu_torch.parallel.sp import llama_decode_step_sp, llama_prefill_sp
+    from qeft_tpu_torch.parallel.tp_forward import (
+        _local_cfg,
+        tp_decode_step,
+        tp_generate,
+        tp_shard_packed_params,
+    )
+    from qeft_tpu_torch.serving import Engine, MultiHostEngine, Request
+    from qeft_tpu_torch.testing import build_packed_model
+
+    rank = dist.get_rank()
+    mesh = make_mesh((1, 2), ("dp", "tp"))
+    dev = mesh.device
+    params = build_packed_model(cfg, seed=0, g=128, r=128, device=dev)
+    sharded = tp_shard_packed_params(params, mesh, cfg)
+    lcfg = _local_cfg(cfg, 2)
+    prompt = torch.as_tensor(prompt, device=dev)
+    out = {"ready_s": time.time() - started, "psum_ms": _collective_ms(mesh, "tp", rank)}
+    for label, quantized in (("tp bf16", False), ("tp int8", True)):
+        def new_cache():
+            return init_kv_cache(lcfg, 1, CACHE, device=dev, quantized=quantized)
+
+        tp_generate(sharded, prompt, new_cache(), cfg, mesh, 4)  # warm-up
+
+        def gen():
+            toks, _, logits = tp_generate(sharded, prompt, new_cache(), cfg, mesh, PAR_NEW,
+                                          return_logits=True)
+            return dict(tokens=toks.cpu(), logits=logits[0].cpu())
+
+        _rank_part(out, label, gen)
+    cache = init_kv_cache(lcfg, 1, CACHE, device=dev)
+    tok = prompt[:, :1]
+    tp_generate(sharded, prompt, cache, cfg, mesh, 1)
+    with torch.inference_mode():
+        out["tp bf16"]["step"] = _rank_step_profile(
+            "tp bf16", lambda: tp_decode_step(sharded, tok, cache, PROMPT, cfg, mesh), rank)
+    del cache
+
+    def serve(engine, gen):
+        for i, p in enumerate(prompts):
+            engine.submit(Request(request_id=i, prompt=np.asarray(p), max_new_tokens=gen))
+        done = engine.run()
+        return {r.request_id: list(r.output) for r in done}
+
+    eng = Engine(sharded, cfg, mesh=mesh, max_batch=ENGINE_SLOTS,
+                 max_len=ENGINE_CTX + TP_ENGINE_GEN + 1, burst=16)
+    _rank_part(out, "tp engine", lambda: dict(outputs=serve(eng, TP_ENGINE_GEN), ticks=eng.ticks))
+    del sharded, eng
+    torch.cuda.empty_cache()
+
+    pp_mesh = make_mesh((2,), ("pp",))
+    batch = torch.as_tensor(np.stack(prompts[:PP_BATCH]), device=dev)
+    _rank_part(out, "pp", lambda: dict(tokens=pp_generate(
+        params, batch, init_kv_cache(cfg, PP_BATCH, CACHE, device=dev), cfg, pp_mesh, PAR_NEW,
+        n_microbatches=PP_MICRO).cpu()))
+
+    sp_mesh = make_mesh((2,), ("sp",))
+    long_prompt = torch.as_tensor(long_prompt, device=dev)
+
+    def sp():
+        logits, kv = llama_prefill_sp(params, long_prompt, cfg, sp_mesh)
+        s_max = SP_SEQ + SP_DECODE
+        cache = init_kv_cache(cfg, 1, s_max, device=dev)
+        for k in cache:
+            cache[k][:, :, :, :SP_SEQ] = kv[k]
+        del kv
+        local = shard_tree(cache, {k: (None, None, None, "sp") for k in cache}, sp_mesh)
+        del cache
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        res = dict(prefill_rows=logits[0, ::SP_ROW_STRIDE].float().cpu(),
+                   prefill_argmax=logits[0].argmax(-1).cpu(), tokens=[], logits=[])
+        del logits
+        for i in range(SP_DECODE):
+            res["tokens"].append(int(tok))
+            lg, local = llama_decode_step_sp(params, tok, local, SP_SEQ + i, cfg, sp_mesh)
+            res["logits"].append(lg[0].float().cpu())
+            tok = torch.argmax(lg, dim=-1)[:, None]
+        res["logits"] = torch.stack(res["logits"])
+        return res
+
+    _rank_part(out, "sp", sp)
+    torch.cuda.empty_cache()
+
+    dp_mesh = make_mesh((2, 1), ("dp", "tp"))
+    mh = MultiHostEngine(params, cfg, mesh=dp_mesh, max_batch=ENGINE_SLOTS,
+                         max_len=ENGINE_CTX + ENGINE_GEN + 1, burst=16)
+    _rank_part(out, "multihost", lambda: dict(outputs=serve(mh, ENGINE_GEN),
+                                              ticks=mh.engine.ticks))
+    out["multihost"]["stats"] = mh.stats()
+    if rank == 0:
+        log("[parallel rank 0] seconds: ready " + f"{out['ready_s']:.1f} after the spawn, "
+            + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in out.items() if isinstance(v, dict)))
+    return out
+
+
+def _parallel4_rank(cfg70, cfg, prompt, prompts, started):
+    """One of the four ranks of phase ``parallel4``: tp_generate at tp 4 on
+    Llama-2-70B width (its first TP70_LAYERS layers, seed 7), then
+    tppp_generate at pp 2 x tp 2 on the Llama-2-7B of phase model."""
+    import torch.distributed as dist
+
+    from qeft_tpu_torch.models.llama import init_kv_cache
+    from qeft_tpu_torch.parallel.mesh import make_mesh
+    from qeft_tpu_torch.parallel.tp_forward import (
+        _local_cfg,
+        tp_decode_step,
+        tp_generate,
+        tp_shard_packed_params,
+    )
+    from qeft_tpu_torch.parallel.tp_pp import tppp_generate, tppp_shard_params
+    from qeft_tpu_torch.testing import build_packed_model
+
+    rank = dist.get_rank()
+    mesh = make_mesh((1, 4), ("dp", "tp"))
+    dev = mesh.device
+    prompt = torch.as_tensor(prompt, device=dev)
+    out = {"ready_s": time.time() - started, "psum_ms": _collective_ms(mesh, "tp", rank)}
+    sharded = tp_shard_packed_params(build_packed_model(cfg70, seed=7, device=dev), mesh, cfg70)
+    torch.cuda.empty_cache()
+    lcfg = _local_cfg(cfg70, 4)
+    tp_generate(sharded, prompt, init_kv_cache(lcfg, 1, CACHE, device=dev), cfg70, mesh, 4)
+
+    def gen():
+        toks, _, logits = tp_generate(sharded, prompt, init_kv_cache(lcfg, 1, CACHE, device=dev),
+                                      cfg70, mesh, PAR_NEW, return_logits=True)
+        return dict(tokens=toks.cpu(), logits=logits[0].cpu())
+
+    _rank_part(out, "tp4 70b", gen)
+    cache = init_kv_cache(lcfg, 1, CACHE, device=dev)
+    tok = prompt[:, :1]
+    tp_generate(sharded, prompt, cache, cfg70, mesh, 1)
+    with torch.inference_mode():
+        out["tp4 70b"]["step"] = _rank_step_profile(
+            "tp4 70b", lambda: tp_decode_step(sharded, tok, cache, PROMPT, cfg70, mesh), rank)
+    del sharded, cache
+    torch.cuda.empty_cache()
+
+    grid = make_mesh((2, 2), ("pp", "tp"))
+    batch = torch.as_tensor(np.stack(prompts[:TPPP_BATCH]), device=dev)
+    params, local = tppp_shard_params(build_packed_model(cfg, seed=0, g=128, r=128, device=dev),
+                                      init_kv_cache(cfg, TPPP_BATCH, CACHE, device=dev), grid,
+                                      cfg)
+    torch.cuda.empty_cache()
+    _rank_part(out, "tppp", lambda: dict(tokens=tppp_generate(params, batch, local, cfg, grid,
+                                                              PAR_NEW).cpu()))
+    if rank == 0:
+        log("[parallel4 rank 0] seconds: ready " + f"{out['ready_s']:.1f} after the spawn, "
+            + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in out.items() if isinstance(v, dict)))
+    return out
+
+
+def _shard_kernel(row, label, p, m, randn, eps, bw, norm, n_layers):
+    """K1 (with the norm, column-parallel) or K6 (without a slab,
+    row-parallel) at one rank's stage shape against its plain version in
+    f32, timed rotating over ``n_layers`` beside the plain version,
+    ``torch.matmul`` on the (normalised) input and a pre-dequantized weight,
+    and the bound; kept in ``row.d["shard_shapes"]``."""
+    from qeft_tpu_torch.ops import qmm
+    from qeft_tpu_torch.testing import dense_linear
+
+    k, n = p.in_features, p.out_features
+    x = randn(m, k)
+    if norm:
+        lnw = (1.0 + randn(k, scale=0.1).float()).to(torch.bfloat16)
+
+        def fn(l):
+            return qmm.qgemv_stacked_fused(x, p, l, lnw=lnw, eps=eps)
+
+        want = qmm.qgemv_stacked_fused_plain(f32(x), f32(p), 1, lnw=f32(lnw), eps=eps)
+        plain = time_ms(lambda i: qmm.qgemv_stacked_fused_plain(x, p, i % n_layers, lnw=lnw,
+                                                                eps=eps), inner=2, reps=3)
+        h = qmm.rms_norm(x, lnw, eps)
+    else:
+        def fn(l):
+            return qmm.qgemv_stacked(x, p, l)
+
+        want = qmm.qgemv_stacked_plain(f32(x), f32(p), 1)
+        plain = time_ms(lambda i: qmm.qgemv_stacked_plain(x, p, i % n_layers), inner=2, reps=3)
+        h = x
+    err = check(f"{row.d['name']} {label} {k}->{n} M={m}", fn(1), want)
+    ms = time_ms(lambda i: fn(i % n_layers))
+    w = dense_linear(_one_layer(p, 0))[0]
+    lib = time_ms(lambda i: torch.matmul(h, w))
+    del w
+    nbytes = (k * n // 2 + 4 * (k // p.group_size) * n + 2 * p.n_outlier * n + 2 * m * (k + n)
+              + (2 * k if norm else 0))
+    bound, by = bound_ms(nbytes, 2 * m * (k + p.n_outlier) * n)
+    row.d.setdefault("shard_shapes", []).append(dict(
+        shape=f"{label} {k}->{n}", m=m, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+        bound_by=by, library_ms=lib, bound_ms_measured_hbm=nbytes / bw * 1e3))
+    row.d["max_abs_err"] = max(row.d["max_abs_err"], err)
+    log(f"    {label} M={m}: kernel {ms * 1e3:.1f} us ({bound / ms:.1%} of the bound), plain "
+        f"{plain * 1e3:.1f} us, torch.matmul {lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by})")
+
+
+def _shard_kernels(cfg, params, bw, rows):
+    """K1 and K6 at the stage shapes one rank runs: the Llama-2-7B shards of
+    rank 0 at tp 2 (its real weights, 32 layers rotating; down's 5,504 rows
+    are 43 groups) and Llama-2-70B width at tp 4 (random weights, as many
+    layers as keep the rotation out of L2)."""
+    from qeft_tpu_torch.models.llama import LLAMA_PRESETS
+    from qeft_tpu_torch.parallel.mesh import Mesh
+    from qeft_tpu_torch.parallel.tp_forward import tp_shard_packed_params
+    from qeft_tpu_torch.probes import common
+    from qeft_tpu_torch.testing import random_packed_linear
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    k1, k6 = rows["qgemv_stacked_fused"], rows["qgemv_stacked"]
+    shard = tp_shard_packed_params(params, Mesh({"dp": 1, "tp": 2}, device=torch.device("cuda")),
+                                   cfg)["layers"]
+    log("[parallel] K1 and K6 at the shard shapes of Llama-2-7B at tp 2 (rank 0's weights)")
+    for name, norm in (("qkv", True), ("o", False), ("upgate", True), ("down", False)):
+        p = shard[name]
+        if not norm:  # the row-parallel local contraction: no slab
+            p = dataclasses.replace(p, oweight=None)
+        for m in (1, ENGINE_SLOTS):
+            _shard_kernel(k1 if norm else k6, f"7b tp2 {name}", p, m, randn, cfg.rms_norm_eps,
+                          bw, norm, cfg.num_layers)
+    del shard
+    c70 = LLAMA_PRESETS["llama2-70b"]
+    hq, hkv, dh, f, d = (c70.num_heads // 4, c70.num_kv_heads // 4, c70.head_dim,
+                         c70.intermediate_size // 4, c70.hidden_size)
+    log("[parallel] K1 and K6 at the shard shapes of Llama-2-70B width at tp 4 (random weights)")
+    for name, k, n, norm in (("qkv", d, (hq + 2 * hkv) * dh, True), ("o", hq * dh, d, False),
+                             ("upgate", d, 2 * f, True), ("down", f, d, False)):
+        depth = common.n_copies(k * n // 2 + 4 * (k // 128) * n)
+        p = random_packed_linear(gen, depth, k, n, 128, 128)
+        if not norm:
+            p = dataclasses.replace(p, oweight=None)
+        _shard_kernel(k1 if norm else k6, f"70b tp4 {name}", p, 1, randn, c70.rms_norm_eps, bw,
+                      norm, depth)
+        del p
+
+
+def _expect_rank(label, rank, counts, want):
+    log(f"[{label}] rank {rank} launches {counts}; expected {want}")
+    if counts != want:
+        raise AssertionError(f"{label}: rank {rank} did not launch each kernel as expected")
+
+
+def _against_single_device(label, got, ref, tokens, ref_tokens):
+    """Teacher-forced logits of a parallel path against the single-device
+    path's on the same tokens: max difference within ORACLE_RTOL of the
+    single-device logit scale (bf16 partial sums are rounded before each
+    psum, as JAX rounds them, so the paths differ by bf16 roundings: a wrong
+    shard or a lost term moves logits by their scale); greedy agreement
+    with the single-device tokens printed."""
+    diff = (got.float() - ref.float().cpu()).abs().amax(dim=-1)
+    scale = ref.abs().amax().item()
+    worst = diff.max().item()
+    argmax = (got.argmax(-1) == ref.argmax(-1).cpu()).sum().item()
+    same = (tokens.reshape(-1).cpu() == ref_tokens.reshape(-1).cpu())
+    prefix = int(same.long().cumprod(0).sum().item())
+    log(f"[{label}] teacher-forced against the single-device path: max |logit diff| "
+        f"{worst:.4g}, median {diff.median().item():.4g}, logit scale {scale:.4g}, bound "
+        f"{ORACLE_RTOL * scale:.4g}; argmax agreement {argmax}/{len(diff)}; greedy tokens equal "
+        f"to the single device's {int(same.sum())}/{same.numel()} (common prefix {prefix})")
+    if not (torch.isfinite(got).all() and worst <= ORACLE_RTOL * scale):
+        raise AssertionError(f"{label}: disagrees with the single-device path")
+    return dict(max_logit_diff=worst, logit_scale=scale, argmax_agree=argmax,
+                tokens_equal=int(same.sum()), common_prefix=prefix)
+
+
+def _record_rank_paths(label, ranks, names):
+    for rank, res in enumerate(ranks):
+        for name in names:
+            PATH_LAUNCHES[f"{label} {name} rank {rank}"] = res[name]["launches"]
+
+
+def phase_parallel(cfg, params, prompt, tokens, int8_tokens, bw, rows):
+    """parallel: K1 and K6 at the rank shapes (`_shard_kernels`); then two
+    ranks on the card (`_parallel_rank`), their launches checked per token
+    and layer and every output held against the single-device path here
+    (`_check_parallel`), while ``run_benchmark --tp 2`` (engine and qeft)
+    runs as subprocesses, each starting its own two ranks.  Returns the
+    results and the running subprocesses, which phase parallel4 waits
+    for."""
+    from qeft_tpu_torch.parallel.multihost import launch_ranks
+
+    torch.cuda.empty_cache()  # the ranks share the card
+    _shard_kernels(cfg, params, bw, rows)
+    prompts = _engine_prompts(cfg)
+    long_prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, (1, SP_SEQ))
+    tick = time.perf_counter()
+    ranks = launch_ranks(_parallel_rank, 2, "cuda", cfg, prompt.cpu(), prompts, long_prompt,
+                         time.time())
+    log(f"[parallel] two ranks ran in {time.perf_counter() - tick:.1f} s (spawn, build and "
+        "every part)")
+    # the CLIs run beside this phase's checks and phase parallel4's ranks
+    cli = _tp_cli_start()
+    try:
+        return _check_parallel(cfg, params, prompt, tokens, int8_tokens, ranks, prompts,
+                               long_prompt), cli
+    except BaseException:
+        for proc in cli[1].values():
+            proc.kill()
+            proc.wait()
+        raise
+
+
+def _check_parallel(cfg, params, prompt, tokens, int8_tokens, ranks, prompts, long_prompt):
+    """Phase parallel's launches and outputs against the single-device path."""
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.llama import init_kv_cache, llama_decode_step, llama_prefill
+
+    api = get_model_api("llama")
+    n = cfg.num_layers
+    _record_rank_paths("parallel", ranks, ("tp bf16", "tp int8", "tp engine", "pp", "sp",
+                                           "multihost"))
+    steps = PAR_NEW - 1
+    out = {}
+    for label, quantized, attn in (("tp bf16", False, "decode_attention"),
+                                   ("tp int8", True, "decode_attention_int8")):
+        want = {"qgemv_stacked_fused": 2 * n * steps, "qgemv_stacked": 2 * n * steps,
+                attn: n * steps, "qgemm": 4 * n, "flash_window_attention": n}
+        for rank, res in enumerate(ranks):
+            _expect_rank(label, rank, res[label]["launches"], want)
+        r0 = ranks[0][label]
+        if not torch.equal(r0["tokens"], ranks[1][label]["tokens"]):
+            raise AssertionError(f"{label}: the ranks generated different tokens")
+        log(f"[{label}] tp_generate at tp 2: {PROMPT} + {PAR_NEW} greedy in {r0['seconds']:.3f} "
+            f"s of host clock ({PAR_NEW / r0['seconds']:.2f} tok/s, host-staged collectives)")
+        ref = _teacher_forced(params, cfg, api, prompt, r0["tokens"].to(prompt.device), quantized=quantized)
+        single = (int8_tokens if quantized else tokens)[:, :PAR_NEW]
+        out[label] = dict(seconds=r0["seconds"],
+                          **_against_single_device(label, r0["logits"], ref, r0["tokens"], single))
+    out["step"] = [r["tp bf16"]["step"] for r in ranks]
+    out["psum_ms"] = [r["psum_ms"] for r in ranks]
+
+    ticks = ranks[0]["tp engine"]["ticks"]
+    want = {"qgemv_stacked_fused": 2 * n * ticks, "qgemv_stacked": 2 * n * ticks,
+            "qgemm": 4 * n * ENGINE_REQUESTS, "flash_window_attention": n * (ticks + ENGINE_REQUESTS)}
+    for rank, res in enumerate(ranks):
+        _expect_rank("tp engine", rank, res["tp engine"]["launches"], want)
+    served = ranks[0]["tp engine"]["outputs"]
+    if served != ranks[1]["tp engine"]["outputs"] or sorted(served) != list(range(ENGINE_REQUESTS)):
+        raise AssertionError("tp engine: the ranks served different tokens or not every request")
+    outputs = [served[i] for i in range(ENGINE_REQUESTS)]
+    same = sum(a == b for o, s in zip(outputs, SERVED["engine bf16"]) for a, b in zip(o, s))
+    log(f"[tp engine] Engine(mesh) at tp 2: {ENGINE_REQUESTS} requests of {ENGINE_CTX} + "
+        f"{TP_ENGINE_GEN}, {ticks} ticks in {ranks[0]['tp engine']['seconds']:.3f} s (host "
+        f"clock); tokens equal to the single-device engine's (its first {TP_ENGINE_GEN} of each "
+        f"request) {same}/{ENGINE_REQUESTS * TP_ENGINE_GEN}")
+    out["tp engine"] = _check_served(cfg, params, prompts, outputs, "tp engine", False)
+
+    pp_tokens = ranks[0]["pp"]["tokens"]
+    mb_runs = PP_MICRO * steps
+    want = {"qgemv_stacked_fused": 4 * (n // 2) * mb_runs, "decode_attention": (n // 2) * mb_runs,
+            "qgemm": 4 * (n // 2) * PP_MICRO, "flash_window_attention": (n // 2) * PP_MICRO}
+    for rank, res in enumerate(ranks):
+        _expect_rank("pp", rank, res["pp"]["launches"], want)
+        if not torch.equal(res["pp"]["tokens"], pp_tokens):
+            raise AssertionError("pp: the stages returned different tokens")
+    log(f"[pp] pp_generate at pp 2, batch {PP_BATCH} in {PP_MICRO} microbatches: {PROMPT} + "
+        f"{PAR_NEW} greedy in {ranks[0]['pp']['seconds']:.3f} s (host clock)")
+    out["pp"] = _check_served(cfg, params, prompts[:PP_BATCH], pp_tokens.tolist(), "pp", False)
+
+    sp = ranks[0]["sp"]
+    want = {"qgemm": 4 * n, "qgemv": 4 * n * SP_DECODE}
+    for rank, res in enumerate(ranks):
+        _expect_rank("sp", rank, res["sp"]["launches"], want)
+    with torch.inference_mode():
+        lp = torch.as_tensor(long_prompt, device="cuda")
+        cache = init_kv_cache(cfg, 1, SP_SEQ + SP_DECODE, device="cuda")
+        ref, cache = llama_prefill(params, lp, cache, cfg)
+        ref_rows, ref_argmax = ref[0, ::SP_ROW_STRIDE].float(), ref[0].argmax(-1).cpu()
+        del ref
+        dec = []
+        for i, t in enumerate(sp["tokens"]):
+            lg, cache = llama_decode_step(params, torch.tensor([[t]], device="cuda"), cache,
+                                          SP_SEQ + i, cfg)
+            dec.append(lg[0].float())
+        del cache
+    agree = (sp["prefill_argmax"] == ref_argmax).sum().item()
+    log(f"[sp] llama_prefill_sp at sp 2 over S = {SP_SEQ}: argmax equal to the single-device "
+        f"prefill's (K3 over the whole window) at {agree}/{SP_SEQ} positions; "
+        f"{ranks[0]['sp']['seconds']:.3f} s with {SP_DECODE} decode steps (host clock)")
+    out["sp prefill"] = _against_single_device("sp prefill", sp["prefill_rows"], ref_rows,
+                                               sp["prefill_argmax"], ref_argmax)
+    out["sp decode"] = _against_single_device("sp decode", sp["logits"], torch.stack(dec),
+                                              torch.tensor(sp["tokens"][1:]),
+                                              torch.stack(dec)[:-1].argmax(-1))
+
+    mh = {}
+    for rank, res in enumerate(ranks):
+        t = res["multihost"]["ticks"]
+        _expect_rank("multihost", rank, res["multihost"]["launches"],
+                     {"qgemv_stacked": 4 * n * t, "qgemm": 4 * n * ENGINE_REQUESTS // 2,
+                      "flash_window_attention": n * (t + ENGINE_REQUESTS // 2)})
+        if sorted(res["multihost"]["outputs"]) != list(range(rank, ENGINE_REQUESTS, 2)):
+            raise AssertionError(f"multihost: rank {rank} served another share")
+        mh.update(res["multihost"]["outputs"])
+        stats = res["multihost"]["stats"]
+        if (stats["requests_total"], stats["tokens_total"]) != (ENGINE_REQUESTS,
+                                                                ENGINE_REQUESTS * ENGINE_GEN):
+            raise AssertionError(f"multihost: rank {rank}'s totals {stats}")
+    equal = all(mh[i] == SERVED["engine bf16"][i] for i in range(ENGINE_REQUESTS))
+    log(f"[multihost] MultiHostEngine over 2 ranks as dp replicas (8 requests each): tokens "
+        f"equal to the single-device engine's for every request: {equal}; stats {stats}")
+    if not equal:  # the replicas run the single-device engine's arithmetic row for row
+        raise AssertionError("multihost: a replica served other tokens than the single device")
+    out["multihost"] = dict(stats=stats, tokens_equal=equal,
+                            seconds=[r["multihost"]["seconds"] for r in ranks])
+    return out
+
+
+def _tp_cli_start():
+    """``run_benchmark --tp 2`` for --method engine and qeft as subprocesses,
+    started together (each starts its own two ranks); `_tp_cli_finish`
+    waits for them."""
+    base = [sys.executable, "-m", "qeft_tpu_torch.run_benchmark", "--tp", "2", "--reps", "1",
+            "--gen", str(TP_CLI_GEN)]
+    runs = {"engine": base + ["--method", "engine", "--batch", str(ENGINE_SLOTS), "--requests",
+                              str(ENGINE_SLOTS)],
+            "qeft": base + ["--method", "qeft"]}
+    return time.perf_counter(), {m: subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True)
+                                 for m, argv in runs.items()}
+
+
+def _tp_cli_finish(cli):
+    """Each ``run_benchmark --tp 2``'s result line (with its tp); a failure
+    fails the phase, and no subprocess outlives the call."""
+    tick, procs = cli
+    lines = {}
+    try:
+        for method, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"run_benchmark --method {method} --tp 2 failed:\n"
+                                     f"{stderr[-3000:]}")
+            lines[method] = json.loads(stdout.strip().splitlines()[-1])
+            log(f"[parallel-cli] run_benchmark --method {method} --tp 2: {lines[method]}")
+            if lines[method].get("tp") != 2:
+                raise AssertionError(f"run_benchmark --method {method} --tp 2 printed no tp")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[parallel-cli] both done {time.perf_counter() - tick:.1f} s after their start")
+    return lines
+
+
+def phase_parallel4(cfg, params, prompt, bw, rows, cli):
+    """parallel4: four ranks on the card (`_parallel4_rank`): tp 4 on
+    Llama-2-70B width at TP70_LAYERS layers (16 query over 2 kv heads a
+    rank) and pp 2 x tp 2 on the Llama-2-7B; launches checked, outputs held
+    against the single-device path here; then phase parallel's
+    ``run_benchmark --tp 2`` subprocesses (``cli``) waited for."""
+    try:
+        out = _parallel4(cfg, params, prompt)
+    finally:
+        lines = _tp_cli_finish(cli)
+    out["cli"] = lines
+    return out
+
+
+def _parallel4(cfg, params, prompt):
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.llama import LLAMA_PRESETS
+    from qeft_tpu_torch.parallel.multihost import launch_ranks
+    from qeft_tpu_torch.testing import build_packed_model
+
+    api = get_model_api("llama")
+    cfg70 = dataclasses.replace(LLAMA_PRESETS["llama2-70b"], num_layers=TP70_LAYERS)
+    prompts = _engine_prompts(cfg)
+    tick = time.perf_counter()
+    ranks = launch_ranks(_parallel4_rank, 4, "cuda", cfg70, cfg, prompt.cpu(), prompts,
+                         time.time())
+    log(f"[parallel4] four ranks ran in {time.perf_counter() - tick:.1f} s")
+    _record_rank_paths("parallel4", ranks, ("tp4 70b", "tppp"))
+    steps, n70, n = PAR_NEW - 1, TP70_LAYERS, cfg.num_layers
+    want = {"qgemv_stacked_fused": 2 * n70 * steps, "qgemv_stacked": 2 * n70 * steps,
+            "decode_attention": n70 * steps, "qgemm": 4 * n70, "flash_window_attention": n70}
+    for rank, res in enumerate(ranks):
+        _expect_rank("tp4 70b", rank, res["tp4 70b"]["launches"], want)
+    r0 = ranks[0]["tp4 70b"]
+    params70 = build_packed_model(cfg70, seed=7, device="cuda")
+    ref = _teacher_forced(params70, cfg70, api, prompt, r0["tokens"].to(prompt.device))
+    single, _ = generate(params70, prompt, api.init_cache(cfg70, 1, CACHE, device="cuda"), cfg70,
+                         PAR_NEW, api=api, device="cuda")
+    del params70
+    torch.cuda.empty_cache()
+    log(f"[tp4 70b] tp_generate at tp 4 on {TP70_LAYERS} layers of Llama-2-70B width: {PROMPT} + "
+        f"{PAR_NEW} greedy in {r0['seconds']:.3f} s (host clock)")
+    out = {"tp4 70b": dict(seconds=r0["seconds"], step=[r["tp4 70b"]["step"] for r in ranks],
+                           psum_ms=[r["psum_ms"] for r in ranks],
+                           **_against_single_device("tp4 70b", r0["logits"], ref, r0["tokens"],
+                                                    single))}
+    mb_runs = 2 * steps  # TPPP_BATCH rows in two microbatches
+    want = {"qgemv_stacked_fused": 2 * (n // 2) * mb_runs, "qgemv_stacked": 2 * (n // 2) * mb_runs,
+            "decode_attention": (n // 2) * mb_runs, "qgemm": 4 * (n // 2) * 2,
+            "flash_window_attention": (n // 2) * 2}
+    toks = ranks[0]["tppp"]["tokens"]
+    for rank, res in enumerate(ranks):
+        _expect_rank("tppp", rank, res["tppp"]["launches"], want)
+        if not torch.equal(res["tppp"]["tokens"], toks):
+            raise AssertionError("tppp: the ranks returned different tokens")
+    log(f"[tppp] tppp_generate at pp 2 x tp 2, batch {TPPP_BATCH}: {PROMPT} + {PAR_NEW} greedy "
+        f"in {ranks[0]['tppp']['seconds']:.3f} s (host clock)")
+    out["tppp"] = _check_served(cfg, params, prompts[:TPPP_BATCH], toks.tolist(), "tppp", False)
+    return out
+
+
+class _Beside(threading.Thread):
+    """A phase of subprocesses only, run in a thread beside the next phase;
+    `result` waits for it, re-raises its failure and returns its seconds."""
+
+    def __init__(self, fn, *args):
+        super().__init__(name=fn.__name__, daemon=True)
+        self.fn, self.args, self.error, self.seconds = fn, args, None, None
+        self.start()
+
+    def run(self):
+        tick = time.perf_counter()
+        try:
+            self.fn(*self.args)
+        except BaseException as e:  # re-raised in the main thread by result()
+            self.error = e
+        self.seconds = round(time.perf_counter() - tick, 1)
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.seconds
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["attention", "matvec"], default=None,
@@ -3360,6 +4048,8 @@ def main(argv=None) -> int:
     timed(phase_cli, cfg)
     timed(phase_train_oracle, cfg, params)
     timed(phase_import, cfg, params)
+    _, cli = timed(phase_parallel, cfg, params, prompt, tokens, int8["tokens"], bw, rows)
+    timed(phase_parallel4, cfg, params, prompt, bw, rows, cli)
     del params  # the Llama model's tensors, before OPT-6.7B is built
     torch.cuda.empty_cache()
     from qeft_tpu_torch.models.opt import OPT_PRESETS
@@ -3374,10 +4064,19 @@ def main(argv=None) -> int:
     timed(phase_families, rows)
     timed(phase_family_cli, opt_cfg)
     timed(phase_quantize)
-    timed(phase_quantize_cli)
-    timed(phase_family_quantize)
-    timed(phase_hf)
-    timed(phase_stream_equal)
+    # the quantization CLIs are subprocesses on tiny-v2: they run beside the
+    # family quantization on the card (time budget; its block times carry
+    # their load)
+    beside = _Beside(phase_quantize_cli)
+    try:
+        timed(phase_family_quantize)
+    finally:  # no subprocess outlives the run
+        seconds["quantize_cli (beside family_quantize)"] = beside.result()
+    hf_cli = timed(phase_hf)  # its CLIs run beside stream-equal (subprocesses only)
+    try:
+        timed(phase_stream_equal)
+    finally:
+        seconds["hf_cli (beside stream_equal)"] = hf_cli.result()
     timed(phase_stream_70b)
     for key, row in rows.items():
         by_path = {p: c[key] for p, c in PATH_LAUNCHES.items() if c.get(key)}

@@ -15,6 +15,15 @@ warm-up; one JSON line of results.  Methods:
     python -m qeft_tpu_torch.run_benchmark --method engine
     python -m qeft_tpu_torch.run_benchmark --method spec-batch --draft_layers 8
     python -m qeft_tpu_torch.run_benchmark --method engine --model tiny --device cpu
+    python -m qeft_tpu_torch.run_benchmark --method engine --tp 2
+    torchrun --nproc_per_node 2 -m qeft_tpu_torch.run_benchmark --method engine --tp 2
+
+``--tp N`` (methods ``qeft`` and ``engine``) serves on an N-way tensor-
+parallel mesh (`parallel.tp_forward`): under torchrun the ranks join its
+group (its world must be N); alone the command starts N ranks on this host
+itself (`parallel.multihost.launch_ranks`).  Ranks that share a card
+exchange their collectives over Gloo through host memory.  Rank 0 prints
+the one result line, with ``"tp"``.
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--load`` serves a
 packed checkpoint of any family through ``fp``/``qeft``; the speculative and
@@ -22,8 +31,7 @@ engine methods run the llama family's ragged forward and raise for the
 others, as in the JAX package.  The speculative methods
 need a draft with the target's vocabulary: ``--draft_layers N`` slices the
 target itself; the default ``--draft_model tiny-v2`` (512 tokens) fits only
-a 512-token target.  Not ported: ``qeft-x`` (ROADMAP A11) and ``--tp > 1``
-(ROADMAP A10).
+a 512-token target.  Not ported: ``qeft-x`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -94,7 +102,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel ways (not ported: must be 1)")
+                        help="tensor-parallel ways: the weights shard over a tp mesh of this "
+                             "many ranks (methods qeft and engine)")
     parser.add_argument("--device", default=None, help="default: cuda (required)")
     parser.add_argument("--logfile", type=str, default="")
     args = parser.parse_args(argv)
@@ -102,9 +111,11 @@ def main(argv=None) -> dict:
     if args.method == "qeft-x":
         raise NotImplementedError("--method qeft-x (the XLA dequant ablation) is not ported: "
                                   "ROADMAP A11")
-    if args.tp > 1:
-        raise NotImplementedError("--tp > 1 (tensor-parallel serving) is not ported: ROADMAP A10")
+    if args.tp > 1 and args.method not in ("qeft", "engine"):
+        parser.error("--tp applies to --method qeft or engine")
     device = resolve_device(args.device)
+    if args.tp > 1:
+        return _main_tp(args, device)
     params, cfg, api = _load(args, device)
     if api.family not in ("llama", "gemma") and args.method in ("spec", "spec-batch", "engine"):
         raise NotImplementedError("the speculative and engine methods run the llama-family "
@@ -201,6 +212,75 @@ def main(argv=None) -> dict:
         result["draft"] = (f"self:{args.draft_layers}-layers" if args.draft_layers
                            else args.draft_model)
     _emit(result, args.logfile)
+    return result
+
+
+def _main_tp(args, device) -> dict:
+    """``--tp N``: join torchrun's group, or start N ranks here; rank 0's
+    result."""
+    import os
+
+    from qeft_tpu_torch.parallel.multihost import init_distributed, launch_ranks
+
+    if os.environ.get("WORLD_SIZE"):
+        init_distributed(device=device)
+        return _tp_rank(args)
+    return launch_ranks(_tp_rank, args.tp, device.type, args)[0]
+
+
+def _tp_rank(args) -> dict:
+    """One rank of ``--tp``: its shard of the target, then the timed
+    method; rank 0 prints the line."""
+    from qeft_tpu_torch.models.llama import init_kv_cache
+    from qeft_tpu_torch.parallel.mesh import make_mesh
+    from qeft_tpu_torch.parallel.tp_forward import _local_cfg, tp_generate, tp_shard_packed_params
+
+    mesh = make_mesh((1, args.tp), ("dp", "tp"), device=args.device)
+    device = mesh.device
+    params, cfg, api = _load(args, device)
+    if api.family not in ("llama", "gemma"):
+        raise NotImplementedError("--tp runs the llama-family tp layouts")
+    params = tp_shard_packed_params(params, mesh, cfg)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the whole tree is gone; only the shard stays
+    model = args.load or args.model
+    if args.method == "engine":
+        from qeft_tpu_torch.serving import measure_engine_throughput
+
+        n_req = args.requests or 2 * args.batch
+        tps = measure_engine_throughput(
+            params, cfg, slots=args.batch, burst=args.burst, requests=n_req, ctx=args.context,
+            gen=args.gen, reps=args.reps, mesh=mesh,
+            sample_config=SampleConfig(greedy=not args.sample), seed=args.seed)
+        result = {"method": "engine", "model": model, "requests": n_req, "slots": args.batch,
+                  "burst": args.burst, "context": args.context, "gen": args.gen,
+                  "served_tokens_per_s": round(tps, 2), "device": str(device), "tp": args.tp}
+    else:
+        if args.sample:
+            raise ValueError("--tp with --method qeft is greedy only")
+        prompt = torch.as_tensor(
+            np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (1, args.context)),
+            device=device)
+        max_len = -(-(args.context + args.gen) // 8) * 8
+        lcfg = _local_cfg(cfg, args.tp)
+
+        def run():
+            out, _ = tp_generate(params, prompt, init_kv_cache(lcfg, 1, max_len, device=device),
+                                 cfg, mesh, args.gen)
+            out.cpu()
+
+        run()  # warm-up
+        best = float("inf")
+        for _ in range(args.reps):
+            tick = time.perf_counter()
+            run()
+            best = min(best, time.perf_counter() - tick)
+        result = {"method": args.method, "model": model,
+                  "tokens_per_s": round(args.gen / best, 2),
+                  "ms_per_token": round(best / args.gen * 1e3, 3),
+                  "context": args.context, "gen": args.gen, "device": str(device), "tp": args.tp}
+    if mesh.rank == 0:
+        _emit(result, args.logfile)
     return result
 
 

@@ -11,10 +11,15 @@ for ``burst`` ticks between host reads), and per-request prefill into a
 slot through a view of the cache, so every write lands in the cache
 itself.
 
+On a tensor-parallel mesh (``Engine(mesh=...)``) every rank runs the same
+host loop over the same request stream, its device programs the tp
+layouts of `parallel.tp_forward` on its shard of the weights and of the kv
+heads; `MultiHostEngine` serves replicas side by side, each request routed
+to one of them by its id.
+
 Not ported: the JAX package's power-of-two padding of prefill windows (it
 bounds XLA compilations; PyTorch runs eagerly and the outputs are the same
-without it), the tensor-parallel engine (``Engine(mesh=...)``) and
-``MultiHostEngine``, which wait for the parallel layouts.
+without it).
 """
 
 from __future__ import annotations
@@ -61,21 +66,37 @@ def _prefill_window_into_slot(params: Dict, window: torch.Tensor, cache: Dict, s
     return logits[:, last_idx, :]
 
 
+def _tp_prefill_window_into_slot(params: Dict, window: torch.Tensor, cache: Dict, slot: int,
+                                 pos: int, cfg: LlamaConfig, mesh, last_idx: int) -> torch.Tensor:
+    """`_prefill_window_into_slot` on the tp mesh: the window through the
+    local shards into this rank's kv heads of the slot; the logits at
+    ``last_idx`` gathered over ``tp``."""
+    from qeft_tpu_torch.parallel.tp_forward import _tp_window_body
+
+    logits = _tp_window_body(params, window, _slot_view(cache, slot), pos, cfg, mesh)
+    return mesh.all_gather(logits[:, last_idx, :], "tp", dim=-1)
+
+
 def _prefill_into_slot(params: Dict, prompt: torch.Tensor, cache: Dict, slot: int,
-                       cfg: LlamaConfig, chunk: int = 0) -> torch.Tensor:
+                       cfg: LlamaConfig, chunk: int = 0, mesh=None) -> torch.Tensor:
     """Prefill of one request [1, S] into its slot.  Unchunked: one window
     of the whole prompt.  Chunked (``chunk`` set): windows of ``chunk``
     tokens, the ragged tail left-overlapping to full width (it rewrites a
     few cached positions with the same values).  Returns the last prompt
     position's logits [1, V]."""
     s = prompt.shape[1]
+
+    def window(w, start, last_idx):
+        if mesh is None:
+            return _prefill_window_into_slot(params, w, cache, slot, start, cfg, last_idx)
+        return _tp_prefill_window_into_slot(params, w, cache, slot, start, cfg, mesh, last_idx)
+
     if not chunk or s <= chunk:
-        return _prefill_window_into_slot(params, prompt, cache, slot, 0, cfg, s - 1)
+        return window(prompt, 0, s - 1)
     last = None
     for start in range(0, s, chunk):
         start = min(start, s - chunk)
-        last = _prefill_window_into_slot(params, prompt[:, start: start + chunk], cache, slot,
-                                         start, cfg, chunk - 1)
+        last = window(prompt[:, start: start + chunk], start, chunk - 1)
     return last
 
 
@@ -85,6 +106,23 @@ def _decode_batch(params: Dict, tokens: torch.Tensor, cache: Dict, pos: torch.Te
     -> the next tokens [B]."""
     logits, _ = llama_decode_step_ragged(params, tokens, cache, pos, cfg)
     return _sample_token(logits, generator, sc)
+
+
+def _tp_decode_batch(params: Dict, tokens: torch.Tensor, cache: Dict, pos: torch.Tensor,
+                     cfg: LlamaConfig, mesh, sc: SampleConfig, generator) -> torch.Tensor:
+    """`_decode_batch` on the tp mesh: every rank samples the same token from
+    the gathered logits with its generator, seeded alike."""
+    from qeft_tpu_torch.parallel.tp_forward import tp_decode_step_ragged
+
+    logits, _ = tp_decode_step_ragged(params, tokens, cache, pos, cfg, mesh)
+    return _sample_token(logits, generator, sc)
+
+
+def _tp_decode_burst(params: Dict, tokens: torch.Tensor, cache: Dict, pos: torch.Tensor,
+                     cfg: LlamaConfig, mesh, sc: SampleConfig, n: int, generator) -> torch.Tensor:
+    from qeft_tpu_torch.parallel.tp_forward import tp_decode_burst
+
+    return tp_decode_burst(params, tokens, cache, pos, cfg, mesh, n, sc, generator)
 
 
 def _decode_burst(params: Dict, tokens: torch.Tensor, cache: Dict, pos: torch.Tensor,
@@ -105,17 +143,21 @@ class Engine:
 
     Greedy by default; ``sample_config`` samples (one config for the engine,
     draws from a generator seeded with ``rng_seed``).  ``burst`` ticks run
-    between host reads.  ``mesh`` (tensor parallelism) is not ported."""
+    between host reads.
+
+    ``mesh``: a `parallel.mesh.Mesh` with a ``tp`` axis; ``params`` must
+    then come from `parallel.tp_forward.tp_shard_packed_params`, the cache
+    holds this rank's kv heads, and the engine runs on the mesh's device.
+    Every rank of the tp group runs the same engine over the same requests
+    and gets the same tokens."""
 
     def __init__(self, params: Dict, cfg: LlamaConfig, max_batch: int = 8,
                  max_len: int = 2048, eos_id: Optional[int] = None,
                  cache_dtype=torch.bfloat16,
                  sample_config: SampleConfig = SampleConfig(greedy=True), rng_seed: int = 0,
                  prefill_chunk: int = 0, burst: int = 1, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...) (tensor-parallel serving) is not ported yet: ROADMAP A10")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         check_on(params["embed"], self.device, "the model")
         self.params = params
         self.cfg = cfg
@@ -129,7 +171,12 @@ class Engine:
         self.generator = default_generator(self.device, rng_seed)
         self.prefill_chunk = prefill_chunk
         self.burst = burst
-        self.cache = init_kv_cache(cfg, max_batch, max_len, dtype=cache_dtype,
+        cache_cfg = cfg
+        if mesh is not None:
+            from qeft_tpu_torch.parallel.tp_forward import _local_cfg
+
+            cache_cfg = _local_cfg(cfg, mesh.shape["tp"])
+        self.cache = init_kv_cache(cache_cfg, max_batch, max_len, dtype=cache_dtype,
                                    device=self.device)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.pos = np.zeros((max_batch,), np.int64)
@@ -156,7 +203,7 @@ class Engine:
         """Prefill one admitted request into its slot; returns its last
         logits.  SpecEngine adds the draft cache's prefill."""
         return _prefill_into_slot(self.params, self._prompt(req), self.cache, slot, self.cfg,
-                                  chunk=self.prefill_chunk)
+                                  chunk=self.prefill_chunk, mesh=self.mesh)
 
     def _admit(self):
         for slot in range(self.max_batch):
@@ -198,8 +245,13 @@ class Engine:
             return False
         tokens, pos = self._device(self.cur_token), self._device(self.pos)
         if self.burst > 1:
-            out = _decode_burst(self.params, tokens, self.cache, pos, self.cfg, self.sc,
-                                self.burst, self.generator).cpu().numpy()
+            if self.mesh is not None:
+                out = _tp_decode_burst(self.params, tokens, self.cache, pos, self.cfg, self.mesh,
+                                       self.sc, self.burst, self.generator)
+            else:
+                out = _decode_burst(self.params, tokens, self.cache, pos, self.cfg, self.sc,
+                                    self.burst, self.generator)
+            out = out.cpu().numpy()
             self.ticks += self.burst
             for slot in active:
                 req = self.slots[slot]
@@ -213,8 +265,13 @@ class Engine:
                 self.cur_token[slot, 0] = req.output[-1]
                 self._maybe_finish(slot)
             return True
-        nxt = _decode_batch(self.params, tokens, self.cache, pos, self.cfg, self.sc,
-                            self.generator).cpu().numpy()
+        if self.mesh is not None:
+            nxt = _tp_decode_batch(self.params, tokens, self.cache, pos, self.cfg, self.mesh,
+                                   self.sc, self.generator)
+        else:
+            nxt = _decode_batch(self.params, tokens, self.cache, pos, self.cfg, self.sc,
+                                self.generator)
+        nxt = nxt.cpu().numpy()
         self.ticks += 1
         for slot in active:
             req = self.slots[slot]
@@ -243,8 +300,9 @@ def measure_engine_throughput(params: Dict, cfg: LlamaConfig, *, slots: int = 8,
     ``ctx`` tokens, ``gen`` new tokens each: the one definition of the
     serving benchmark.  Engine construction, admission and prefill are
     inside the timed region; the best of ``reps`` after one warm-up serve.
-    On the GPU each serve ends in a device synchronisation."""
-    device = resolve_device(device)
+    On the GPU each serve ends in a device synchronisation.  With ``mesh``
+    (a tp mesh, ``params`` its shards) every rank of it calls this alike."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=ctx) for _ in range(requests)]
 
@@ -267,6 +325,73 @@ def measure_engine_throughput(params: Dict, cfg: LlamaConfig, *, slots: int = 8,
     return sum(len(r.output) for r in done) / best
 
 
+class MultiHostEngine:
+    """Continuous batching over replicas: data-parallel engines side by side,
+    tensor parallelism inside each (JAX: one replica a host).  A replica is
+    a ``dp`` coordinate of ``mesh`` (its ranks form one tp engine), or,
+    without a mesh, one rank of the world.  Requests are routed by
+    ``request_id % replicas``, a pure function every rank evaluates alike,
+    so no coordinator is needed; decode never crosses replicas.
+
+    Every rank calls `submit` with the same global request stream and keeps
+    its replica's share; `run` serves it; `stats` sums the replicas'
+    totals with one all-reduce over the world.  In a single process it is a
+    plain Engine.  ``engine_kw`` go to the engine (``device`` among them);
+    ``mesh`` reaches it only for a tp axis larger than one."""
+
+    def __init__(self, params: Dict, cfg: LlamaConfig, engine_cls=Engine, mesh=None,
+                 **engine_kw):
+        import torch.distributed as dist
+
+        if mesh is not None:
+            self.process_index, self.process_count = mesh.index("dp"), mesh.shape.get("dp", 1)
+            self.leader = mesh.index("tp") == 0  # counts its replica once in `stats`
+            if mesh.shape.get("tp", 1) > 1:
+                engine_kw["mesh"] = mesh
+            else:
+                engine_kw.setdefault("device", mesh.device)
+        elif dist.is_initialized():
+            self.process_index, self.process_count = dist.get_rank(), dist.get_world_size()
+            self.leader = True
+        else:
+            self.process_index, self.process_count, self.leader = 0, 1, True
+        self.engine = engine_cls(params, cfg, **engine_kw)
+        self.routed = 0  # global requests seen (routing sanity)
+
+    def route(self, request_id: int) -> int:
+        """The replica that owns a request."""
+        return request_id % self.process_count
+
+    def submit(self, req: Request) -> bool:
+        """Offer a request of the global stream; True if this replica took it."""
+        self.routed += 1
+        if self.route(req.request_id) != self.process_index:
+            return False
+        self.engine.submit(req)
+        return True
+
+    def run(self, max_ticks: int = 100000) -> List[Request]:
+        """Serve this replica's share to completion."""
+        return self.engine.run(max_ticks=max_ticks)
+
+    def stats(self) -> Dict[str, int]:
+        """Totals over every replica (one all-reduce over the world at
+        reporting time) beside this replica's own."""
+        import torch.distributed as dist
+
+        done = self.engine.finished
+        local = [len(done), sum(len(r.output) for r in done)]
+        total = list(local)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+            t = torch.tensor(local if self.leader else [0, 0], dtype=torch.int64, device=dev)
+            dist.all_reduce(t)
+            total = t.tolist()
+        return {"requests_local": local[0], "tokens_local": local[1],
+                "requests_total": int(total[0]), "tokens_total": int(total[1]),
+                "requests_seen": self.routed}
+
+
 class SpecEngine(Engine):
     """Continuous batching with speculative decoding: each tick drafts gamma
     tokens for every slot, verifies them in one target window and advances
@@ -277,7 +402,8 @@ class SpecEngine(Engine):
     def __init__(self, params: Dict, cfg: LlamaConfig, draft_params: Dict,
                  draft_cfg: LlamaConfig, gamma: int = 4, **kw):
         if kw.get("mesh") is not None:
-            raise NotImplementedError("SpecEngine does not run on a TP mesh")
+            raise NotImplementedError(
+                "SpecEngine does not ride a TP mesh yet; use Engine(mesh=...)")
         _check_vocab(cfg, draft_cfg)
         super().__init__(params, cfg, **kw)
         check_on(draft_params["embed"], self.device, "the draft model")

@@ -22,8 +22,11 @@ and its f32 entry); K5 on the round-to-nearest packed llama2-7b head; GPTQ
 of one 4096 x 4096 linear on the card against the CPU; K2 and K7 at the
 OPT, Phi and Falcon training shapes (K = 4544 at g = 64, K = 16384), the
 autograd linear with a bias and ``reorder_ids`` at 2048 rows, and a
-Falcon-width block quantized on the card against the CPU; and the wrappers'
-refusals.  They need an NVIDIA GPU and ``nvcc``
+Falcon-width block quantized on the card against the CPU; K1 and K6 at the
+stage shapes one rank of a tensor-parallel deployment runs (Llama-2-7B at
+tp 2, Llama-2-70B width at tp 4, K6 without a slab) and a two-rank tp
+prefill and decode step on the card against the single device; and the
+wrappers' refusals.  They need an NVIDIA GPU and ``nvcc``
 and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -947,3 +950,60 @@ def test_an_imported_reference_checkpoint_serves_on_the_card(gen):
         cache = llama.init_kv_cache(cfg, 1, 48, device="cuda")
         tokens.append(generate(params, prompt, cache, cfg, 32, device="cuda")[0])
     assert torch.equal(tokens[0], tokens[1])
+
+
+# the per-rank stage shapes of tensor-parallel serving: Llama-2-7B at tp 2
+# and Llama-2-70B width at tp 4 (column-parallel qkv / upgate, K1 with its
+# norm and an N-sharded slab; row-parallel o / down, K6 without a slab --
+# 7B's down shard is 43 groups, an odd count)
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", [(4096, 6144), (4096, 11008), (8192, 2560), (8192, 14336)])
+def test_fused_decode_matvec_at_tp_shard_shapes(gen, m, k, n):
+    p = _packed(gen, 2, k, n, 128, 128)
+    x = _randn(gen, m, k)
+    lnw = (1.0 + _randn(gen, k, scale=0.1).float()).to(torch.bfloat16)
+    got = qmm.qgemv_stacked_fused(x, p, 1, lnw=lnw, eps=1e-5)
+    _close(got, qmm.qgemv_stacked_fused_plain(_f32(x), _f32(p), 1, lnw=_f32(lnw), eps=1e-5))
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", [(2048, 4096), (5504, 4096), (2048, 8192), (7168, 8192)])
+def test_plain_decode_matvec_at_tp_shard_shapes_without_a_slab(gen, m, k, n):
+    p = _packed(gen, 2, k, n, 128, 0)
+    x = _randn(gen, m, k)
+    got = qmm.qgemv_stacked(x, p, 1)
+    _close(got, qmm.qgemv_stacked_plain(_f32(x), _f32(p), 1))
+
+
+def test_tp_decode_step_of_two_ranks_on_the_card(gen):
+    """Two ranks sharing the card (Gloo through host memory) run the tp
+    prefill and decode step of a random packed 2-layer model of width 1024
+    through K2/K3 and K1/K6/K4; the step's logits within 2e-2 of the logit
+    scale of the single-device step's (bf16 partial sums are rounded before
+    the psum)."""
+    from qeft_tpu_torch.models import llama
+    from qeft_tpu_torch.parallel.multihost import launch_ranks
+    from qeft_tpu_torch.testing import build_packed_model
+    import torch_ranks  # tests/ is on the path (pytest's rootdir insertion), not a package
+
+    cfg = dataclasses.replace(llama.LLAMA_PRESETS["llama2-7b"], hidden_size=1024,
+                              intermediate_size=2816, num_layers=2, num_heads=8,
+                              num_kv_heads=8, vocab_size=4096)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device="cuda")
+    params = build_packed_model(cfg, seed=3, device="cuda")
+    cache = llama.init_kv_cache(cfg, 1, 24, device="cuda")
+    with torch.inference_mode():
+        logits, cache = llama.llama_prefill(params, prompt, cache, cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        want, _ = llama.llama_decode_step(params, tok, cache, 16, cfg)
+    want = want.float().cpu()
+    ranks = launch_ranks(torch_ranks.tp_decode_on_card, 2, "cuda", cfg, 3, prompt.cpu(), 2)
+    for res in ranks:
+        assert res["staged"]
+        got = torch.from_numpy(res["logits"])
+        assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+        assert res["prefill"]["qgemm"] == 4 * cfg.num_layers
+        assert res["prefill"]["flash_window_attention"] == cfg.num_layers
+        assert res["decode"] == {"qgemv_stacked_fused": 2 * cfg.num_layers,
+                                 "qgemv_stacked": 2 * cfg.num_layers,
+                                 "decode_attention": cfg.num_layers}

@@ -394,3 +394,59 @@ def test_main_accepts_eval_datasets_and_logfile(tmp_path):
     assert lines[0]["ppl_synthetic"] == res["ppl_synthetic"] and f"ppl_{npy}" in lines[0]
     with pytest.raises(NotImplementedError, match="A7b"):
         torch_main.main(argv[:-4] + ["--eval_datasets", "wikitext2"])
+
+
+def test_the_parallel_package_is_scanned_for_banned_imports():
+    """Every module of ``qeft_tpu_torch/parallel`` is among those the two
+    tests above hold to the ban on jax and qeft_tpu."""
+    mods = {m for _, m in _modules()}
+    assert {f"qeft_tpu_torch.parallel.{m}" for m in
+            ("mesh", "multihost", "tp_forward", "pp", "tp_pp", "sp", "tp_train")} <= mods
+
+
+def test_parallel_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypatch):
+    """make_mesh, global_mesh, init_distributed, launch_ranks, the tp / pp /
+    tp x pp / sp functions on a mesh made for the card, Engine(mesh=...),
+    MultiHostEngine and run_benchmark --tp refuse to run on the CPU unless
+    it is named; tensor-parallel training names A10b."""
+    from qeft_tpu_torch.parallel import tp_train
+    from qeft_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from qeft_tpu_torch.parallel.multihost import global_mesh, init_distributed, launch_ranks
+    from qeft_tpu_torch.parallel.pp import pp_generate
+    from qeft_tpu_torch.parallel.sp import llama_decode_step_sp, llama_prefill_sp
+    from qeft_tpu_torch.parallel.tp_forward import tp_decode_step, tp_generate
+    from qeft_tpu_torch.parallel.tp_pp import tppp_generate
+    from qeft_tpu_torch.serving import MultiHostEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for v in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID", "MASTER_ADDR",
+              "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(v, raising=False)
+    for call in (make_mesh, global_mesh, lambda: launch_ranks(print, 2),
+                 lambda: MultiHostEngine(None, None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_benchmark.main(["--method", "engine", "--tp", "2", "--model", "tiny"])
+    cfg = LLAMA_PRESETS["tiny"]
+    params = build_packed_model(cfg, g=64, r=8, dtype=torch.float32, device="cpu")
+    prompt = torch.zeros(1, 4, dtype=torch.int64)
+    card = Mesh({"dp": 1, "tp": 1, "pp": 1, "sp": 1}, device=torch.device("cuda"))
+    cache = init_kv_cache(cfg, 1, 8, device="cpu")
+    for call in (lambda: tp_generate(params, prompt, cache, cfg, card, 2),
+                 lambda: tp_decode_step(params, prompt[:, :1], cache, 4, cfg, card),
+                 lambda: pp_generate(params, prompt, cache, cfg, card, 2),
+                 lambda: tppp_generate(params, prompt, cache, cfg, card, 2),
+                 lambda: llama_prefill_sp(params, prompt, cfg, card),
+                 lambda: llama_decode_step_sp(params, prompt[:, :1], cache, 4, cfg, card),
+                 lambda: Engine(params, cfg, mesh=card)):
+        with pytest.raises(ValueError, match="expected cuda"):
+            call()
+    for name in ("tp_train_specs", "tp_shard_wct", "make_tp_loss_and_grad", "make_tp_train_step"):
+        with pytest.raises(NotImplementedError, match="A10b"):
+            getattr(tp_train, name)()

@@ -157,9 +157,17 @@ def test_engine_caps_at_cache_capacity(models):
 
 
 def test_engine_refuses_a_mesh(models):
+    """``Engine(mesh=...)`` runs on its mesh's device (tests/test_torch_serving_tp.py):
+    it refuses a model that lives elsewhere; ``SpecEngine`` refuses any mesh,
+    as the JAX package's does."""
+    from qeft_tpu_torch.parallel.mesh import Mesh
+    from qeft_tpu_torch.serving import SpecEngine
+
     _, tparams, _, tcfg, _ = models["tiny"]
-    with pytest.raises(NotImplementedError, match="A10"):
-        Engine(tparams, tcfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="expected cuda"):
+        Engine(tparams, tcfg, mesh=Mesh({"dp": 1, "tp": 2}, device=torch.device("cuda")))
+    with pytest.raises(NotImplementedError, match="TP mesh"):
+        SpecEngine(tparams, tcfg, tparams, tcfg, mesh=Mesh({"dp": 1, "tp": 2}), device="cpu")
 
 
 def test_measure_engine_throughput_serves_everything(models):
@@ -177,9 +185,10 @@ def test_run_benchmark_engine_on_cpu():
                                   "4", "--reps", "1"])
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     assert line == res and res["requests"] == 4 and res["served_tokens_per_s"] > 0
-    for flags, name in ((["--method", "qeft-x"], "A11"), (["--tp", "2"], "A10")):
-        with pytest.raises(NotImplementedError, match=name):
-            run_benchmark.main(flags + ["--model", "tiny", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A11"):
+        run_benchmark.main(["--method", "qeft-x", "--model", "tiny", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # --tp serves qeft and engine only, as in JAX
+        run_benchmark.main(["--method", "spec", "--tp", "2", "--model", "tiny", "--device", "cpu"])
 
 
 def test_generate_eos_matches_jax(models):

@@ -185,3 +185,49 @@ def states_to_port(states):
         zero_group=torch.from_numpy(np.array(st.zero_group)),
         out_ids=torch.from_numpy(np.array(st.out_ids)), sym=st.sym, bits=st.bits,
         group_size=st.group_size) for k, st in states.items()}
+
+
+def tp_packed_tiny_v2():
+    """The model of tests/test_tp_forward.py and test_serving_tp.py: tiny-v2
+    (4 heads of 128, f = 1024) quantized by GPTQ-OWQ with the real OGR in
+    f32, g = 128, r = 16, packed with fused stages by the JAX package."""
+    from qeft_tpu.models import init_params
+    from qeft_tpu.models.registry import get_model_meta as jax_meta
+    from qeft_tpu.pipeline import QuantizeArgs, extract_global_outidx, pack_model, quantize_model
+    from qeft_tpu.quant.quantizer import QuantSpec
+
+    cfg, meta = LLAMA_PRESETS["tiny-v2"], jax_meta("llama")
+    params = init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    calib = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 16))
+    args = QuantizeArgs(spec=QuantSpec(bits=4, sym=False, mse=False, group_size=128),
+                        target_rank=16, no_frob_norm=True, nsamples=2)
+    outidx, _ = extract_global_outidx(params, calib, cfg, meta, args)
+    qparams, quantizers = quantize_model(params, calib, cfg, meta, args, outidx)
+    return jax.tree.map(jnp.asarray, pack_model(qparams, quantizers, cfg, meta,
+                                                dtype=jnp.float32, fuse_stages=True))
+
+
+def with_bias_no_outlier(packed):
+    """tests/test_tp_forward.py's hardening tree: every fused stage biased,
+    upgate and down without weak columns."""
+    rng = np.random.default_rng(1)
+    layers = dict(packed["layers"])
+    for name in ("qkv", "o", "upgate", "down"):
+        lin = layers[name]
+        nl, n = lin.qweight.shape[0], lin.qweight.shape[-1]
+        bias = jnp.asarray(rng.normal(size=(nl, n)).astype(np.float32) * 0.1)
+        ow = None if name in ("upgate", "down") else lin.oweight
+        layers[name] = dataclasses.replace(lin, bias=bias, oweight=ow)
+    return dict(packed, layers=layers)
+
+
+def dense_to_port(jax_params, family="llama"):
+    """A dense JAX tree (member names) -> the port's fused dense tree."""
+    from qeft_tpu_torch.pipeline import fuse_dense_stages
+
+    return fuse_dense_stages(from_flat(_flatten(jax_params)), get_model_meta(family))
+
+
+def torch_tree(tree):
+    """JAX arrays (a cache, a dict of leaves) -> CPU tensors."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
