@@ -215,9 +215,10 @@ def read_wct(path: str) -> Tuple[Dict[str, torch.Tensor], str]:
 def load_wct(path: str, device=None):
     """Base packed model with the tuned slabs laid over it, each cast to its
     linear's scales dtype (as ``qeft_tpu.checkpoint.load_wct`` does), then
-    stage-fused.  -> (params, config, family)."""
+    stage-fused unless its linears carry their own ``reorder_ids``.
+    -> (params, config, family)."""
     from qeft_tpu_torch.models.registry import get_model_meta
-    from qeft_tpu_torch.pipeline import fuse_packed_stages
+    from qeft_tpu_torch.pipeline import fuse_packed_stages, per_linear_reorder
 
     slabs, base = read_wct(path)
     params, cfg, family = load_packed(base, device)
@@ -226,7 +227,9 @@ def load_wct(path: str, device=None):
         lin = layers[name]
         layers[name] = dataclasses.replace(
             lin, oweight=w.to(device=lin.scales.device, dtype=lin.scales.dtype))
-    params = fuse_packed_stages({**params, "layers": layers}, get_model_meta(family))
+    params = {**params, "layers": layers}
+    if not per_linear_reorder(params):
+        params = fuse_packed_stages(params, get_model_meta(family))
     return params, cfg, family
 
 

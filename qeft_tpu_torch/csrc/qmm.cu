@@ -58,6 +58,13 @@
 //   bias.  (An earlier K1 ran on the CUDA cores, one block per 32 columns,
 //   each block re-staging the whole row: bound by dequantization and FMA
 //   issue.)
+//   The bf16w variant (template flag BF16W; entry points *_bf16w, asked for
+//   by QEFT_GEMV_F32W=0) replaces the same kernels under the JAX package's
+//   _plane_dot with f32w off: each dequantized weight code * scale is
+//   rounded once to bf16 before the product.  Its A registers are
+//   fma(128 + code, s, -128 s) on bf16 pairs -- (128 + code) * s is exact,
+//   so the fused add leaves code * s rounded once -- and each group folds
+//   in as part + z * sum_g(x).  It costs a bf16x2 FMA per A register more.
 //
 // qgemm (K2) replaces pallas_qmm.py::qgemm (_run_qmm / _qmm_kernel): the
 //   W4A16 GEMM for more rows (prefill, PPL windows, the training forward),
@@ -132,6 +139,7 @@ constexpr int kD_STEP_UNITS = 4;
 constexpr int kD_MAX_SPLITS = 8;     // the portable cluster size
 constexpr int kD_BLOCKS_PER_SM = 2;
 constexpr uint32_t kBF16_128 = 0x43004300u;  // the bf16 pair (128, 128)
+constexpr uint32_t kBF16_M128 = 0xC300C300u;  // the bf16 pair (-128, -128)
 
 // the low and high bf16 halves of a 32-bit word, as floats
 __device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
@@ -172,6 +180,21 @@ __device__ __forceinline__ uint32_t code_pair(uint32_t w, int q) {
   return ((w >> (4 * q)) & 0x000F000Fu) | kBF16_128;
 }
 
+// the bf16w variant's A register: the pair (nibble q * s, nibble q + 4 * s),
+// each product rounded once to bf16; s2 = (s, s), n2 = (-128 s, -128 s)
+__device__ __forceinline__ uint32_t scaled_pair(uint32_t w, int q, uint32_t s2, uint32_t n2) {
+  const uint32_t c = code_pair(w, q);
+  const bf162 r = __hfma2(*reinterpret_cast<const bf162*>(&c),
+                          *reinterpret_cast<const bf162*>(&s2),
+                          *reinterpret_cast<const bf162*>(&n2));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// the bf16 pair (v, v) of the low (hi = false) or high half of a word
+__device__ __forceinline__ uint32_t splat(uint32_t v, bool hi) {
+  return __byte_perm(v, 0u, hi ? 0x3232 : 0x1010);
+}
+
 // the low (hi = false) or high bf16 halves of a and b as one pair (a's first)
 __device__ __forceinline__ uint32_t halves(uint32_t a, uint32_t b, bool hi) {
   return __byte_perm(a, b, hi ? 0x7632 : 0x5410);
@@ -190,10 +213,12 @@ struct GemvArgs {
   int M, K, N, R;
   float eps;
   int one_offset;      // gemma's norm: scale by 1 + lnw
+  int bf16w;           // the bf16w variant
 };
 
-// NORM: K1 with its norm prologue (p.lnw given); K6 and K5 compile without it
-template <int UPG, bool NORM>
+// NORM: K1 with its norm prologue (p.lnw given); K6 and K5 compile without it.
+// BF16W: the bf16w variant (weights code * scale rounded to bf16)
+template <int UPG, bool NORM, bool BF16W>
 __global__ void __launch_bounds__(kD_THREADS, kD_BLOCKS_PER_SM)
 qgemv_mma_kernel(const GemvArgs p) {
   constexpr int HH = UPG * 4, GROUP = HH * 8, GPB = kD_STEP_UNITS / UPG;
@@ -391,6 +416,21 @@ qgemv_mma_kernel(const GemvArgs p) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
         float sx0 = 0.f, sx1 = 0.f;  // the group's sums of tokens 2t, 2t + 1
+        const uint2 sv = s[b], zv = z[b];
+        const uint32_t sp[2] = {sv.x, sv.y}, zp[2] = {zv.x, zv.y};
+        uint32_t s2[2][2], n2[2][2];  // bf16w: [column pair j][column 2j, 2j + 1] (s, s), -128 s
+        if constexpr (BF16W) {
+          const uint32_t m128 = kBF16_M128;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              s2[j][c] = splat(sp[j], c != 0);
+              const bf162 n = __hmul2(*reinterpret_cast<const bf162*>(&s2[j][c]),
+                                      *reinterpret_cast<const bf162*>(&m128));
+              n2[j][c] = *reinterpret_cast<const uint32_t*>(&n);
+            }
+        }
 #pragma unroll
         for (int u = 0; u < UPG; ++u) {
           const int cu = gl * UPG + u;
@@ -403,19 +443,27 @@ qgemv_mma_kernel(const GemvArgs p) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const uint32_t e = cw[2 * j], o = cw[2 * j + 1];  // columns 2j, 2j + 1
-            mma_bf16(part[j], code_pair(e, 0), code_pair(o, 0), code_pair(e, 1), code_pair(o, 1),
-                     xb.x, xb.y);
-            mma_bf16(part[j], code_pair(e, 2), code_pair(o, 2), code_pair(e, 3), code_pair(o, 3),
-                     xb.z, xb.w);
+            if constexpr (BF16W) {
+              const uint32_t se = s2[j][0], so = s2[j][1], ne = n2[j][0], no = n2[j][1];
+              mma_bf16(part[j], scaled_pair(e, 0, se, ne), scaled_pair(o, 0, so, no),
+                       scaled_pair(e, 1, se, ne), scaled_pair(o, 1, so, no), xb.x, xb.y);
+              mma_bf16(part[j], scaled_pair(e, 2, se, ne), scaled_pair(o, 2, so, no),
+                       scaled_pair(e, 3, se, ne), scaled_pair(o, 3, so, no), xb.z, xb.w);
+            } else {
+              mma_bf16(part[j], code_pair(e, 0), code_pair(o, 0), code_pair(e, 1),
+                       code_pair(o, 1), xb.x, xb.y);
+              mma_bf16(part[j], code_pair(e, 2), code_pair(o, 2), code_pair(e, 3),
+                       code_pair(o, 3), xb.z, xb.w);
+            }
           }
         }
         // acc += s * part + (z - 128 s) * sum(x): the codes above carry +128
-        const uint2 sv = s[b], zv = z[b];
-        const uint32_t sp[2] = {sv.x, sv.y}, zp[2] = {zv.x, zv.y};
+        // (bf16w: part carries the scale and no +128, so acc += part + z * sum(x))
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const float s0 = lo_bf16(sp[j]), s1 = hi_bf16(sp[j]);
-          const float z0 = lo_bf16(zp[j]) - 128.f * s0, z1 = hi_bf16(zp[j]) - 128.f * s1;
+          const float s0 = BF16W ? 1.f : lo_bf16(sp[j]), s1 = BF16W ? 1.f : hi_bf16(sp[j]);
+          const float z0 = lo_bf16(zp[j]) - (BF16W ? 0.f : 128.f * s0);
+          const float z1 = hi_bf16(zp[j]) - (BF16W ? 0.f : 128.f * s1);
           acc[j][0] += s0 * part[j][0] + z0 * sx0;
           acc[j][1] += s0 * part[j][1] + z0 * sx1;
           acc[j][2] += s1 * part[j][2] + z1 * sx0;
@@ -461,8 +509,13 @@ cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
   const int splits = k_splits(tiles, a.K / (UPG * 32), kD_MAX_SPLITS, kD_BLOCKS_PER_SM);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = split_cluster_config(tiles, splits, kD_THREADS, stream, &attr);
-  cudaError_t e = a.lnw != nullptr ? cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, true>, a)
-                                    : cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, false>, a);
+  cudaError_t e;
+  if (a.bf16w)
+    e = a.lnw != nullptr ? cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, true, true>, a)
+                         : cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, false, true>, a);
+  else
+    e = a.lnw != nullptr ? cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, true, false>, a)
+                         : cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, false, false>, a);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -971,7 +1024,7 @@ namespace {
 int run_gemv(const void* x, const void* lnw, const void* qweight, const void* scales,
              const void* szeros, const void* ow, const void* bias, const void* res, void* out,
              int layer, int M, int K, int N, int g, int R, float eps, int one_offset,
-             void* stream) {
+             int bf16w, void* stream) {
   if (M < 1 || M > 8 || K <= 0 || N <= 0 || N % 4 || (g != 64 && g != 128) || K % g || R < 0 ||
       R > K || layer < 0)
     return (int)cudaErrorInvalidValue;
@@ -985,7 +1038,7 @@ int run_gemv(const void* x, const void* lnw, const void* qweight, const void* sc
                    static_cast<const bf16*>(bias),
                    static_cast<const bf16*>(res),
                    static_cast<bf16*>(out),
-                   M, K, N, ow ? R : 0, eps, one_offset};
+                   M, K, N, ow ? R : 0, eps, one_offset, bf16w};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(g == 128 ? launch_gemv<4>(a, st) : launch_gemv<2>(a, st));
 }
@@ -994,30 +1047,39 @@ int run_gemv(const void* x, const void* lnw, const void* qweight, const void* sc
 
 // K1: one decoder stage of layer `layer` on the tensor-core template, with
 // the RMS norm of x (lnw given) and the residual (res given)
-extern "C" int qgemv_stacked_fused(const void* x, const void* lnw, const void* qweight,
-                                   const void* scales, const void* szeros, const void* ow,
-                                   const void* res, void* out, int layer, int M, int K, int N,
-                                   int g, int R, float eps, int one_offset, void* stream) {
-  return run_gemv(x, lnw, qweight, scales, szeros, ow, nullptr, res, out, layer, M, K, N, g, R,
-                  eps, one_offset, stream);
-}
+#define QGEMV_STACKED_FUSED(NAME, BF16W)                                                        \
+  extern "C" int NAME(const void* x, const void* lnw, const void* qweight, const void* scales,  \
+                      const void* szeros, const void* ow, const void* res, void* out, int layer, \
+                      int M, int K, int N, int g, int R, float eps, int one_offset,              \
+                      void* stream) {                                                            \
+    return run_gemv(x, lnw, qweight, scales, szeros, ow, nullptr, res, out, layer, M, K, N, g,  \
+                    R, eps, one_offset, BF16W, stream);                                          \
+  }
+QGEMV_STACKED_FUSED(qgemv_stacked_fused, 0)
+QGEMV_STACKED_FUSED(qgemv_stacked_fused_bf16w, 1)
 
 // K6: the tensor-core decode matvec of layer `layer`, weak columns inside
-extern "C" int qgemv_stacked(const void* x, const void* qweight, const void* scales,
-                             const void* szeros, const void* ow, void* out, int layer, int M,
-                             int K, int N, int g, int R, void* stream) {
-  return run_gemv(x, nullptr, qweight, scales, szeros, ow, nullptr, nullptr, out, layer, M, K, N,
-                  g, R, 0.f, 0, stream);
-}
+#define QGEMV_STACKED(NAME, BF16W)                                                               \
+  extern "C" int NAME(const void* x, const void* qweight, const void* scales, const void* szeros, \
+                      const void* ow, void* out, int layer, int M, int K, int N, int g, int R,    \
+                      void* stream) {                                                             \
+    return run_gemv(x, nullptr, qweight, scales, szeros, ow, nullptr, nullptr, out, layer, M, K, \
+                    N, g, R, 0.f, 0, BF16W, stream);                                              \
+  }
+QGEMV_STACKED(qgemv_stacked, 0)
+QGEMV_STACKED(qgemv_stacked_bf16w, 1)
 
 // K5: K6's kernel on one unstacked linear, with an optional bias [N] added
 // before the one rounding
-extern "C" int qgemv(const void* x, const void* qweight, const void* scales, const void* szeros,
-                     const void* ow, const void* bias, void* out, int M, int K, int N, int g,
-                     int R, void* stream) {
-  return run_gemv(x, nullptr, qweight, scales, szeros, ow, bias, nullptr, out, 0, M, K, N, g, R,
-                  0.f, 0, stream);
-}
+#define QGEMV(NAME, BF16W)                                                                       \
+  extern "C" int NAME(const void* x, const void* qweight, const void* scales, const void* szeros, \
+                      const void* ow, const void* bias, void* out, int M, int K, int N, int g,    \
+                      int R, void* stream) {                                                      \
+    return run_gemv(x, nullptr, qweight, scales, szeros, ow, bias, nullptr, out, 0, M, K, N, g,  \
+                    R, 0.f, 0, BF16W, stream);                                                    \
+  }
+QGEMV(qgemv, 0)
+QGEMV(qgemv_bf16w, 1)
 
 // bm: rows of a block (64 or 128); ws: f32 [splits, M, N] scratch when
 // splits > 1 (else unused)

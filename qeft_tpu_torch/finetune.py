@@ -174,17 +174,26 @@ def lr_factor(tc: TrainConfig) -> Callable[[int], float]:
     return factor
 
 
+def local_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all of ``grads`` together, summed in f32."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+
+
 class WCTOptimizer:
     """A ``torch.optim`` optimizer over the trainable leaves, with optional
     gradient accumulation (``optax.MultiSteps``: every ``grad_accum``-th call
     of `step` applies the running mean of the accumulated gradients, the
     others apply nothing), optional global-norm clipping of the applied
     gradient (``optax.clip_by_global_norm``) and an optional ``LambdaLR``
-    stepped once per applied update."""
+    stepped once per applied update.  ``grad_norm`` is the norm clipping
+    divides by: of these leaves' gradients alone by default; tensor-parallel
+    training passes the global one (``parallel.tp_train.tp_grad_norm``)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  lr_lambda: Optional[Callable[[int], float]] = None,
-                 max_grad_norm: Optional[float] = None, grad_accum: int = 1):
+                 max_grad_norm: Optional[float] = None, grad_accum: int = 1,
+                 grad_norm: Callable[[List[torch.Tensor]], torch.Tensor] = local_grad_norm):
         self.optimizer = optimizer
         self.params = [p for group in optimizer.param_groups for p in group["params"]]
         self.scheduler = (torch.optim.lr_scheduler.LambdaLR(optimizer, lr_lambda)
@@ -193,6 +202,7 @@ class WCTOptimizer:
         self.grad_accum = grad_accum
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
+        self.grad_norm = grad_norm
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -214,8 +224,7 @@ class WCTOptimizer:
             for a in self.acc:
                 a.zero_()
         if self.max_grad_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+            norm = self.grad_norm(grads)
             scale = self.max_grad_norm / torch.clamp(norm, min=self.max_grad_norm)
             for g in grads:  # in place: these gradients belong to this step
                 g.mul_(scale)
@@ -244,12 +253,15 @@ def leaves(oweights: Oweights) -> List[torch.Tensor]:
     return [t for name in sorted(oweights) for t in oweights[name]]
 
 
-def make_optimizer(tc: TrainConfig, oweights: Oweights) -> WCTOptimizer:
+def make_optimizer(tc: TrainConfig, oweights: Oweights,
+                   grad_norm: Callable[[List[torch.Tensor]], torch.Tensor] = local_grad_norm
+                   ) -> WCTOptimizer:
     """AdamW (optax's defaults: betas 0.9/0.999, eps 1e-8) under global-norm
-    clipping, the lr schedule and ``tc.grad_accum``-step accumulation."""
+    clipping (by ``grad_norm``), the lr schedule and ``tc.grad_accum``-step
+    accumulation."""
     adamw = torch.optim.AdamW(leaves(oweights), lr=tc.learning_rate, betas=(0.9, 0.999),
                               eps=1e-8, weight_decay=tc.weight_decay)
-    return WCTOptimizer(adamw, lr_factor(tc), tc.max_grad_norm, tc.grad_accum)
+    return WCTOptimizer(adamw, lr_factor(tc), tc.max_grad_norm, tc.grad_accum, grad_norm)
 
 
 def make_train_step(cfg, opt: WCTOptimizer, remat: bool = True,

@@ -11,7 +11,13 @@ Two kinds of parameter tree run through the same functions:
 
 - packed trees (``QLinearParams`` stages ``qkv``/``o``/``upgate``/``down``,
   see ``pipeline.fuse_packed_stages``) run the kernel wrappers, which launch
-  the CUDA kernels on the GPU and their plain versions on the CPU;
+  the CUDA kernels on the GPU and their plain versions on the CPU.  An
+  unfused tree (``q``/``k``/``v``/``o``/``up``/``gate``/``down``: the JAX
+  package's default packed tree, and every tree packed without the global
+  reorder, whose linears carry their own ``reorder_ids``) runs each linear
+  through the per-layer ``qlinear_apply`` -- the input gathered by its
+  ``reorder_ids``, then K5 for at most 8 rows, K2 above -- with the norms
+  and residual adds outside, as JAX's layer scan runs it;
 - dense trees (stacked ``[L, K, N]`` tensors: ``testing.dense_model``, the
   reference model of the serving oracle, and the fake-quantized trees of
   the quantization pipeline) run plain PyTorch, attention included unless
@@ -46,6 +52,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from qeft_tpu_torch import env
 from qeft_tpu_torch.device import resolve_device
 from qeft_tpu_torch.models.common import init_generator, write_window
 from qeft_tpu_torch.ops.attention import (
@@ -231,8 +238,18 @@ def _lm_head(params: Dict, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return torch.matmul(x, head.to(x.dtype))
 
 
+# the members of each fused stage, in concatenation order
+_MEMBERS = {"qkv": ("q", "k", "v"), "upgate": ("up", "gate")}
+
+
 def is_packed(params: Dict) -> bool:
-    return isinstance(params["layers"]["qkv"], QLinearParams)
+    layers = params["layers"]
+    return isinstance(layers.get("qkv", layers.get("q")), QLinearParams)
+
+
+def _unfused(layers: Dict) -> bool:
+    """An unfused tree: q/k/v and up/gate by their own names."""
+    return "qkv" not in layers
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +259,14 @@ def is_packed(params: Dict) -> bool:
 def _stage(layers: Dict, name: str, l: int, x: torch.Tensor, cfg: LlamaConfig,
            lnw: Optional[torch.Tensor] = None,
            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``[residual +] (rms_norm(x) if lnw else x) @ W`` of one stage."""
+    """``[residual +] (rms_norm(x) if lnw else x) @ W`` of one stage; in an
+    unfused tree the norm, the stage's linears one by one through the
+    per-layer linear (`_train_linear`) and the residual add."""
+    if _unfused(layers):
+        if lnw is not None:
+            x = rms_norm(x, lnw, cfg.rms_norm_eps, cfg.rms_one_offset)
+        y = _train_linear(layers, name, l, x)
+        return y if residual is None else residual + y
     lin = layers[name]
     if isinstance(lin, QLinearParams):
         return qlinear_fused_stage(x, lin, l, lnw=lnw, residual=residual,
@@ -285,6 +309,27 @@ def _block_out(layers: Dict, l: int, x: torch.Tensor, ctx: torch.Tensor,
     return _stage(layers, "down", l, act, cfg, residual=x)
 
 
+def _window_attention(packed: bool):
+    """Causal window attention of a packed tree: K3, or under
+    ``QEFT_FLASH_ATTN=0`` the plain masked softmax, as JAX's XLA attention
+    (q.k rounded to the activation dtype); a dense tree's is plain."""
+    if packed and env.FLASH_ATTN:
+        return flash_window_attention
+    if packed:
+        env.announce("QEFT_FLASH_ATTN")
+    return flash_window_attention_plain
+
+
+def _decode_attention(packed: bool):
+    """Single-query attention of a packed tree: K4 / K4q, or under
+    ``QEFT_PALLAS_ATTN=0`` the plain path over the whole cache."""
+    if packed and env.PALLAS_ATTN:
+        return decode_attention
+    if packed:
+        env.announce("QEFT_PALLAS_ATTN")
+    return decode_attention_plain
+
+
 def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
                       vh: torch.Tensor, pos, packed: bool) -> torch.Tensor:
     """Writes this window's K/V (head-major [B, Hkv, S, Dh]) into layer
@@ -293,7 +338,8 @@ def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
     ``dynamic_update_slice`` clamps -- then attends slots ``<= pos + i``.
 
     One token runs the decode kernel (K4, or K4q on int8 codes); a window
-    runs K3, over the dequantized valid prefix for an int8 cache."""
+    runs K3, over the dequantized valid prefix for an int8 cache (the
+    ablations of `_decode_attention` and `_window_attention` aside)."""
     b, s = q.shape[:2]
     s_max = cache["k"].shape[3]
     quantized = cache_quantized(cache)
@@ -301,7 +347,7 @@ def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
         write_window(cache[name][l], t, pos, 2)
     k_all, v_all = cache["k"][l], cache["v"][l]
     if s == 1:
-        attend = decode_attention if packed else decode_attention_plain
+        attend = _decode_attention(packed)
         scales = ({"k_scale": cache["k_scale"][l], "v_scale": cache["v_scale"][l]}
                   if quantized else {})
         return attend(q[:, 0], k_all, v_all, pos, **scales).reshape(b, 1, -1)
@@ -309,8 +355,7 @@ def _cached_attention(cache: Dict, l: int, q: torch.Tensor, kh: torch.Tensor,
         n = min(pos + s, s_max)  # keys past the window's last position are never read
         k_all = _kv_dequantize(k_all[:, :, :n], cache["k_scale"][l][:, :, :n], q.dtype)
         v_all = _kv_dequantize(v_all[:, :, :n], cache["v_scale"][l][:, :, :n], q.dtype)
-    attend = flash_window_attention if packed else flash_window_attention_plain
-    return attend(q.contiguous(), k_all, v_all, pos)
+    return _window_attention(packed)(q.contiguous(), k_all, v_all, pos)
 
 
 def llama_block(layers: Dict, l: int, x: torch.Tensor, cfg: LlamaConfig,
@@ -328,7 +373,7 @@ def llama_block(layers: Dict, l: int, x: torch.Tensor, cfg: LlamaConfig,
     quantization stages, as JAX's ``llama_block(capture=True)`` returns
     them: ``qkv_in`` (the normed residual), ``o_in`` (the attention context
     before the o-gather), ``ffn1_in`` and ``ffn2_in``."""
-    packed = isinstance(layers["qkv"], QLinearParams)
+    packed = is_packed({"layers": layers})
     lnw = layers["input_ln"][l]
     if capture is not None:
         if packed or cache is not None:
@@ -344,7 +389,7 @@ def llama_block(layers: Dict, l: int, x: torch.Tensor, cfg: LlamaConfig,
         ctx = _cached_attention(cache, l, q, kh, vh, pos, packed)
     else:
         if attend is None:
-            attend = flash_window_attention if packed else flash_window_attention_plain
+            attend = _window_attention(packed)
         ctx = attend(q.contiguous(), kh.contiguous(), vh.contiguous(), 0)
     return _block_out(layers, l, x, ctx, cfg, capture)
 
@@ -355,6 +400,12 @@ def causal_mask(s: int, device=None) -> torch.Tensor:
 
 
 def _train_linear(layers: Dict, name: str, l: int, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W`` of stage ``name`` of layer ``l`` through the per-layer
+    linear: a packed one by `qlinear_apply` (its ``reorder_ids`` gather, K5
+    or K2, differentiable), a dense one by ``torch.matmul``; a fused stage
+    absent from an unfused tree is its members' outputs side by side."""
+    if name not in layers and name in _MEMBERS:
+        return torch.cat([_train_linear(layers, m, l, x) for m in _MEMBERS[name]], dim=-1)
     lin = layers[name]
     if isinstance(lin, QLinearParams):
         return qlinear_apply(x, lin.layer(l))
@@ -368,7 +419,8 @@ def llama_block_train(layers: Dict, l: int, x: torch.Tensor, cfg: LlamaConfig,
     the unfused branch of ``qeft_tpu/models/llama.py::llama_block``.
 
     The norms and residual adds run outside the linears, every packed stage
-    goes through the autograd linear (`ops.qlinear.qlinear_apply`, K2 forward
+    (or, in an unfused tree, each of its linears) goes through the autograd
+    linear (`ops.qlinear.qlinear_apply`, K2 forward
     and K7 backward on the GPU), and attention is the plain masked softmax
     with f32 scores (`masked_attention`): the training forward takes no
     attention kernel, as in the JAX package.  A packed stage's ``oweight``
@@ -516,8 +568,10 @@ def llama_decode_step(params: Dict, token: torch.Tensor, cache: Dict, pos,
     """One token [B, 1] at position ``pos`` (a Python int or an int64 scalar
     tensor on the token's device: bit-identical logits); writes its K/V
     into the cache in place and returns (logits [B, V], cache).  A packed
-    model takes the stacked-cache step when ``QEFT_ATTN_STACKED`` is on."""
-    if _stacked_attn_enabled() and is_packed(params):
+    model takes the stacked-cache step when ``QEFT_ATTN_STACKED`` is on
+    (its stages fused; an unfused tree takes the per-layer path, as JAX's
+    layer scan does)."""
+    if _stacked_attn_enabled() and is_packed(params) and not _unfused(params["layers"]):
         return _decode_step_stacked_attn(params, token, cache, pos, cfg)
     logits, cache = llama_forward_window(params, token, cache, pos, cfg)
     return logits[:, 0, :], cache
@@ -525,7 +579,10 @@ def llama_decode_step(params: Dict, token: torch.Tensor, cache: Dict, pos,
 
 def _ragged_linear(layers: Dict, name: str, l: int, x: torch.Tensor) -> torch.Tensor:
     """``x @ W`` of stage ``name`` of layer ``l``: no norm, no residual (the
-    composed stages of the JAX ragged block)."""
+    composed stages of the JAX ragged block); an unfused tree's linears
+    per layer (`_train_linear`)."""
+    if _unfused(layers):
+        return _train_linear(layers, name, l, x)
     lin = layers[name]
     if isinstance(lin, QLinearParams):
         return qlinear_apply_stacked(x, lin, l)
@@ -557,7 +614,7 @@ def llama_forward_window_ragged(params: Dict, tokens: torch.Tensor, cache: Dict,
     layers = params["layers"]
     eps, one = cfg.rms_norm_eps, cfg.rms_one_offset
     packed = is_packed(params)
-    attend = flash_window_attention if packed else flash_window_attention_plain
+    attend = _window_attention(packed)
     pos = pos.to(device=tokens.device, dtype=torch.int64)
     start = pos.clamp(0, cache["k"].shape[3] - w)
     quantized = cache_quantized(cache)

@@ -111,6 +111,10 @@ _ENTRY_POINTS = {
     ]),
 }
 
+# the bf16w variants of K1, K6 and K5 (QEFT_GEMV_F32W=0) take the same arguments
+for _name in ("qgemv_stacked_fused", "qgemv_stacked", "qgemv"):
+    _ENTRY_POINTS[f"{_name}_bf16w"] = _ENTRY_POINTS[_name]
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds = 0.0

@@ -94,7 +94,13 @@ def flash_window_attention_any(q: torch.Tensor, k_all: torch.Tensor, v_all: torc
     output is cast back to q's dtype; on the CPU the plain version runs in
     q's dtype.  The attention of the quantization pipeline's calibration
     forwards and of a fake-quantized model's eval, as the JAX package runs
-    its flash kernel there on the TPU."""
+    its flash kernel there on the TPU.  Under ``QEFT_FLASH_ATTN=0`` the
+    plain version, in q's dtype."""
+    from qeft_tpu_torch import env
+
+    if not env.FLASH_ATTN:
+        env.announce("QEFT_FLASH_ATTN")
+        return flash_window_attention_plain(q, k_all, v_all, pos)
     if not q.is_cuda or q.dtype == torch.bfloat16:
         return flash_window_attention(q, k_all, v_all, pos)
     bf = torch.bfloat16

@@ -27,6 +27,12 @@ the true transpose)::
 
 The two weak-column products are `matmul_f32`: bf16 operands, f32 sums and an
 f32 result, as JAX's ``preferred_element_type=f32``.
+
+Under ``QEFT_PALLAS=0`` (`env.PALLAS` off: JAX's ``qlinear_xla``, its
+ablation without the kernels) every entry here dequantizes the weight and
+multiplies with ``torch.matmul`` (`qmm.qgemm_plain`, the norm and the
+residual around it), on the card too, and training differentiates through
+that path by autograd.
 """
 
 from __future__ import annotations
@@ -40,12 +46,21 @@ from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.qmm import (
     DECODE_MAX_TOKENS,
     qgemm,
+    qgemm_plain,
     qgemm_t,
     qgemv,
     qgemv_stacked,
     qgemv_stacked_fused,
     rms_norm,
 )
+
+
+def _without_kernels() -> bool:
+    """``QEFT_PALLAS=0``: the dequantize-then-matmul path (announced once)."""
+    if env.PALLAS:
+        return False
+    env.announce("QEFT_PALLAS")
+    return True
 
 
 def qlinear_fused_stage(x: torch.Tensor, p: QLinearParams, layer: int,
@@ -61,6 +76,10 @@ def qlinear_fused_stage(x: torch.Tensor, p: QLinearParams, layer: int,
     rows run the norm in PyTorch and the GEMM with the residual in its
     epilogue."""
     tokens = x.numel() // x.shape[-1]
+    if _without_kernels():
+        if lnw is not None:
+            x = rms_norm(x, lnw, eps, one_offset)
+        return qgemm_plain(x, p.layer(layer), residual)
     if tokens <= DECODE_MAX_TOKENS and env.FUSED_DECODE:
         return qgemv_stacked_fused(x, p, layer, lnw=lnw, residual=residual,
                                    eps=eps, one_offset=one_offset)
@@ -77,6 +96,8 @@ def qlinear_apply_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torc
     no residual: the plain decode matvec (K6; K5 on the layer's view under
     ``QEFT_STACKED_GEMV=0``) for few rows, the GEMM (K2) on the layer's view
     for more."""
+    if _without_kernels():
+        return qgemm_plain(x, p.layer(layer))
     if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
         if env.STACKED_GEMV:
             return qgemv_stacked(x, p, layer)
@@ -147,6 +168,8 @@ def qlinear_apply(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
     bookkeeping on the host.  ``x`` [..., K] -> [..., N]."""
     if p.reorder_ids is not None:
         x = x.index_select(-1, p.reorder_ids)
+    if _without_kernels():  # differentiable as it stands; the gather is done
+        return qgemm_plain(x, p)
     args = (x, p.qweight, p.scales, p.scaled_zeros, p.oweight, p.bias, p.group_size)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, p.oweight, p.bias)):

@@ -26,6 +26,14 @@ Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
   optional f32 addend on the last r columns (the weak-column product) summed
   before the one rounding.
 
+K1, K5 and K6 keep the codes exact and apply the scale in f32 after the
+product, which is the JAX kernels' default (``QEFT_GEMV_F32W=1``).  Under
+``QEFT_GEMV_F32W=0`` (`env.GEMV_F32W` off) they run their ``bf16w``
+variant, the kernel's template flag that rounds each dequantized weight,
+code x scale, to bf16 before the product as ``pallas_qmm._plane_dot``
+does, the zero points folded in f32 as ever; its plain version,
+`qgemm_bf16w_plain`, rounds the same products to the activation dtype.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
 """
@@ -36,8 +44,9 @@ from typing import Optional
 
 import torch
 
+from qeft_tpu_torch import env
 from qeft_tpu_torch.ops import cuda_lib
-from qeft_tpu_torch.ops.packing import QLinearParams, dequantize_weight
+from qeft_tpu_torch.ops.packing import QLinearParams, dequantize_weight, unpack_codes
 
 # calls with at most this many token rows take a decode matvec (K1, K5, K6);
 # more rows take the GEMM (K2).  The choice changes which kernel runs, not the
@@ -74,24 +83,54 @@ def qgemm_plain(x: torch.Tensor, p: QLinearParams,
     return y if residual is None else residual + y
 
 
+def qgemm_bf16w_plain(x: torch.Tensor, p: QLinearParams,
+                      residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``bf16w`` decode matvec's arithmetic: each weight's code x scale
+    rounded to x's dtype, multiplied in f32, the zero points as
+    ``sum_group(x) * zero``, the weak-column slab, bias and residual added
+    in f32 and rounded once to x's dtype."""
+    k = p.in_features
+    g = k if p.group_size <= 0 else p.group_size
+    xf = x.to(torch.float32)
+    codes = unpack_codes(p.qweight, p.group_size).to(torch.float32)
+    w = (codes * p.scales.to(torch.float32).repeat_interleave(g, dim=0)).to(x.dtype)
+    y = xf @ w.to(torch.float32)
+    y = y + xf.reshape(*x.shape[:-1], k // g, g).sum(-1) @ p.scaled_zeros.to(torch.float32)
+    if p.oweight is not None:
+        r = p.oweight.shape[-2]
+        y = y + xf[..., k - r:] @ p.oweight.to(torch.float32)
+    if p.bias is not None:
+        y = y + p.bias.to(torch.float32)
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def _matvec_plain(x, p: QLinearParams, residual=None) -> torch.Tensor:
+    """The decode matvecs' plain arithmetic under the current `env.GEMV_F32W`."""
+    if env.GEMV_F32W:
+        return qgemm_plain(x, p, residual)
+    return qgemm_bf16w_plain(x, p, residual)
+
+
 def qgemv_stacked_fused_plain(x, p: QLinearParams, layer: int, lnw=None,
                               residual=None, eps: float = 1e-5,
                               one_offset: bool = False) -> torch.Tensor:
     if lnw is not None:
         x = rms_norm(x, lnw, eps, one_offset)
-    return qgemm_plain(x, p.layer(layer), residual)
+    return _matvec_plain(x, p.layer(layer), residual)
 
 
 def qgemv_plain(x, p: QLinearParams) -> torch.Tensor:
     """``x @ W_deq + x[..., -r:] @ oweight + bias`` of one unstacked linear
     (twin of ``qgemv`` with its outside slab product and bias)."""
-    return qgemm_plain(x, p)
+    return _matvec_plain(x, p)
 
 
 def qgemv_stacked_plain(x, p: QLinearParams, layer: int) -> torch.Tensor:
     """``x @ W_deq[l] + x[..., -r:] @ oweight[l]`` (twin of ``qgemv_stacked``
     with its outside weak-column product)."""
-    return qgemm_plain(x, p.layer(layer))
+    return _matvec_plain(x, p.layer(layer))
 
 
 def qgemm_t_plain(g: torch.Tensor, p: QLinearParams,
@@ -190,6 +229,14 @@ def _decode_rows(x: torch.Tensor, p: QLinearParams, layer: Optional[int]):
     return _check_act(x.reshape(m, k), "x", (m, k)), m, k, n
 
 
+def _variant(name: str) -> str:
+    """The entry point of decode matvec ``name`` under `env.GEMV_F32W`."""
+    if env.GEMV_F32W:
+        return name
+    env.announce("QEFT_GEMV_F32W")
+    return name + "_bf16w"
+
+
 def qgemv_stacked_fused(x: torch.Tensor, p: QLinearParams, layer: int,
                         lnw: Optional[torch.Tensor] = None,
                         residual: Optional[torch.Tensor] = None,
@@ -205,7 +252,7 @@ def qgemv_stacked_fused(x: torch.Tensor, p: QLinearParams, layer: int,
     res = None if residual is None else _check_act(residual.reshape(m, n), "residual", (m, n))
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
     cuda_lib.launch(
-        "qgemv_stacked_fused",
+        _variant("qgemv_stacked_fused"),
         cuda_lib.ptr(x2), cuda_lib.ptr(lnw_c), cuda_lib.ptr(p.qweight),
         cuda_lib.ptr(p.scales), cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight),
         cuda_lib.ptr(res), cuda_lib.ptr(out),
@@ -223,7 +270,7 @@ def qgemv_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torch.Tensor
     x2, m, k, n = _decode_rows(x, p, layer)
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
     cuda_lib.launch(
-        "qgemv_stacked",
+        _variant("qgemv_stacked"),
         cuda_lib.ptr(x2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
         cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight), cuda_lib.ptr(out),
         int(layer), m, k, n, p.group_size, p.n_outlier,
@@ -240,7 +287,7 @@ def qgemv(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
     x2, m, k, n = _decode_rows(x, p, None)
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
     cuda_lib.launch(
-        "qgemv",
+        _variant("qgemv"),
         cuda_lib.ptr(x2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
         cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight), cuda_lib.ptr(p.bias),
         cuda_lib.ptr(out), m, k, n, p.group_size, p.n_outlier,

@@ -1,8 +1,8 @@
 """Parallel layouts over ``torch.distributed``: the mesh and its tables
 (`mesh`), joining and launching ranks (`multihost`), tensor parallelism
-(`tp_forward`), the GPipe pipeline (`pp`), their 2-D composition (`tp_pp`)
-and sequence parallelism (`sp`).  Counterpart of ``qeft_tpu/parallel``;
-tensor-parallel training (``tp_train``) is not ported (ROADMAP A10b)."""
+(`tp_forward`), the GPipe pipeline (`pp`), their 2-D composition (`tp_pp`),
+sequence parallelism (`sp`) and tensor-parallel weak-column tuning
+(`tp_train`).  Counterpart of ``qeft_tpu/parallel``."""
 
 from qeft_tpu_torch.parallel.mesh import (
     Mesh,

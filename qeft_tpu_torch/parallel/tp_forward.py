@@ -48,12 +48,12 @@ from qeft_tpu_torch.models.llama import (
     _num_layers,
     _split_qkv,
     _stage,
+    _window_attention,
     _write_ragged,
     cache_quantized,
     is_packed,
     rope_tables,
 )
-from qeft_tpu_torch.ops.flash import flash_window_attention, flash_window_attention_plain
 from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.permute import apply_o_reorder
 from qeft_tpu_torch.ops.qlinear import qlinear_apply_stacked
@@ -149,7 +149,10 @@ def tp_shard_packed_params(params: Dict, mesh: Mesh, cfg: LlamaConfig,
         if isinstance(leaf, torch.Tensor):
             return rows(leaf, 1)
         if leaf.reorder_ids is not None:
-            raise NotImplementedError(f"{name}: per-linear reorder_ids (ROADMAP A6b)")
+            # as qeft_tpu's layout: a per-linear gather of the whole K axis
+            # would need every rank's K rows before its own shard's
+            raise ValueError(f"{name}: a row-parallel linear cannot carry its own reorder_ids "
+                             "(the tp layout takes a stage-fused, statically reordered model)")
         g = leaf.group_size if leaf.group_size > 0 else leaf.in_features
         n_groups = leaf.in_features // g
         if n_groups % tp:
@@ -298,7 +301,7 @@ def _tp_window_body_ragged(params: Dict, tokens: torch.Tensor, cache: Dict, pos:
     logits [B, W, V/tp]."""
     mesh.check(params["embed"])
     lcfg = _local_cfg(cfg, mesh.shape["tp"])
-    attn = flash_window_attention if is_packed(params) else flash_window_attention_plain
+    attn = _window_attention(is_packed(params))
     w = tokens.shape[1]
     pos = pos.to(device=tokens.device, dtype=torch.int64)
     start = pos.clamp(0, cache["k"].shape[3] - w)

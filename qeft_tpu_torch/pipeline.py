@@ -62,10 +62,11 @@ def _fuse_stage(layers: Dict, names: Sequence[str], fused_name: str) -> None:
     on its last axis); valid because they share one input permutation."""
     lins = [layers.pop(n) for n in names]
     if any(l.reorder_ids is not None for l in lins):
-        raise NotImplementedError(
-            f"fusing {names} of a tree packed without the global reorder (per-linear "
-            "reorder_ids) is not ported (ROADMAP A6b: serving a llama tree packed without "
-            "the reorder); pack it with --reorder")
+        # qeft_tpu/pipeline.py:861-864 asserts the same
+        raise ValueError(
+            f"stage fusion of {names} needs a statically reordered model (one shared input "
+            "permutation); these linears carry their own reorder_ids, which cannot be fused: "
+            "serve the tree unfused, or pack it with --reorder")
 
     def cat(field):
         parts = [getattr(l, field) for l in lins]
@@ -89,6 +90,13 @@ def fused_stages(meta: ModelMeta) -> Dict[str, Tuple[str, ...]]:
     if len(meta.ffn1) == 2:
         out["upgate"] = meta.ffn1
     return out
+
+
+def per_linear_reorder(params: Dict) -> bool:
+    """Whether a packed tree's linears carry their own ``reorder_ids`` (it
+    was packed without the global reorder, so its stages cannot fuse)."""
+    return any(isinstance(l, QLinearParams) and l.reorder_ids is not None
+               for l in params["layers"].values())
 
 
 def fuse_packed_stages(params: Dict, meta: ModelMeta) -> Dict:

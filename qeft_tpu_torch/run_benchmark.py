@@ -7,6 +7,9 @@ warm-up; one JSON line of results.  Methods:
 
   fp          dense bf16 weights (random, from ``--seed``), plain PyTorch
   qeft        packed INT4 + weak columns through the CUDA kernels
+  qeft-x      the same model with ``QEFT_PALLAS=0``: every packed linear
+              dequantized, then multiplied by ``torch.matmul`` (JAX's
+              XLA-dequant ablation, the path without the kernels)
   spec        qeft target, greedy (or ``--sample``) speculative decoding, B = 1
   spec-batch  batched speculative decoding over ``--batch`` sequences
   engine      continuous-batching serving: ``--requests`` prompts over
@@ -31,7 +34,7 @@ engine methods run the llama family's ragged forward and raise for the
 others, as in the JAX package.  The speculative methods
 need a draft with the target's vocabulary: ``--draft_layers N`` slices the
 target itself; the default ``--draft_model tiny-v2`` (512 tokens) fits only
-a 512-token target.  Not ported: ``qeft-x`` (ROADMAP A11).
+a 512-token target.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from qeft_tpu_torch import env
 from qeft_tpu_torch.device import resolve_device
 from qeft_tpu_torch.generate import SampleConfig, generate
 from qeft_tpu_torch.models.api import get_model_api
@@ -107,12 +111,15 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default=None, help="default: cuda (required)")
     parser.add_argument("--logfile", type=str, default="")
     args = parser.parse_args(argv)
-
-    if args.method == "qeft-x":
-        raise NotImplementedError("--method qeft-x (the XLA dequant ablation) is not ported: "
-                                  "ROADMAP A11")
     if args.tp > 1 and args.method not in ("qeft", "engine"):
         parser.error("--tp applies to --method qeft or engine")
+    if args.method == "qeft-x":  # the environment as it was afterwards
+        with env.setting(QEFT_PALLAS="0"):
+            return _run(args)
+    return _run(args)
+
+
+def _run(args) -> dict:
     device = resolve_device(args.device)
     if args.tp > 1:
         return _main_tp(args, device)

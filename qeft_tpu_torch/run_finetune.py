@@ -5,7 +5,9 @@
 
 Counterpart of ``qeft_tpu/run_finetune.py`` with the same flags, plus
 ``--device`` (default: the GPU, which must exist).  Loads a packed
-checkpoint, fuses its stages, trains only the weak-column slabs, and writes
+checkpoint, fuses its stages (unless its linears carry their own
+``reorder_ids``: such a tree trains unfused), trains only the weak-column
+slabs, and writes
 ``wct_step<N>`` every ``--save_steps``, ``wct_final``, ``metrics.json`` and
 the ``completed`` sentinel into ``--output_dir``; a rerun resumes from the
 newest ``wct_step<N>``.  The optimizer-state sidecar ``opt_step<N>.pt`` is
@@ -35,7 +37,7 @@ from qeft_tpu_torch.finetune import (
     wct_loss,
 )
 from qeft_tpu_torch.models.registry import get_model_meta
-from qeft_tpu_torch.pipeline import fuse_packed_stages, fuse_tensors
+from qeft_tpu_torch.pipeline import fuse_packed_stages, fuse_tensors, per_linear_reorder
 
 
 def get_last_checkpoint(output_dir: str):
@@ -103,11 +105,15 @@ def main(argv=None):
 
     params, cfg, family = load_packed(args.load, device=device)
     meta = get_model_meta(family)
-    oweights, frozen = split_wct(fuse_packed_stages(params, meta), meta)
+    # stages fuse where they share one input permutation; a tree packed
+    # without the global reorder trains unfused, as qeft_tpu trains every tree
+    fuse = not per_linear_reorder(params)
+    oweights, frozen = split_wct(fuse_packed_stages(params, meta) if fuse else params, meta)
     del params
     if resume_path:
         print(f"resuming from {resume_path} (step {start_step})")
-        slabs = fuse_tensors(read_wct(resume_path)[0], meta)
+        slabs = read_wct(resume_path)[0]
+        slabs = fuse_tensors(slabs, meta) if fuse else slabs
         with torch.no_grad():
             for name, leaves in oweights.items():
                 for leaf, w in zip(leaves, slabs[name].unbind(0)):

@@ -5,8 +5,10 @@ checkpoint.
 
 Counterpart of ``qeft_tpu/testing.py``.  A llama model has its value
 distributions (random full-range words, scales in [0.01, 0.03), zero points
-in (-0.16, 0], oweight ~ N(0, 0.02)) and is built directly in fused-stage
-form (``qkv``, ``upgate``) without the TPU-only padding or banded operands.
+in (-0.16, 0], oweight ~ N(0, 0.02)) and is built in fused-stage form
+(``qkv``, ``upgate``) without the TPU-only padding or banded operands, or
+with ``fuse_stages=False`` as the same linears under their own names
+(``q``/``k``/``v``, ``up``/``gate``), the JAX package's default tree.
 An OPT, Phi, Bloom or Falcon model keeps its family's linear names, with its
 norms, embeddings and heads shaped as the family's ``init_params`` makes
 them, every linear bias drawn ~ N(0, 0.02), and weights of the size
@@ -20,7 +22,8 @@ With ``reorder=True`` ``o_reorder`` is a random OGR-style compaction -- the
 non-outlier head channels in order, ``r`` outliers moved to the tail -- so
 the o-projection gather really runs; with ``reorder=False`` every linear
 carries such a compaction as its own ``reorder_ids``, as a model packed
-without the global reorder does.
+without the global reorder does (a llama tree then unfused: such linears
+cannot share a stage).
 """
 
 from __future__ import annotations
@@ -81,16 +84,19 @@ def random_compaction(gen: torch.Generator, n_layers: int, k: int, r: int) -> to
 
 def build_packed_model(cfg, seed: int = 0, g: int = 128, r: int = 128,
                        dtype=torch.bfloat16, device=None, family: str = "llama",
-                       reorder: bool = True) -> Dict:
+                       reorder: bool = True, fuse_stages: bool = True) -> Dict:
     """Random packed model of ``family`` on ``device`` (default: the GPU,
     which must exist).  ``dtype`` is the float dtype of every non-integer
-    leaf."""
+    leaf.  A llama tree is stage-fused unless ``fuse_stages`` is False (the
+    unfused tree holds the fused one's values, cut into its members);
+    ``reorder=False`` needs the unfused tree."""
     device = resolve_device(device)
     meta = get_model_meta(family)
     if meta.family not in ("llama", "gemma"):
         return _build_family(cfg, meta, seed, g, r, dtype, device, reorder)
-    if not reorder:
-        raise ValueError("the fused llama stages need the global reorder")
+    if not reorder and fuse_stages:
+        raise ValueError("the fused llama stages need the global reorder "
+                         "(pass fuse_stages=False)")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, f, n_layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -105,12 +111,38 @@ def build_packed_model(cfg, seed: int = 0, g: int = 128, r: int = 128,
         "down": random_packed_linear(gen, n_layers, f, d, g, r, dtype),
         "o_reorder": random_compaction(gen, n_layers, hd, r),
     }
+    if not fuse_stages:
+        layers = _unfuse(layers, cfg, meta)
+        if not reorder:
+            del layers["o_reorder"]
+            for name in meta.all_linears:
+                lin = layers[name]
+                lin.reorder_ids = random_compaction(gen, n_layers, lin.in_features, r)
     return {
         "embed": (torch.randn((cfg.vocab_size, d), generator=gen, device=device) * 0.02).to(dtype),
         "layers": layers,
         "final_ln": torch.ones(d, dtype=dtype, device=device),
         "lm_head": (torch.randn((d, cfg.vocab_size), generator=gen, device=device) * 0.02).to(dtype),
     }
+
+
+def _unfuse(layers: Dict, cfg, meta) -> Dict:
+    """The fused stages of a packed llama tree cut into their members,
+    field by field (`pipeline.split_fused`)."""
+    from qeft_tpu_torch.pipeline import member_widths, split_fused
+
+    lins = {n: l for n, l in layers.items() if isinstance(l, QLinearParams)}
+    widths = member_widths(cfg, meta)
+    fields = {f: split_fused({n: getattr(l, f) for n, l in lins.items()
+                              if getattr(l, f) is not None}, meta, widths)
+              for f in ("qweight", "scales", "scaled_zeros", "oweight")}
+    g = next(iter(lins.values())).group_size
+    out = {n: l for n, l in layers.items() if n not in lins}
+    for name in fields["qweight"]:
+        out[name] = QLinearParams(*(fields[f][name].contiguous() for f in
+                                    ("qweight", "scales", "scaled_zeros")),
+                                  oweight=fields["oweight"][name].contiguous(), group_size=g)
+    return out
 
 
 def _build_family(cfg, meta, seed, g, r, dtype, device, reorder) -> Dict:

@@ -25,8 +25,11 @@ autograd linear with a bias and ``reorder_ids`` at 2048 rows, and a
 Falcon-width block quantized on the card against the CPU; K1 and K6 at the
 stage shapes one rank of a tensor-parallel deployment runs (Llama-2-7B at
 tp 2, Llama-2-70B width at tp 4, K6 without a slab) and a two-rank tp
-prefill and decode step on the card against the single device; and the
-wrappers' refusals.  They need an NVIDIA GPU and ``nvcc``
+prefill and decode step on the card against the single device; K2 and K7
+at the shard shapes of tp-2 training (512 rows), the bf16w variant of K1,
+K6 and K5 (``QEFT_GEMV_F32W=0``) against its plain version, and a two-rank
+tensor-parallel WCT loss and gradient on the card against the single
+device; and the wrappers' refusals.  They need an NVIDIA GPU and ``nvcc``
 and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -1007,3 +1010,97 @@ def test_tp_decode_step_of_two_ranks_on_the_card(gen):
         assert res["decode"] == {"qgemv_stacked_fused": 2 * cfg.num_layers,
                                  "qgemv_stacked": 2 * cfg.num_layers,
                                  "decode_attention": cfg.num_layers}
+
+
+# the per-rank stage shapes of tensor-parallel WCT at Llama-2-7B, tp 2, 512
+# rows a rank: qkv and upgate column-parallel with their N-sharded slabs,
+# o and down row-parallel (the last rank's slab; down's 43 groups)
+TP_TRAIN_SHAPES = [(4096, 6144, 128), (4096, 11008, 128), (2048, 4096, 0), (5504, 4096, 128)]
+
+
+@pytest.mark.parametrize("k,n,r", TP_TRAIN_SHAPES)
+def test_qgemm_and_qgemm_t_at_the_tp_train_shard_shapes(gen, k, n, r):
+    from qeft_tpu_torch.ops.qlinear import matmul_f32
+
+    p = _packed(gen, 2, k, n, 128, r).layer(1)
+    x, gy = _randn(gen, 512, k), _randn(gen, 512, n)
+    _close(qmm.qgemm(x, p), qmm.qgemm_plain(_f32(x), _f32(p)))
+    tail = matmul_f32(gy, p.oweight.t()) if r else None
+    _close(qmm.qgemm_t(gy, p, tail), qmm.qgemm_t_plain(_f32(gy), _f32(p), tail))
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("kernel", ["K1", "K6", "K5"])
+def test_bf16w_variant_matches_its_plain_version(gen, kernel, m):
+    """``QEFT_GEMV_F32W=0``: K1, K6 and K5 launch their bf16w entry point
+    (weights code x scale rounded to bf16 before the product), which agrees
+    with its plain version on the same bf16 inputs, at a 7B stage shape;
+    and, as the bound is ordinary bf16 noise, which the weights' rounding
+    also is, its mean |diff| from the plain version is under a quarter of
+    the default kernel's (what a kernel that ignored the flag would give)."""
+    from qeft_tpu_torch import env
+
+    k, n = (4096, 12288) if kernel == "K1" else (11008, 4096)
+    p = _packed(gen, 2, k, n, 128, 128)
+    x = _randn(gen, m, k)
+    lnw = (1.0 + _randn(gen, k, scale=0.1).float()).to(torch.bfloat16)
+    name = {"K1": "qgemv_stacked_fused", "K6": "qgemv_stacked", "K5": "qgemv"}[kernel]
+    cpu = p.map(torch.Tensor.cpu)
+
+    def run(x, p, lnw):  # the wrapper (CUDA tensors) or its plain version (CPU ones)
+        if kernel == "K1":
+            return qmm.qgemv_stacked_fused(x, p, 1, lnw=lnw, eps=1e-5)
+        if kernel == "K6":
+            return qmm.qgemv_stacked(x, p, 1)
+        return qmm.qgemv(x, p.layer(1))
+
+    with env.setting(QEFT_GEMV_F32W="0"):
+        before = cuda_lib.launches[name + "_bf16w"]
+        got = run(x, p, lnw)
+        want = run(x.cpu(), cpu, lnw.cpu())  # bf16 inputs, the products in f32, one rounding
+        torch.cuda.synchronize()
+        assert cuda_lib.launches[name + "_bf16w"] == before + 1
+    want = want.float().cuda()
+    _close(got, want)
+    default = run(x, p, lnw)  # the default keeps the codes exact
+    assert not torch.equal(got, default)
+    err = (got.float() - want).abs().mean().item()
+    assert err < 0.25 * (default.float() - want).abs().mean().item(), err
+
+
+def test_tp_train_step_of_two_ranks_on_the_card(gen):
+    """Two ranks sharing the card run the tensor-parallel loss and slab
+    gradients of a random packed 2-layer model of width 1024 (K2 forward and
+    its recomputation, K7 for dx); against the single-device ``wct_loss``
+    backward on the same weights: the loss within 1e-2 relative, each slab
+    gradient within 0.1 of its scale (both bf16 kernel paths; the tp one
+    rounds its partial sums to bf16 before each psum)."""
+    import numpy as np
+
+    from qeft_tpu_torch.finetune import split_wct, wct_loss
+    from qeft_tpu_torch.models import llama
+    from qeft_tpu_torch.parallel.multihost import launch_ranks
+    from qeft_tpu_torch.parallel.tp_forward import _interleave_perm
+    from qeft_tpu_torch.testing import build_packed_model
+    import torch_ranks
+
+    cfg = dataclasses.replace(llama.LLAMA_PRESETS["llama2-7b"], hidden_size=1024,
+                              intermediate_size=2816, num_layers=2, num_heads=8,
+                              num_kv_heads=8, vocab_size=4096)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda")
+    ow, frozen = split_wct(build_packed_model(cfg, seed=3, device="cuda"))
+    loss = wct_loss(ow, frozen, ids, ids, cfg, remat=True)
+    loss.backward()
+    want = {k: torch.stack([t.grad for t in v]).float().cpu().numpy() for k, v in ow.items()}
+    ranks = launch_ranks(torch_ranks.tp_train_on_card, 2, "cuda", cfg, 3, ids.cpu(), 2)
+    perms = {"qkv": _interleave_perm([1024, 1024, 1024], 2),
+             "upgate": _interleave_perm([2816, 2816], 2)}
+    for res in ranks:
+        assert abs(res["loss"] - loss.item()) <= 1e-2 * loss.item()
+        assert res["launches"] == {"qgemm": 8 * cfg.num_layers, "qgemm_t": 4 * cfg.num_layers - 1}
+    for name, w in want.items():
+        if name in perms:
+            got = np.concatenate([r["grads"][name] for r in ranks], -1)[..., np.argsort(perms[name])]
+        else:
+            got = ranks[0]["grads"][name]
+        assert np.abs(got - w).max() <= 0.1 * np.abs(w).max(), name

@@ -246,20 +246,22 @@ def test_quantize_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypat
 @pytest.mark.parametrize("name", ["QEFT_PALLAS", "QEFT_FLASH_ATTN", "QEFT_PALLAS_ATTN",
                                   "QEFT_GEMV_F32W"])
 def test_ablation_env_vars_raise_naming_their_item(monkeypatch, tmp_path, name):
-    """An "off" value that asks for the JAX package's XLA arithmetic raises
-    at every entry point, naming A11; "1" asks for the kernels, which the
-    port runs anyway."""
-    from qeft_tpu_torch import extract_outidx
+    """An "off" value asks for the JAX package's ablation of a kernel, which
+    the port now honours (tests/test_torch_ablations.py): every entry point
+    reads it into its flag, and its one announcement names the kernels it
+    stands in for; "1" asks for the kernels again.  (The name is kept from
+    when these raised.)"""
+    from qeft_tpu_torch import env
     from qeft_tpu_torch.device import resolve_device
 
+    flag, _, what = env.ABLATIONS[name]
+    monkeypatch.setattr(env, "_announced", set())
     monkeypatch.setenv(name, "0")
-    with pytest.raises(NotImplementedError, match=f"{name}.*A11"):
-        resolve_device("cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        extract_outidx.main(["--model", "tiny", "--device", "cpu", "--target_rank", "8",
-                             "--output_dir", str(tmp_path)])
+    assert resolve_device("cpu").type == "cpu" and getattr(env, flag) is False
+    env.announce(name)
+    assert any(f"K{i}" in what for i in range(1, 9)) and name in env._announced
     monkeypatch.setenv(name, "1")
-    assert resolve_device("cpu").type == "cpu"
+    assert resolve_device("cpu").type == "cpu" and getattr(env, flag) is True
 
 
 @pytest.mark.parametrize("name,want", [("QEFT_FUSED_DECODE", "qgemv_stacked"),
@@ -408,7 +410,8 @@ def test_parallel_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypat
     """make_mesh, global_mesh, init_distributed, launch_ranks, the tp / pp /
     tp x pp / sp functions on a mesh made for the card, Engine(mesh=...),
     MultiHostEngine and run_benchmark --tp refuse to run on the CPU unless
-    it is named; tensor-parallel training names A10b."""
+    it is named; so does tensor-parallel training on a mesh made for the
+    card (its functions raised naming A10b before they were ported)."""
     from qeft_tpu_torch.parallel import tp_train
     from qeft_tpu_torch.parallel.mesh import Mesh, make_mesh
     from qeft_tpu_torch.parallel.multihost import global_mesh, init_distributed, launch_ranks
@@ -447,6 +450,30 @@ def test_parallel_entry_points_raise_without_a_gpu_unless_cpu_is_named(monkeypat
                  lambda: Engine(params, cfg, mesh=card)):
         with pytest.raises(ValueError, match="expected cuda"):
             call()
-    for name in ("tp_train_specs", "tp_shard_wct", "make_tp_loss_and_grad", "make_tp_train_step"):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            getattr(tp_train, name)()
+    tp_card = Mesh({"dp": 1, "tp": 1}, device=torch.device("cuda"))
+    ow, frozen = tp_train.tp_shard_wct(params, tp_card, cfg)
+    assert set(tp_train.tp_train_specs(ow, frozen)[0]) == set(ow)
+    with pytest.raises(ValueError, match="expected cuda"):
+        tp_train.make_tp_loss_and_grad(cfg, tp_card, ow, frozen)
+    from qeft_tpu_torch.finetune import TrainConfig, make_optimizer
+
+    with pytest.raises(ValueError, match="expected cuda"):
+        tp_train.make_tp_train_step(cfg, make_optimizer(TrainConfig(), ow), tp_card, ow, frozen)
+
+
+def test_the_last_modules_are_scanned_for_banned_imports():
+    """Tensor-parallel training, the dry run, the host library's bindings
+    and the profiling utilities are among the modules the two tests above
+    hold to the ban on jax and qeft_tpu."""
+    mods = {m for _, m in _modules()}
+    assert {"qeft_tpu_torch.parallel.tp_train", "qeft_tpu_torch.multihost_dryrun",
+            "qeft_tpu_torch.ops.native", "qeft_tpu_torch.utils.profiling",
+            "qeft_tpu_torch.utils"} <= mods
+
+
+def test_the_dry_run_needs_a_gpu_unless_cpu_is_named(monkeypatch):
+    from qeft_tpu_torch import multihost_dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost_dryrun.run()

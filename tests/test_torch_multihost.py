@@ -49,7 +49,8 @@ from qeft_tpu_torch.parallel.multihost import all_hosts_agree, global_mesh, init
 import torch.distributed as dist
 joined = init_distributed(device="cpu")
 mesh = global_mesh(tp=1, device="cpu")
-print("OK", joined, dist.get_rank(), dict(mesh.shape), all_hosts_agree(1.0))
+print("OK", joined, dist.get_rank(), dict(mesh.shape), all_hosts_agree(1.0), flush=True)
+dist.destroy_process_group()  # a group left to interpreter exit can abort its process
 """
 
 

@@ -403,9 +403,11 @@ def test_calibration_capture_matches_jax(runs):
 
 def test_quantizing_another_family_raises_naming_a6b():
     """The other families quantize now (their parity with JAX is
-    tests/test_torch_family_quant.py); what of A6b is left raises naming
-    it: serving a llama tree packed without the global reorder, whose q/k/v
-    carry their own ``reorder_ids`` and cannot be fused."""
+    tests/test_torch_family_quant.py).  A llama tree packed without the
+    global reorder is served unfused (tests/test_torch_unfused.py); fusing
+    its q/k/v, which carry their own ``reorder_ids``, raises a ValueError
+    that says why, as JAX's stage fusion asserts.  (The name is kept from
+    when this named A6b.)"""
     from qeft_tpu_torch.models.opt import OPT_PRESETS, init_params
     from tests.torch_parity import random_packed_linear
 
@@ -420,7 +422,7 @@ def test_quantizing_another_family_raises_naming_a6b():
     for i, name in enumerate(("q", "k", "v")):
         lins[name] = random_packed_linear(i, 2, 64, 64, 32, 8)
         lins[name].reorder_ids = torch.stack([torch.randperm(64)] * 2).to(torch.int32)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(ValueError, match="statically reordered.*reorder_ids"):
         tpipe.fuse_packed_stages({"layers": lins}, get_model_meta("llama"))
 
 

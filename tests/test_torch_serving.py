@@ -185,8 +185,9 @@ def test_run_benchmark_engine_on_cpu():
                                   "4", "--reps", "1"])
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     assert line == res and res["requests"] == 4 and res["served_tokens_per_s"] > 0
-    with pytest.raises(NotImplementedError, match="A11"):
-        run_benchmark.main(["--method", "qeft-x", "--model", "tiny", "--device", "cpu"])
+    res = run_benchmark.main(["--method", "qeft-x", "--model", "tiny", "--device", "cpu",
+                              "--context", "8", "--gen", "4", "--reps", "1"])
+    assert res["method"] == "qeft-x" and res["tokens_per_s"] > 0  # QEFT_PALLAS=0's model
     with pytest.raises(SystemExit):  # --tp serves qeft and engine only, as in JAX
         run_benchmark.main(["--method", "spec", "--tp", "2", "--model", "tiny", "--device", "cpu"])
 

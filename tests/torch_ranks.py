@@ -1,7 +1,7 @@
 """The rank side of the parallel parity tests (tests/test_torch_parallel.py,
 test_torch_tp_forward.py, test_torch_serving_tp.py, test_torch_pp.py,
-test_torch_tp_pp.py, test_torch_sp.py, test_torch_multihost.py).  Not a test
-module itself.
+test_torch_tp_pp.py, test_torch_sp.py, test_torch_multihost.py,
+test_torch_tp_train.py).  Not a test module itself.
 
 A test module spawns its CPU ranks once (`spawn_cases`, through
 ``qeft_tpu_torch.parallel.multihost.launch_ranks``); every rank runs every
@@ -348,6 +348,55 @@ def fail_on(rank):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel training
+
+
+def _own_slice_gather_grad(g, mesh, width):
+    """A planted fault: the Megatron shortcut, this rank's own slice of the
+    cotangent of a gather, which drops what the o_reorder gather sent to
+    other ranks' K rows."""
+    return g.narrow(-1, mesh.index("tp") * width, width).contiguous()
+
+
+def tp_train_grads(params, cfg, ids, shape, planted=False, remat=False):
+    """`make_tp_loss_and_grad` on this rank's dp rows of ``ids``: the loss
+    and this rank's shards of the global slab gradients [L, r, N/tp] (row
+    stages [L, r, N]); ``planted`` swaps in `_own_slice_gather_grad`."""
+    from qeft_tpu_torch.parallel import tp_train
+    from qeft_tpu_torch.parallel.multihost import process_slice
+
+    mesh = make_mesh(shape, ("dp", "tp"), device="cpu")
+    ow, frozen = tp_train.tp_shard_wct(params, mesh, cfg)
+    mine = torch.as_tensor(ids[process_slice(ids.shape[0], mesh)])
+    real = tp_train._gather_grad
+    if planted:
+        tp_train._gather_grad = _own_slice_gather_grad
+    try:
+        loss, grads = tp_train.make_tp_loss_and_grad(cfg, mesh, ow, frozen, remat)(
+            ow, frozen, mine, mine)
+    finally:
+        tp_train._gather_grad = real
+    return {"loss": float(loss), "coords": mesh.coords(),
+            "grads": {k: np_(torch.stack(v)) for k, v in grads.items()}}
+
+
+def tp_train_steps(params, cfg, ids, shape, steps, **tc):
+    """``steps`` of `make_tp_train_step` (``TrainConfig(**tc)``, remat on):
+    the losses and this rank's slabs after them [L, r, N/tp]."""
+    from qeft_tpu_torch.finetune import TrainConfig, make_optimizer
+    from qeft_tpu_torch.parallel import tp_train
+    from qeft_tpu_torch.parallel.multihost import process_slice
+
+    mesh = make_mesh(shape, ("dp", "tp"), device="cpu")
+    ow, frozen = tp_train.tp_shard_wct(params, mesh, cfg)
+    opt = make_optimizer(TrainConfig(**tc), ow, tp_train.tp_grad_norm(mesh, ow))
+    step = tp_train.make_tp_train_step(cfg, opt, mesh, ow, frozen, remat=True)
+    mine = torch.as_tensor(ids[process_slice(ids.shape[0], mesh)])
+    losses = [float(step(ow, frozen, mine, mine)) for _ in range(steps)]
+    return {"losses": losses, "slabs": {k: np_(torch.stack(v)) for k, v in ow.items()}}
+
+
+# ---------------------------------------------------------------------------
 # on the card
 
 
@@ -379,3 +428,22 @@ def tp_decode_on_card(cfg, seed, prompt, tp):
         torch.cuda.synchronize()
     return {"logits": np_(step), "prefill": prefill, "decode": dict(cuda_lib.launches),
             "staged": mesh.staged}
+
+
+def tp_train_on_card(cfg, seed, ids, tp):
+    """A random packed model built on the card from ``seed``, on a (1, tp)
+    mesh: one `make_tp_loss_and_grad` (remat on) over ``ids``; the loss,
+    this rank's slab gradients and the kernel launches."""
+    from qeft_tpu_torch.ops import cuda_lib
+    from qeft_tpu_torch.parallel.tp_train import make_tp_loss_and_grad, tp_shard_wct
+    from qeft_tpu_torch.testing import build_packed_model
+
+    mesh = make_mesh((1, tp), ("dp", "tp"))
+    ow, frozen = tp_shard_wct(build_packed_model(cfg, seed=seed, device=mesh.device), mesh, cfg)
+    ids = torch.as_tensor(ids, device=mesh.device)
+    loss_and_grad = make_tp_loss_and_grad(cfg, mesh, ow, frozen, remat=True)
+    cuda_lib.reset_launches()
+    loss, grads = loss_and_grad(ow, frozen, ids, ids)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "launches": dict(cuda_lib.launches),
+            "grads": {k: np_(torch.stack(v)) for k, v in grads.items()}}
