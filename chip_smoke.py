@@ -28,7 +28,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. probes: P2 (dma_only, unpack_only), P3 (dma_tile at bn 256, 512, 1024)
    and P4 (gemv_ablation, nine variants at the down and qkv shapes) against
    their plain versions, timed hot (one buffer) and cold (rotating over
-   copies past 200 MB), with K6 and K1 at P4's shapes;
+   copies past 200 MB), with K6 and K1 at P4's shapes; unpack_only beside
+   the issue bound of its hot loop (instructions a word from the SASS of the
+   built library); ``--only probes`` runs this phase alone after device and
+   build, and with ``--parent <checkout>`` times that checkout's P2 and P3
+   in a subprocess before and after this one's (its rows without launch
+   counts, no contract line);
 7. main path: ``generate`` -- prefill 64 tokens, greedy-decode 256 over a
    320-slot bf16 cache, the decode loop as replays of one captured CUDA
    graph -- with launch counts checked per kernel, then the per-token
@@ -67,7 +72,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 17. stacked generate: the same with QEFT_ATTN_STACKED=1 over bf16 and int8
    caches (K8 32 x 255 times, K4 and K4q never);
 18. graph: P1 (``probes.entry_overhead``) -- [A] the cost of one kernel
-   entry eagerly and in a graph, [B] each K1 stage in a graph, [C] the
+   entry eagerly and in a graph, [A2] add_one against torch.add in a graph
+   as ABAB pairs, [A3] the eager entry's parts on the host clock, [B] each
+   K1 stage in a graph, [C] the
    decode step as graph replays and as the eager loop -- then each Llama
    ``generate`` above against the eager loop (tokens identical), with the
    graph step's host clock, busy time and idle share (OPT-6.7B and the
@@ -1810,7 +1817,8 @@ def phase_graph(cfg, params, prompt, runs, bw, rows):
             e["torch.add graph"]["device_us"] * 1e-3, 2 * 8 * 128 * 4, 0, bw)
     row.d.update(eager_host_us=e["kernel eager"]["host_us"],
                  eager_device_us=e["kernel eager"]["device_us"],
-                 graph_host_us=e["kernel graph"]["host_us"],
+                 graph_host_us=e["kernel graph"]["host_us"], graph_pairs=res["pairs"],
+                 eager_parts_host_us=res["parts"],
                  per=("one entry of a chain of 512 in a CUDA graph (CUDA events); plain: torch.add "
                       "eagerly, library: torch.add in a graph; exact"))
     out = {"p1": res}
@@ -1821,20 +1829,57 @@ def phase_graph(cfg, params, prompt, runs, bw, rows):
     return out
 
 
-def phase_probes(bw, rows):
+# P2 and P3 of another checkout (the parent commit's), measured in a
+# subprocess from its root: the same measure functions, its own kernels
+_PARENT_PROBES = ("import json, torch\n"
+                  "from qeft_tpu_torch.probes import dma, dma2\n"
+                  "d = torch.device('cuda')\n"
+                  "print(json.dumps({'p2': dma.measure(d), 'p3': dma2.measure(d)}))")
+
+
+def _parent_probes(parent):
+    root = os.path.abspath(parent)
+    run = subprocess.run([sys.executable, "-c", _PARENT_PROBES], cwd=root, capture_output=True,
+                         text=True, timeout=900, env={**os.environ, "PYTHONPATH": root})
+    if run.returncode != 0:
+        raise RuntimeError(f"the parent's probes failed:\n{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def phase_probes(bw, rows, parent=None):
     """P2, P3 and P4 at their scripts' shapes: each kernel against its plain
     version (P2 and P3 exact, P4 within KERNEL_RTOL of the output's scale),
     timed hot (one buffer, as the scripts run them) and cold (rotating over
     copies past 200 MB), beside the plain version, one PyTorch call where
-    one computes the same function and the bound; K6 and K1 at P4's
-    shapes."""
+    one computes the same function and the bound (unpack_only also beside
+    the issue bound of its hot loop's instructions, read from the built
+    library's SASS); K6 and K1 at P4's shapes.  ``parent``: the root of
+    another checkout (the parent commit's), whose P2 and P3 are timed the
+    same way in a subprocess before and after this checkout's, in this call."""
     from qeft_tpu_torch.probes import dma, dma2
     from qeft_tpu_torch.probes import gemv_ablation as p4
 
     dev = torch.device("cuda")
+    par = [_parent_probes(parent)] if parent else []
     with counted("probes"):
         r2, r3, r4 = dma.measure(dev), dma2.measure(dev), p4.measure(dev)
+    if parent:
+        par.append(_parent_probes(parent))
+
+    def beside(times, pick):
+        """``times``' hot and cold µs beside the parent's (before / after)."""
+        line = f"hot {times['hot_ms'] * 1e3:.2f} us, cold {times['cold_ms'] * 1e3:.2f} us"
+        if par:
+            ts = [pick(p) for p in par]
+            line += (" (parent hot " + " / ".join(f"{t['hot_ms'] * 1e3:.2f}" for t in ts)
+                     + ", cold " + " / ".join(f"{t['cold_ms'] * 1e3:.2f}" for t in ts) + " us)")
+        return line
+
+    def parent_times(pick):
+        return [{k: pick(p)[k] for k in ("hot_ms", "cold_ms")} for p in par]
+
     src = "qeft_tpu_torch/csrc/probes.cu"
+    bound2 = r2["bytes"] / PEAK_HBM * 1e3
     for name, line, lib in (("dma_only", 18, True), ("unpack_only", 52, False)):
         t = r2[name]
         row = rows[name] = Row(name, src, f"scripts/dma_probe.py:{line}", lib)
@@ -1843,26 +1888,46 @@ def phase_probes(bw, rows):
         row.d.update(hot_ms=t["hot_ms"], hot_GBps=t["hot_GBps"], cold_GBps=t["cold_GBps"],
                      per=f"one launch over [{dma.K8}, {dma.N}] int32 words, cold (hot_ms: one "
                          "buffer); exact" + ("; library: qw.sum(0)" if lib else ""))
-        log(f"[probes] P2 {name}: hot {t['hot_ms'] * 1e3:.2f} us ({t['hot_GBps']:.0f} GB/s), cold "
-            f"{t['cold_ms'] * 1e3:.2f} us ({t['cold_GBps']:.0f} GB/s), plain "
-            f"{t['plain_ms'] * 1e3:.1f} us" + (f", qw.sum(0) {t['library_ms'] * 1e3:.2f} us"
-                                                if lib else "")
-            + f"; bound {r2['bytes'] / PEAK_HBM * 1e6:.2f} us; exact")
+        if par:
+            row.d["parent"] = parent_times(lambda p, name=name: p["p2"][name])
+        extra = ""
+        if name == "unpack_only":
+            i = t["issue"]
+            row.d.update(issue_bound_ms=t["issue_bound_ms"], int_bound_ms=i["int_bound_ms"],
+                         instructions_a_word=i["per_word"], plan=t["plan"],
+                         in_flight_per_sm=t["in_flight_per_sm"])
+            extra = (f"; issue bound {t['issue_bound_ms'] * 1e3:.2f} us ({i['instructions']} "
+                     f"instructions for {i['words']:.0f} words in the hot loop, "
+                     f"{i['per_word']:.2f} a word, 4 a clock an SM at {i['clock_hz'] / 1e6:.0f} "
+                     f"MHz; {i['opcodes']}), integer bound {i['int_bound_ms'] * 1e3:.2f} us "
+                     f"({i['int_per_word']:.2f} LOP3/SHF/IADD3 a word at 64 lanes a clock an SM)")
+        log(f"[probes] P2 {name}: {beside(t, lambda p, name=name: p['p2'][name])}; "
+            f"{t['hot_GBps']:.0f} / {t['cold_GBps']:.0f} GB/s; plain {t['plain_ms'] * 1e3:.1f} us"
+            + (f", qw.sum(0) {t['library_ms'] * 1e3:.2f} us" if lib else "")
+            + f"; bytes bound {bound2 * 1e3:.2f} us{extra}; exact")
     row = rows["dma_tile"] = Row("dma_tile", src, "scripts/dma_probe2.py:19", True)
     t = r3["bn512"]
     row.add(t["max_abs_err"], t["cold_ms"], r3["plain_ms"], r3["library_ms"], r3["bytes"], 0, bw)
     row.d.update(hot_ms=t["hot_ms"], by_bn={bn: {k: r3[f"bn{bn}"][k] for k in (
-        "hot_ms", "cold_ms", "hot_GBps", "cold_GBps")} for bn in dma2.BNS},
+        "hot_ms", "cold_ms", "hot_GBps", "cold_GBps", "plan", "in_flight_per_sm")}
+        for bn in dma2.BNS},
         per=f"one launch over [{dma.K8}, {dma.N}] int32 words at bn = 512, cold; exact; "
             "library: torch.add(qw[:8], s), which reads only the 8 rows the result needs")
+    if par:
+        row.d["parent"] = {bn: parent_times(lambda p, bn=bn: p["p3"][f"bn{bn}"])
+                           for bn in dma2.BNS}
     for bn in dma2.BNS:
         t = r3[f"bn{bn}"]
-        log(f"[probes] P3 dma_tile bn={bn}: hot {t['hot_ms'] * 1e3:.2f} us ({t['hot_GBps']:.0f} "
-            f"GB/s), cold {t['cold_ms'] * 1e3:.2f} us ({t['cold_GBps']:.0f} GB/s); exact")
+        plan = t["plan"]
+        log(f"[probes] P3 dma_tile bn={bn}: {beside(t, lambda p, bn=bn: p['p3'][f'bn{bn}'])}; "
+            f"{t['hot_GBps']:.0f} / {t['cold_GBps']:.0f} GB/s; grid {plan['tiles']} x "
+            f"{plan['splits']}, {plan['rows_per_block']} rows a block in stages of "
+            f"{plan['stage_rows']}, {plan['stages']} slots, {t['in_flight_per_sm'] // 1024} KB in "
+            f"flight an SM; bytes bound {r3['bound_ms'] * 1e3:.2f} us; exact")
     log(f"[probes] P3 plain {r3['plain_ms'] * 1e3:.2f} us, torch.add(qw[:8], s) "
         f"{r3['library_ms'] * 1e3:.2f} us")
     _p4_row(r4, rows, bw)
-    return dict(p2=r2, p3=r3, p4=r4)
+    return dict(p2=r2, p3=r3, p4=r4, parent=par)
 
 
 def _p4_row(r4, rows, bw):
@@ -4500,11 +4565,16 @@ class _Beside(threading.Thread):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=["attention", "matvec"], default=None,
+    ap.add_argument("--only", choices=["attention", "matvec", "probes"], default=None,
                     help="run only the device and build phases and the attention kernels (K3, "
-                    "K4, K4q, K8) or the matvec kernels (K1, P4), for an A/B of those kernels "
-                    "against another checkout's")
+                    "K4, K4q, K8), the matvec kernels (K1, P4) or the probes (P2, P3, P4), for "
+                    "an A/B of those kernels against another checkout's")
+    ap.add_argument("--parent", default=None,
+                    help="with --only probes: the root of another checkout (the parent "
+                    "commit's), whose P2 and P3 are timed beside this one's in the same call")
     args = ap.parse_args(argv)
+    if args.parent and args.only != "probes":
+        ap.error("--parent goes with --only probes")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4529,6 +4599,8 @@ def main(argv=None) -> int:
             # the profiler's kernels a call stand beside the rows
             extra["kernels_a_call"] = timed(phase_attention_kernels, LLAMA_PRESETS["llama2-7b"],
                                             copy_rate(), rows)
+        elif args.only == "probes":
+            timed(phase_probes, copy_rate(), rows, args.parent)
         else:
             timed(phase_matvec, copy_rate(), rows)
         log(f"[done] {time.perf_counter() - tick:.1f} s; seconds by phase {seconds}")

@@ -96,6 +96,108 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// one arrival on mbarrier `bar` (no bytes announced)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one bulk asynchronous copy of `bytes` (a multiple of 16) from global
+// `src` to shared `dst`, both 16-byte aligned, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes of shared memory at shared address `addr` (16-byte aligned)
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// nibble pair q (0..3) of a packed word in two 16-bit lanes: nibble q in the
+// low lane, nibble q + 4 in the high one (one shift, one mask)
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t w, int q) {
+  return (w >> (4 * q)) & 0x000F000Fu;
+}
+
+// A ring of word rows in shared memory fed by bulk asynchronous copies (the
+// probes of csrc/probes.cu).  A block walks `rows` rows of a column tile
+// (`row_bytes` each, a multiple of 16, `ld` bytes apart in global memory)
+// in stages of `stage_rows` rows; stage k sits in slot k % stages.  One
+// thread produces: it issues one bulk copy a row, the stage's bytes
+// announced on the slot's full barrier, and reuses a slot once its empty
+// barrier says that the `consumers` warps have released it.  A consumer
+// warp waits on the full barrier, reads, and releases the slot: nothing but
+// the mbarriers orders the two sides.  Both sides step their slot and its
+// phase parity along: no integer division a stage, which costs hundreds of
+// cycles on each side's serial walk.  Shared memory: the slots from a
+// 16-byte aligned base, then 2 x stages mbarriers (full, then empty).
+struct RowRing {
+  const unsigned char* src;  // the tile's first row in global memory
+  size_t ld;
+  int rows, row_bytes, stage_rows, stages, consumers;
+  unsigned char* slots;
+
+  __host__ __device__ static int smem_bytes(int row_bytes, int stage_rows, int stages) {
+    return stages * stage_rows * row_bytes + 16 * stages;
+  }
+  __device__ int stage_bytes() const { return stage_rows * row_bytes; }
+  __device__ unsigned char* slot(int s) const { return slots + s * stage_bytes(); }
+  __device__ uint32_t full(int s) const {
+    return smem_u32(slots) + stages * stage_bytes() + 8 * s;
+  }
+  __device__ uint32_t empty(int s) const { return full(s) + 8 * stages; }
+
+  // one thread, then a block-wide barrier before any other use
+  __device__ void init() const {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the producer thread: every stage in order; slot s's use u has parity
+  // `phase`, and its use u - 1 must have been released first
+  __device__ void produce() const {
+    const uint32_t base = smem_u32(slots), bars = base + stages * stage_bytes();
+    int s = 0;
+    uint32_t phase = 0;
+    for (int r = 0, k = 0; r < rows; r += stage_rows, ++k) {
+      if (k >= stages) mbar_wait(bars + 8 * (stages + s), phase ^ 1u);
+      const int n = min(stage_rows, rows - r);
+      const uint32_t bar = bars + 8 * s, dst = base + s * stage_bytes();
+      mbar_expect(bar, n * row_bytes);
+      for (int i = 0; i < n; ++i)
+        bulk_load(dst + i * row_bytes, src + (size_t)(r + i) * ld, row_bytes, bar);
+      if (++s == stages) s = 0, phase ^= 1u;
+    }
+  }
+
+  // a consumer warp: use(slot, first row of the stage, its rows) once the
+  // stage has landed, for every stage in order (so every copy has completed
+  // when this returns), each slot released after its use
+  template <class Use>
+  __device__ void consume(Use use) const {
+    const uint32_t bars = smem_u32(slots) + stages * stage_bytes();
+    int s = 0;
+    uint32_t phase = 0;
+    for (int r = 0; r < rows; r += stage_rows) {
+      mbar_wait(bars + 8 * s, phase);
+      use(s, r, min(stage_rows, rows - r));
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(bars + 8 * (stages + s));
+      if (++s == stages) s = 0, phase ^= 1u;
+    }
+  }
+};
+
 // the card's SM count (0 if it cannot be queried), read once
 inline int sm_count() {
   static int n = 0;

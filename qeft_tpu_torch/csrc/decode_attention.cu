@@ -122,16 +122,6 @@ struct Smem {
   static int stages_for(int S) { return split_chunk(S) > KT ? kMaxStages : 1; }
 };
 
-// one bulk asynchronous copy of `bytes` (a multiple of 16) from global
-// `src` to shared `dst`, both 16-byte aligned, completing on mbarrier `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // the 4 int8 of a word as exact floats: each biased byte (c + 128) is
 // permuted into the mantissa of 2^23, and 2^23 + 128 subtracted (no
 // integer-to-float conversion, which issues at a fraction of an FADD's rate)

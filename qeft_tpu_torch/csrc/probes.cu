@@ -13,29 +13,51 @@
 //   K/8 rows of an int32 [K/8, N] word matrix, broadcast to f32 [8, N].
 //   dma_only sums the words themselves in int32 (wrapping, as jnp.sum of
 //   int32) and casts the total to f32; unpack_only sums the 8 nibble planes
-//   (w >> 4p) & 0xF of every word, whose total (< 2^24) is exact in f32 in
-//   any order.  Bound: the K/2 * N bytes of words over 3.35 TB/s (6.7 us at
-//   [1376, 4096]); unpack_only adds 8 extractions and adds a word.
-//   Design: a block covers 128 columns (a lane reads 4 with one 16-byte load)
-//   and a slice of the rows (blockIdx.y), so about four blocks per SM stream
-//   at once; 8 warps split the slice, each keeping four loads in flight.  The
-//   warps meet in shared memory, each block adds its partial column sums to
-//   a word-per-column workspace with atomics (integer sums, so the order does
-//   not matter), and the last block of a column tile -- counted by a ticket
-//   per tile -- writes the 8 output rows and zeroes the workspace and its
-//   ticket for the next launch.
+//   (w >> 4p) & 0xF of every word, an integer below 2^24 (exact in f32).
+//   Bound: the K/2 * N bytes of words over 3.35 TB/s (6.7 us at [1376,
+//   4096]); unpack_only adds the extraction, mostly integer instructions.
+//   dma_only, the register-stream reference: a block covers 128 columns (a
+//   lane reads 4 with one 16-byte load) and a slice of the rows
+//   (blockIdx.y), so about four blocks per SM stream at once; 8 warps split
+//   the slice, each keeping four loads in flight.
+//   unpack_only takes its words through the bulk-copy ring of dma_tile
+//   below (RowRing, common.cuh), a column tile of bn words (the widest
+//   multiple of 4 up to 512 that divides N) and a split of its rows a
+//   block, one block of 8 consumer warps an SM, 16 KB stages in a 64 KB
+//   ring.  Two consumer lanes own each 4 columns (one 16-byte shared load a
+//   row), one the even rows of a stage and one the odd, and form each
+//   word's 4 nibble pairs as the decode matvec forms its A registers
+//   (nibble_pair: one shift and one mask a pair, planes q and q + 4 in two
+//   16-bit lanes), summed into one lane accumulator per column: a lane
+//   gains at most 4 x 15 a word, so the lanes are widened into a 32-bit
+//   total before they pass kLaneRows word rows.  Integer sums throughout,
+//   so the result is exact in any order.  Its hot loop takes about 9.7
+//   instructions a word, 9 of them integer logic, shift and add.
+//   Both meet across blocks the same way (dma_only's 8 warps, unpack_only's
+//   two row halves first in shared memory): each block adds its partial
+//   column sums to a word-per-column workspace with atomics (integer sums,
+//   so the order does not matter), and the last block of a column tile --
+//   counted by a ticket per tile -- writes the 8 output rows and zeroes the
+//   workspace and its ticket for the next launch.
 //
 // dma_tile (P3) replaces scripts/dma_probe2.py::make(bn).f (kern): out =
 //   float(qw[:8, :]) + s, where the TPU's BlockSpec moves the whole
 //   [K/8, bn] block of words into VMEM for every grid step although only 8
 //   rows are used.  Here every byte of the tile likewise passes through
-//   shared memory: a ring of 4 stages of 4 rows, filled with cp.async (a load
-//   the compiler cannot drop, unlike a register load whose value is never
-//   used); the blocks holding rows 0..7 add s and write the output from the
-//   ring.  Bound: the K/2 * N bytes of words (plus s and out), as P2.  bn
-//   stays the column width of a block's tile; the rows of a tile are split
-//   over blocks so that the grid fills 132 SMs at every bn.
-//
+//   shared memory.  Bound: the K/2 * N bytes of words (plus s and out), as
+//   P2.  Design: a ring of bulk asynchronous copies (RowRing, common.cuh):
+//   one elected producer thread a block issues one cp.async.bulk a word row
+//   (bn x 4 bytes) into stages of 32 KB, one full and one empty mbarrier a
+//   stage; 4 consumer warps wait on the mbarriers only, and the blocks
+//   holding rows 0..7 add s and write the output from the ring.  The plan
+//   (probes/common.py:stream_plan) sizes the grid from the SM count --
+//   three blocks an SM, each a column tile of bn words and an equal split
+//   of its rows -- and the ring at 64 KB a block, so the bytes in flight an
+//   SM (192 KB, against the ~24 KB that 3 TB/s x 1 us over 132 SMs asks
+//   for) and the blocks an SM holds do not depend on bn: bn stays the
+//   column width of the tile a block walks.  Stages, blocks an SM and ring
+//   were chosen by a sweep on the H100 (`probes/ring_sweep.py`, PERF.md §6).
+
 // gemv_ablation<V> (P4) replaces scripts/gemv_ablation_probe.py::build
 //   (make_kernel): x bf16 [8, K] in plane order (column p*K/8 + w meets
 //   nibble plane p of word row w), words int32 [K/8, N], scales f32
@@ -85,16 +107,6 @@ using namespace qeft;
 
 namespace {
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // ------------------------------------------------------------------ P1
 
 __global__ void add_one_kernel(const float* __restrict__ x, float* __restrict__ y, int n) {
@@ -119,7 +131,6 @@ __device__ __forceinline__ bool last_of_tile(unsigned int* tickets, bool* flag) 
 
 // ------------------------------------------------------------------ P2
 
-template <bool UNPACK>
 __global__ void __launch_bounds__(kThreads)
 colsum_kernel(const int4* __restrict__ qw, float* __restrict__ out, uint32_t* __restrict__ ws,
               unsigned int* __restrict__ tickets, int K8, int N, int rows_per_block) {
@@ -130,18 +141,11 @@ colsum_kernel(const int4* __restrict__ qw, float* __restrict__ out, uint32_t* __
   const int r0 = blockIdx.y * rows_per_block, r1 = min(r0 + rows_per_block, K8);
   const int n4 = N / 4;
   uint32_t su[4] = {0u, 0u, 0u, 0u};
-  float sf[4] = {0.f, 0.f, 0.f, 0.f};
   auto take = [&](int4 v) {
-    const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if constexpr (UNPACK) {
-#pragma unroll
-        for (int p = 0; p < 8; ++p) sf[j] += nibble(w[j], p);
-      } else {
-        su[j] += w[j];
-      }
-    }
+    su[0] += (uint32_t)v.x;
+    su[1] += (uint32_t)v.y;
+    su[2] += (uint32_t)v.z;
+    su[3] += (uint32_t)v.w;
   };
   if (c0 < N) {
     const int4* col = qw + c0 / 4;
@@ -156,72 +160,186 @@ colsum_kernel(const int4* __restrict__ qw, float* __restrict__ out, uint32_t* __
     for (; r < r1; r += 8) take(__ldg(col + (size_t)r * n4));
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) red[warp][lane * 4 + j] = UNPACK ? __float_as_uint(sf[j]) : su[j];
+  for (int j = 0; j < 4; ++j) red[warp][lane * 4 + j] = su[j];
   __syncthreads();
   const int c = blockIdx.x * kTileCols + threadIdx.x;
   if (threadIdx.x < kTileCols && c < N) {
-    if constexpr (UNPACK) {
-      float t = 0.f;
-      for (int wp = 0; wp < 8; ++wp) t += __uint_as_float(red[wp][threadIdx.x]);
-      atomicAdd(reinterpret_cast<float*>(ws) + c, t);
-    } else {
-      uint32_t t = 0u;
-      for (int wp = 0; wp < 8; ++wp) t += red[wp][threadIdx.x];
-      atomicAdd(ws + c, t);
-    }
+    uint32_t t = 0u;
+    for (int wp = 0; wp < 8; ++wp) t += red[wp][threadIdx.x];
+    atomicAdd(ws + c, t);
   }
   if (!last_of_tile(tickets, &last)) return;
   if (threadIdx.x < kTileCols && c < N) {
     const uint32_t t = atomicExch(ws + c, 0u);  // the total, and the workspace zeroed
-    const float v = UNPACK ? __uint_as_float(t) : (float)(int32_t)t;
 #pragma unroll
-    for (int m = 0; m < 8; ++m) out[(size_t)m * N + c] = v;
+    for (int m = 0; m < 8; ++m) out[(size_t)m * N + c] = (float)(int32_t)t;
   }
   if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
 }
 
-// ------------------------------------------------------------------ P3
+// ------------------------------------------------- P2 and P3: the ring
 
-constexpr int kT_STAGES = 4, kT_ROWS = 4;  // ring of 4 stages of 4 word rows
+constexpr int kR_STAGE_BYTES_MAX = (1 << 20) - 1;  // an mbarrier phase's byte count
+// consumer warps a block (warp 0 produces): dma_tile's only copy rows 0..7
+// out; unpack_only's extract nibbles, two warps a column quad (each taking
+// every other row of a stage), so that an SM has enough warps to hide the
+// extraction's latencies
+constexpr int kT_CONSUMERS = 4, kU_CONSUMERS = 8;
+constexpr int kU_QUADS = 16 * kU_CONSUMERS;  // column quads: 128, the widest tile 512 words
+// word rows a lane accumulator takes before it is widened: each of its two
+// 16-bit lanes gains at most 4 x 15 a word (65535 / 60)
+constexpr int kLaneRows = 1092;
 
-__global__ void __launch_bounds__(kThreads)
-dma_tile_kernel(const int32_t* __restrict__ qw, const float* __restrict__ s,
-                float* __restrict__ out, int K8, int N, int bn, int rows_per_block) {
-  extern __shared__ __align__(16) int32_t ring[];
-  const int col0 = blockIdx.x * bn;
-  const int r0 = blockIdx.y * rows_per_block, r1 = min(r0 + rows_per_block, K8);
-  const int chunks = bn / 4;  // 16-byte chunks of a row
-  const int n_stages = (r1 - r0 + kT_ROWS - 1) / kT_ROWS;
-  auto issue = [&](int st) {
-    if (st < n_stages) {
-      int32_t* slot = ring + (size_t)(st % kT_STAGES) * kT_ROWS * bn;
-      for (int idx = threadIdx.x; idx < kT_ROWS * chunks; idx += blockDim.x) {
-        const int rr = idx / chunks, cc = idx - rr * chunks;
-        const int row = r0 + st * kT_ROWS + rr;
-        if (row < r1) cp_async16(slot + rr * bn + cc * 4, qw + (size_t)row * N + col0 + cc * 4);
+// block (blockIdx.x, blockIdx.y): column tile blockIdx.x of bn words, rows
+// [r0, r1) of split blockIdx.y; its ring in the dynamic shared memory
+__device__ __forceinline__ RowRing block_ring(const int32_t* qw, int K8, int N, int bn,
+                                              int rows_per_block, int stage_rows, int stages,
+                                              int consumers, unsigned char* smem, int* r0) {
+  *r0 = blockIdx.y * rows_per_block;
+  RowRing ring;
+  ring.src = reinterpret_cast<const unsigned char*>(qw + (size_t)*r0 * N + (size_t)blockIdx.x * bn);
+  ring.ld = (size_t)N * 4;
+  ring.rows = min(rows_per_block, K8 - *r0);
+  ring.row_bytes = bn * 4;
+  ring.stage_rows = stage_rows;
+  ring.stages = stages;
+  ring.consumers = consumers;
+  ring.slots = smem;
+  return ring;
+}
+
+__global__ void __launch_bounds__(32 * (1 + kU_CONSUMERS))
+unpack_ring_kernel(const int32_t* __restrict__ qw, float* __restrict__ out,
+                   uint32_t* __restrict__ ws, unsigned int* __restrict__ tickets, int K8, int N,
+                   int bn, int rows_per_block, int stage_rows, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint32_t red[4][kU_QUADS];  // the odd rows' totals
+  __shared__ bool last;
+  int r0;
+  const RowRing ring = block_ring(qw, K8, N, bn, rows_per_block, stage_rows, stages,
+                                  kU_CONSUMERS, smem, &r0);
+  const int warp = threadIdx.x >> 5, t = threadIdx.x - 32;
+  const int quad = t % kU_QUADS, half = t / kU_QUADS;  // columns 4 quad .., rows half, half + 2, ..
+  const bool owns = warp > 0 && 4 * quad < bn;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  uint32_t total[4] = {0u, 0u, 0u, 0u};
+  if (warp == 0) {
+    if (threadIdx.x == 0) ring.produce();
+    __syncwarp();
+  } else {
+    uint32_t lanes[4] = {0u, 0u, 0u, 0u};  // nibbles 0-3 low, 4-7 high, of each column
+    auto widen = [&]() {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        total[j] += (lanes[j] & 0xFFFFu) + (lanes[j] >> 16);
+        lanes[j] = 0u;
       }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-  for (int st = 0; st < kT_STAGES - 1; ++st) issue(st);
-  for (int st = 0; st < n_stages; ++st) {
-    cp_async_wait<kT_STAGES - 2>();  // stage st has landed
-    __syncthreads();                 // ... for every thread; stage st-1 is consumed
-    const int row0 = r0 + st * kT_ROWS;
-    if (row0 < 8) {
-      const int32_t* slot = ring + (size_t)(st % kT_STAGES) * kT_ROWS * bn;
-      for (int rr = 0; rr < kT_ROWS; ++rr) {
-        const int row = row0 + rr;
-        if (row >= 8 || row >= r1) break;
-        for (int c = threadIdx.x; c < bn; c += blockDim.x) {
-          const size_t o = (size_t)row * N + col0 + c;
-          out[o] = (float)slot[rr * bn + c] + s[o];
-        }
+    };
+    int held = 0;  // word rows of the stages in the lane accumulators
+    ring.consume([&](int slot, int, int n) {
+      if (held + n > kLaneRows) {
+        widen();
+        held = 0;
       }
+      held += n;
+      if (!owns) return;
+      const uint32_t row = smem_u32(ring.slot(slot)) + 16 * quad;
+#pragma unroll 4
+      for (int i = half; i < n; i += 2) {
+        const uint4 v = lds128(row + i * ring.row_bytes);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          lanes[j] += (nibble_pair(w[j], 0) + nibble_pair(w[j], 1)) +
+                      (nibble_pair(w[j], 2) + nibble_pair(w[j], 3));
+      }
+    });
+    widen();
+    if (owns && half == 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[j][quad] = total[j];
     }
-    issue(st + kT_STAGES - 1);
   }
-  cp_async_wait<0>();
+  __syncthreads();
+  if (owns && half == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) atomicAdd(ws + blockIdx.x * bn + 4 * quad + j, total[j] + red[j][quad]);
+  }
+  if (!last_of_tile(tickets, &last)) return;
+  if (owns && half == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = blockIdx.x * bn + 4 * quad + j;
+      const float v = (float)atomicExch(ws + c, 0u);  // the total, and the workspace zeroed
+#pragma unroll
+      for (int m = 0; m < 8; ++m) out[(size_t)m * N + c] = v;
+    }
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
+}
+
+__global__ void __launch_bounds__(32 * (1 + kT_CONSUMERS))
+dma_tile_kernel(const int32_t* __restrict__ qw, const float* __restrict__ s,
+                float* __restrict__ out, int K8, int N, int bn, int rows_per_block,
+                int stage_rows, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int r0;
+  const RowRing ring = block_ring(qw, K8, N, bn, rows_per_block, stage_rows, stages,
+                                  kT_CONSUMERS, smem, &r0);
+  const int col0 = blockIdx.x * bn;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the producer warp: one thread issues, the rest have no part
+    if (threadIdx.x == 0) ring.produce();
+    return;
+  }
+  const int t = threadIdx.x - 32;
+  ring.consume([&](int slot, int r, int n) {
+    const int32_t* words = reinterpret_cast<const int32_t*>(ring.slot(slot));
+    for (int i = 0; i < n && r0 + r + i < 8; ++i) {  // output rows: s added, written
+      const size_t o = (size_t)(r0 + r + i) * N + col0;
+      for (int c = t; c < bn; c += 32 * kT_CONSUMERS)
+        out[o + c] = (float)words[(size_t)i * bn + c] + s[o + c];
+    }
+  });
+}
+
+constexpr int kMaxDevices = 64;
+
+// the kernel's dynamic shared memory on the current device, raised past its
+// default where the ring needs it; refused where it and the kernel's static
+// shared memory exceed what a block may opt in to.  opted[device]: the
+// largest the kernel was given there
+template <class Kernel>
+cudaError_t ring_smem(Kernel kernel, int bytes, int (&opted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= opted[dev]) return cudaSuccess;
+  cudaFuncAttributes attr;
+  int optin = 0;
+  if ((e = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess)
+    return e;
+  if (bytes + (long)attr.sharedSizeBytes > optin) return cudaErrorInvalidValue;
+  if (bytes > attr.maxDynamicSharedSizeBytes &&
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+          cudaSuccess)
+    return e;
+  opted[dev] = bytes;
+  return cudaSuccess;
+}
+
+// the plan's arguments as the ring takes them (probes/common.py:stream_plan
+// makes them): bn | N, 4 | bn, whole stages within an mbarrier's byte count
+// and the ring within a block's shared memory
+bool ring_plan_ok(int K8, int N, int bn, int rows_per_block, int stage_rows, int stages) {
+  return K8 >= 1 && bn >= 4 && bn % 4 == 0 && N % bn == 0 && rows_per_block >= 1 &&
+         stage_rows >= 1 && stages >= 1 && (long)stage_rows * bn * 4 <= kR_STAGE_BYTES_MAX &&
+         (long)stages * stage_rows * bn * 4 + 16L * stages <= 232448;
 }
 
 // ------------------------------------------------------------------ P4
@@ -513,53 +631,48 @@ extern "C" int add_one(const void* x, void* y, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-namespace {
-
-// ws: N zeroed words, tickets: ceil(N / 128) zeroed counters; both are left
-// zeroed
-int column_sum(const void* qw, void* out, void* ws, void* tickets, int K8, int N,
-               int rows_per_block, bool unpack, void* stream) {
+// ws: N zeroed words, tickets: one zeroed counter a column tile; both are
+// left zeroed
+extern "C" int dma_only(const void* qw, void* out, void* ws, void* tickets, int K8, int N,
+                        int rows_per_block, void* stream) {
   if (K8 < 1 || N < 4 || N % 4 || rows_per_block < 1 || !aligned16(qw))
     return (int)cudaErrorInvalidValue;
   dim3 grid((N + kTileCols - 1) / kTileCols, (K8 + rows_per_block - 1) / rows_per_block);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int4* q = static_cast<const int4*>(qw);
-  float* o = static_cast<float*>(out);
-  uint32_t* w = static_cast<uint32_t*>(ws);
-  unsigned int* t = static_cast<unsigned int*>(tickets);
-  if (unpack)
-    colsum_kernel<true><<<grid, kThreads, 0, st>>>(q, o, w, t, K8, N, rows_per_block);
-  else
-    colsum_kernel<false><<<grid, kThreads, 0, st>>>(q, o, w, t, K8, N, rows_per_block);
+  colsum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(qw), static_cast<float*>(out), static_cast<uint32_t*>(ws),
+      static_cast<unsigned int*>(tickets), K8, N, rows_per_block);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int dma_only(const void* qw, void* out, void* ws, void* tickets, int K8, int N,
-                        int rows_per_block, void* stream) {
-  return column_sum(qw, out, ws, tickets, K8, N, rows_per_block, false, stream);
-}
-
 extern "C" int unpack_only(const void* qw, void* out, void* ws, void* tickets, int K8, int N,
-                           int rows_per_block, void* stream) {
-  return column_sum(qw, out, ws, tickets, K8, N, rows_per_block, true, stream);
+                           int bn, int rows_per_block, int stage_rows, int stages,
+                           void* stream) {
+  static int opted[kMaxDevices] = {};
+  if (!ring_plan_ok(K8, N, bn, rows_per_block, stage_rows, stages) || bn > 4 * kU_QUADS ||
+      stage_rows > kLaneRows || !aligned16(qw))
+    return (int)cudaErrorInvalidValue;
+  const int smem = RowRing::smem_bytes(bn * 4, stage_rows, stages);
+  const cudaError_t e = ring_smem(unpack_ring_kernel, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(N / bn, (K8 + rows_per_block - 1) / rows_per_block);
+  unpack_ring_kernel<<<grid, 32 * (1 + kU_CONSUMERS), smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(qw), static_cast<float*>(out), static_cast<uint32_t*>(ws),
+      static_cast<unsigned int*>(tickets), K8, N, bn, rows_per_block, stage_rows, stages);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int dma_tile(const void* qw, const void* s, void* out, int K8, int N, int bn,
-                        int rows_per_block, void* stream) {
-  if (K8 < 8 || bn < 4 || bn % 4 || N % bn || rows_per_block < 1 || !aligned16(qw))
+                        int rows_per_block, int stage_rows, int stages, void* stream) {
+  static int opted[kMaxDevices] = {};
+  if (K8 < 8 || !ring_plan_ok(K8, N, bn, rows_per_block, stage_rows, stages) || !aligned16(qw))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kT_STAGES * kT_ROWS * bn * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(dma_tile_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int smem = RowRing::smem_bytes(bn * 4, stage_rows, stages);
+  const cudaError_t e = ring_smem(dma_tile_kernel, smem, opted);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(N / bn, (K8 + rows_per_block - 1) / rows_per_block);
-  dma_tile_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  dma_tile_kernel<<<grid, 32 * (1 + kT_CONSUMERS), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(qw), static_cast<const float*>(s), static_cast<float*>(out),
-      K8, N, bn, rows_per_block);
+      K8, N, bn, rows_per_block, stage_rows, stages);
   return (int)cudaGetLastError();
 }
 

@@ -177,7 +177,7 @@ __host__ __device__ constexpr int mma_k_row(int hh, int jj0, int t, int j) {
 
 // mask-or pair q of a word: the bf16 pair (128 + nibble q, 128 + nibble q + 4)
 __device__ __forceinline__ uint32_t code_pair(uint32_t w, int q) {
-  return ((w >> (4 * q)) & 0x000F000Fu) | kBF16_128;
+  return nibble_pair(w, q) | kBF16_128;
 }
 
 // the bf16w variant's A register: the pair (nibble q * s, nibble q + 4 * s),

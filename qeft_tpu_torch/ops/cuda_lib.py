@@ -98,10 +98,14 @@ _ENTRY_POINTS = {
         _I, _I, _I,  # K8 N rows_per_block
         _P,  # stream
     ]),
-    "unpack_only": ("probes.cu", [_P, _P, _P, _P, _I, _I, _I, _P]),  # as dma_only
+    "unpack_only": ("probes.cu", [
+        _P, _P, _P, _P,  # qw out workspace tickets
+        _I, _I, _I, _I, _I, _I,  # K8 N bn rows_per_block stage_rows stages
+        _P,  # stream
+    ]),
     "dma_tile": ("probes.cu", [
         _P, _P, _P,  # qw s out
-        _I, _I, _I, _I,  # K8 N bn rows_per_block
+        _I, _I, _I, _I, _I, _I,  # K8 N bn rows_per_block stage_rows stages
         _P,  # stream
     ]),
     "gemv_ablation": ("probes.cu", [

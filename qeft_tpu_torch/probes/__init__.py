@@ -7,7 +7,10 @@ rather than compute a model (``csrc/probes.cu``).
 - `dma` (P2): the streaming rate of the packed words, summed as they are and
   unpacked into their nibble planes.
 - `dma2` (P3): the rate when every byte of a tile passes through shared
-  memory, at three tile widths.
+  memory, at three tile widths, on a ring of bulk asynchronous copies that
+  `dma`'s `unpack_only` shares (`common.stream_plan`); `ring_sweep` sweeps
+  the ring's plans, `sass` counts the instructions a word of `unpack_only`'s
+  hot loop in the built library.
 - `gemv_ablation` (P4): the decode matvec with parts of its dequantization
   cut, against the port's own matvec (K6) at the same shapes.
 

@@ -5,14 +5,19 @@
 s``, where the TPU's BlockSpec copies the whole [K/8, bn] block of words into
 VMEM at every grid step although the kernel reads 8 rows.  The kernel
 (``csrc/probes.cu``) likewise moves every byte of each [K/8, bn] tile
-through shared memory (a ``cp.async`` ring), the tile's rows split over
-blocks so that every ``bn`` fills the card.  Exact against the plain
+through shared memory, on a ring of bulk asynchronous copies: one thread a
+block issues a ``cp.async.bulk`` a word row, the stages complete on
+mbarriers.  `common.stream_plan` sizes the grid from the SM count (each
+tile's rows split over blocks) and the ring at 64 KB a block, so that what
+an SM holds in flight does not depend on ``bn``.  Exact against the plain
 version.  The script's sweep: bn in 256, 512, 1024 over [1376, 4096] words.
 
     python -m qeft_tpu_torch.probes.dma2 [--device cpu]
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -21,7 +26,6 @@ from qeft_tpu_torch.probes import common
 from qeft_tpu_torch.probes.dma import K8, N, random_words
 
 BNS = (256, 512, 1024)
-STAGE_ROWS = 4  # rows per stage of the kernel's ring
 
 
 def dma_tile_plain(qw: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -35,15 +39,15 @@ def dma_tile(qw: torch.Tensor, s: torch.Tensor, bn: int = 512) -> torch.Tensor:
         return dma_tile_plain(qw, s)
     common.check_int32_words(qw)
     k8, n = qw.shape
-    if k8 < 8 or n % bn or bn % 4:
-        raise ValueError(f"dma_tile takes K8 >= 8 and bn | N, 4 | bn; got {tuple(qw.shape)}, {bn}")
+    if k8 < 8:
+        raise ValueError(f"dma_tile takes K8 >= 8; got {tuple(qw.shape)}")
+    plan = common.stream_plan(k8, n, bn, cuda_lib.sm_count(qw.device))
     if s.dtype != torch.float32 or tuple(s.shape) != (8, n) or not s.is_cuda:
         raise ValueError(f"s must be a float32 CUDA tensor of shape (8, {n})")
     s = s.contiguous()
     out = torch.empty(8, n, dtype=torch.float32, device=qw.device)
-    rpb = common.row_split(k8, n // bn, qw.device, multiple=STAGE_ROWS)
-    cuda_lib.launch("dma_tile", cuda_lib.ptr(qw), cuda_lib.ptr(s), cuda_lib.ptr(out), k8, n, bn,
-                    rpb)
+    cuda_lib.launch("dma_tile", cuda_lib.ptr(qw), cuda_lib.ptr(s), cuda_lib.ptr(out), k8, n,
+                    plan.bn, plan.rows_per_block, plan.stage_rows, plan.stages)
     return out
 
 
@@ -63,7 +67,9 @@ def measure(device, k8: int = K8, n: int = N, seed: int = 0) -> dict:
         if err != 0:
             raise AssertionError(f"dma_tile bn={bn}: kernel differs from its plain version")
         t = common.hot_cold(lambda w: dma_tile(w, s, bn), copies)
-        t["max_abs_err"] = err
+        plan = common.stream_plan(k8, n, bn, cuda_lib.sm_count(device))
+        t.update(max_abs_err=err, plan=dataclasses.asdict(plan), smem=plan.smem,
+                 in_flight_per_sm=plan.in_flight_per_sm(cuda_lib.sm_count(device)))
         t["hot_GBps"] = qw.numel() * 4 / (t["hot_ms"] * 1e-3) / 1e9
         t["cold_GBps"] = qw.numel() * 4 / (t["cold_ms"] * 1e-3) / 1e9
         out[f"bn{bn}"] = t

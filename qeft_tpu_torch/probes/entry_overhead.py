@@ -9,6 +9,15 @@
     clock and on CUDA events.  Multiplied by the kernels of one decode step
     (the wrappers' launches plus the profiler's count of every kernel), the
     eager and graph costs bound what a graph of the step saves.
+[A2] The same graphs of 512 entries, `add_one`'s and ``torch.add``'s,
+    timed as interleaved pairs (ABAB, PAIRS pairs) on CUDA events: the
+    device side of an entry, each pair's ratio and their median.
+[A3] The eager entry taken apart: each step of ``cuda_lib.launch`` and of
+    the wrapper timed alone over 512 calls on the host clock -- the build
+    check ``cuda_lib.load()`` (under its lock), ``torch.cuda.
+    current_stream()``, ``torch.empty_like``, ``cuda_lib.ptr``, the entry
+    point's lookup, the ctypes call with the function and the stream
+    cached (the launch itself), the count -- beside the whole ``add_one``.
 [B] Each fused decode stage (K1) alone at Llama-2-7B shapes (qkv
     4096->12288, o 4096->4096, upgate 4096->22016, down 11008->4096): 64
     data-dependent calls in a graph, as the script chains them, beside the
@@ -33,7 +42,8 @@ import torch.nn.functional as F
 from qeft_tpu_torch.ops import cuda_lib
 from qeft_tpu_torch.probes import common
 
-ITERS = 512  # chained entries of [A]
+ITERS = 512  # chained entries of [A]; calls of each part in [A3]
+PAIRS = 9  # ABAB pairs of [A2]
 STAGE_ITERS = 64  # chained calls of a stage in [B]
 STEPS, CACHE_SLOTS, FIRST_POS = 64, 512, 448  # [C]
 STAGES = (("qkv", True), ("o", False), ("upgate", True), ("down", False))  # (stage, normed)
@@ -108,6 +118,64 @@ def measure_entry(device) -> dict:
     if not torch.equal(chain(add_one, x0), torch.full_like(x0, float(ITERS))):
         raise AssertionError("the eager chain of add_one did not add 512")
     return out
+
+
+def measure_graph_pairs(device, pairs: int = PAIRS) -> dict:
+    """[A2]: µs per entry (CUDA events) of the two graphs of 512 entries,
+    add_one's then torch.add's, ``pairs`` times in turn."""
+    stream = torch.cuda.Stream(device)
+    x0 = torch.zeros(8, 128, dtype=torch.float32, device=device)
+    graphs = [_graph(lambda fn=fn: chain(fn, x0), stream) for fn in (add_one, add_one_plain)]
+    kernel, library = [], []
+    for _ in range(pairs):
+        for g, out in zip(graphs, (kernel, library)):
+            out.append(_timed(g.replay, stream, reps=3)[1] * 1e3 / ITERS)
+    ratios = [k / t for k, t in zip(kernel, library)]
+    return {"kernel_us": kernel, "torch_add_us": library, "ratios": ratios,
+            "median_kernel_us": statistics.median(kernel),
+            "median_torch_add_us": statistics.median(library),
+            "median_ratio": statistics.median(ratios)}
+
+
+def _host_us(fn, calls: int = ITERS, reps: int = 7) -> float:
+    """Median host-clock µs of one ``fn()`` over ``reps`` runs of ``calls``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        tick = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - tick) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def measure_entry_parts(device) -> dict:
+    """[A3]: host-clock µs of each part of an eager `add_one` entry, their
+    sum (``ptr`` twice: x and y) and the whole call."""
+    x = torch.zeros(8, 128, dtype=torch.float32, device=device)
+    y = torch.empty_like(x)
+    libs = cuda_lib.load()
+    fn = getattr(libs[cuda_lib._ENTRY_POINTS["add_one"][0]], "add_one")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    px, py, n = cuda_lib.ptr(x), cuda_lib.ptr(y), x.numel()
+    counts = cuda_lib.launches.copy()
+
+    def count():
+        counts["add_one"] += 1
+
+    parts = {
+        "cuda_lib.load": _host_us(cuda_lib.load),
+        "current_stream": _host_us(lambda: torch.cuda.current_stream().cuda_stream),
+        "empty_like": _host_us(lambda: torch.empty_like(x)),
+        "ptr": _host_us(lambda: cuda_lib.ptr(x)),
+        "lookup": _host_us(lambda: getattr(libs[cuda_lib._ENTRY_POINTS["add_one"][0]], "add_one")),
+        "ctypes_call": _host_us(lambda: fn(px, py, n, stream)),
+        "count": _host_us(count),
+    }
+    parts["sum"] = sum(parts.values()) + parts["ptr"]
+    parts["add_one"] = _host_us(lambda: add_one(x))
+    return parts
 
 
 def measure_stages(params, cfg, device) -> dict:
@@ -204,9 +272,10 @@ def measure_step(params, cfg, device, stages: dict = None) -> dict:
 
 
 def measure(params, cfg, device) -> dict:
-    """[A], [B] and [C] on a packed Llama model, and [A]'s costs times the
-    kernels of one step."""
-    res = {"entry": measure_entry(device), "stages": measure_stages(params, cfg, device)}
+    """[A], [A2], [A3], [B] and [C] on a packed Llama model, and [A]'s
+    costs times the kernels of one step."""
+    res = {"entry": measure_entry(device), "pairs": measure_graph_pairs(device),
+           "parts": measure_entry_parts(device), "stages": measure_stages(params, cfg, device)}
     res["step"] = measure_step(params, cfg, device, res["stages"])
     kernels = res["step"]["device_kernels"]
     res["projection_ms_token"] = {
@@ -220,6 +289,16 @@ def print_summary(res: dict, cfg) -> None:
     for name, t in res["entry"].items():
         print(f"[A] {name}: {t['host_us']:.3f} us per entry (host clock), "
               f"{t['device_us']:.3f} us (CUDA events)", flush=True)
+    p = res["pairs"]
+    print(f"[A2] in a graph, {len(p['ratios'])} ABAB pairs: add_one "
+          f"{p['median_kernel_us']:.4f} us per entry, torch.add {p['median_torch_add_us']:.4f} "
+          f"(medians; CUDA events); add_one / torch.add {p['median_ratio']:.4f} (pairs "
+          + ", ".join(f"{r:.4f}" for r in p["ratios"]) + ")", flush=True)
+    parts = res["parts"]
+    print("[A3] eager add_one, host us per call over 512: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items() if k not in ("sum", "add_one"))
+          + f"; sum (ptr twice) {parts['sum']:.3f}; the whole add_one {parts['add_one']:.3f}",
+          flush=True)
     for name, _ in STAGES:
         t = res["stages"][name]
         print(f"[B] {name}: {t['ms'] * 1e3:.1f} us per call in the graph chain, glue alone "

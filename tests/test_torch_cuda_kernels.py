@@ -16,7 +16,9 @@ decode matvec (K5) at the OPT, Phi, Bloom and Falcon shapes, every M from 1
 to 8, with and without a bias; K1 (norm and residual), K5 and K6 one launch
 a call and bit-identical from call to call; the autograd linear's K5 / K2
 dispatch with ``reorder_ids``; K1 and K6 at eight rows of K up to 28,672;
-P4's variants bit-identical from call to call; K3 over whole windows of
+P4's variants bit-identical from call to call; P2's unpack_only and P3 on
+their bulk-copy ring at ragged shapes and past the 16-bit lane limit, the
+probes' workspace and tickets left zeroed; K3 over whole windows of
 2048 and 4096 rows (the calibration length and llama2-7b's eval window,
 and its f32 entry); K5 on the round-to-nearest packed llama2-7b head; GPTQ
 of one 4096 x 4096 linear on the card against the CPU; K2 and K7 at the
@@ -557,32 +559,89 @@ def test_probe_add_one(gen):
     assert torch.equal(got, x + 1.0)
 
 
-@pytest.mark.parametrize("k8,n", [(8, 128), (37, 260), (1376, 4096)])
-def test_probe_column_sums_exact(gen, k8, n):
-    """P2 bit-exact, twice in a row (each launch leaves its workspace zeroed)."""
-    from qeft_tpu_torch.probes import dma
+def _probe_words(gen, k8, n):
+    return torch.randint(-2**31, 2**31, (k8, n), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
 
-    qw = torch.randint(-2**31, 2**31, (k8, n), generator=gen, device="cuda",
-                       dtype=torch.int64).to(torch.int32)
+
+def _probe_scratch_zeroed(n, tiles):
+    """The probes' workspace of ``n`` words and ``tiles`` tickets, as the
+    kernels leave them: zeroed."""
+    from qeft_tpu_torch.probes import common
+
+    torch.cuda.synchronize()
+    assert not common.workspace(torch.device("cuda"), n, torch.int32).any()
+    assert not common.tickets(torch.device("cuda"), tiles).any()
+
+
+@pytest.mark.parametrize("k8,n", [(1, 8), (8, 128), (37, 260), (9, 4100), (1377, 4096),
+                                  (1376, 4096)])
+def test_probe_column_sums_exact(gen, k8, n):
+    """P2 bit-exact, twice in a row and bit-identical (each launch leaves its
+    workspace and tickets zeroed), one launch a call; the ring's unpack_only
+    at the script's shape and at ragged ones (a column tile that is not 512
+    wide, a partial last stage)."""
+    from qeft_tpu_torch.probes import common, dma
+
+    qw = _probe_words(gen, k8, n)
     for name in ("dma_only", "unpack_only"):
         want = getattr(dma, f"{name}_plain")(qw)
+        first = None
         for _ in range(2):
-            assert torch.equal(getattr(dma, name)(qw), want), name
+            before = cuda_lib.launches[name]
+            got = getattr(dma, name)(qw)
+            torch.cuda.synchronize()
+            assert cuda_lib.launches[name] == before + 1, name
+            assert torch.equal(got, want), name
+            assert first is None or torch.equal(got, first), name
+            first = got
+    plan = dma.unpack_plan(k8, n, cuda_lib.sm_count("cuda"))
+    _probe_scratch_zeroed(n, plan.tiles)
+    _probe_scratch_zeroed(n, -(-n // 128))
+
+
+def test_probe_unpack_only_past_the_lane_limit(gen):
+    """Blocks of 2,300 word rows (264 column tiles leave one split each):
+    the 16-bit lanes are widened twice a block and the sums stay exact; all
+    words -1 (every nibble 15) is the largest a lane can take."""
+    from qeft_tpu_torch.probes import common, dma
+
+    k8, n = 2300, 512 * 264
+    plan = dma.unpack_plan(k8, n, cuda_lib.sm_count("cuda"))
+    assert plan.rows_per_block > 2 * dma.LANE_ROWS
+    for qw in (torch.full((k8, n), -1, dtype=torch.int32, device="cuda"), _probe_words(gen, k8, n)):
+        assert torch.equal(dma.unpack_only(qw), dma.unpack_only_plain(qw))
+    _probe_scratch_zeroed(n, plan.tiles)
 
 
 @pytest.mark.parametrize("bn", [256, 512, 1024])
-@pytest.mark.parametrize("k8", [8, 37, 1376])
-def test_probe_dma_tile_exact(gen, k8, bn):
+@pytest.mark.parametrize("k8,n", [(8, 2048), (9, 2048), (37, 2048), (1376, 2048), (1377, 4096),
+                                  (1376, 4096)])
+def test_probe_dma_tile_exact(gen, k8, n, bn):
+    """P3 bit-exact at each bn, at the script's shape and at ragged row
+    counts; two calls bit-identical, one launch each."""
     from qeft_tpu_torch.probes import dma2
 
-    qw = torch.randint(-2**31, 2**31, (k8, 2048), generator=gen, device="cuda",
-                       dtype=torch.int64).to(torch.int32)
-    s = torch.randn(8, 2048, generator=gen, device="cuda")
-    before = cuda_lib.launches["dma_tile"]
-    got = dma2.dma_tile(qw, s, bn)
-    torch.cuda.synchronize()
-    assert cuda_lib.launches["dma_tile"] == before + 1
-    assert torch.equal(got, dma2.dma_tile_plain(qw, s))
+    qw = _probe_words(gen, k8, n)
+    s = torch.randn(8, n, generator=gen, device="cuda")
+    want = dma2.dma_tile_plain(qw, s)
+    for _ in range(2):
+        before = cuda_lib.launches["dma_tile"]
+        got = dma2.dma_tile(qw, s, bn)
+        torch.cuda.synchronize()
+        assert cuda_lib.launches["dma_tile"] == before + 1
+        assert torch.equal(got, want)
+
+
+def test_probe_ring_wrappers_refuse(gen):
+    from qeft_tpu_torch.probes import dma2
+
+    qw = _probe_words(gen, 64, 1024)
+    s = torch.zeros(8, 1024, device="cuda")
+    with pytest.raises(ValueError):  # bn does not divide N
+        dma2.dma_tile(qw, s, 384)
+    with pytest.raises(ValueError):  # fewer than 8 word rows
+        dma2.dma_tile(qw[:7], s, 256)
 
 
 @pytest.mark.parametrize("k,n,g,bn", [(1024, 384, 128, 128), (11008, 4096, 128, 512),

@@ -25,7 +25,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from qeft_tpu_torch.probes import dma, dma2, entry_overhead
+from qeft_tpu_torch.probes import dma, dma2, entry_overhead, ring_sweep
 from qeft_tpu_torch.probes import gemv_ablation as p4
 from tests.torch_parity import f32  # noqa: F401  (one torch thread per worker)
 
@@ -140,7 +140,7 @@ def test_p4_dequantized_weight_is_v0_full():
     assert (got - want).abs().max() <= P4_RTOL * want.abs().max()
 
 
-@pytest.mark.parametrize("module", [entry_overhead, dma, dma2, p4])
+@pytest.mark.parametrize("module", [entry_overhead, dma, dma2, p4, ring_sweep])
 def test_probe_mains_need_a_gpu_unless_cpu_is_named(monkeypatch, capsys, module):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
