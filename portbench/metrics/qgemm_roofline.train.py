@@ -1,0 +1,21 @@
+"""K2 (``qmm_gemm_kernel<false, ...>`` and ``qgemm_reduce_kernel``) in the
+traced WCT steps, forward and recomputed forward: the larger of operations
+over the bf16 peak and bytes over the HBM rate, over the trace's K2 time."""
+
+from portbench import costs, expect
+
+KERNEL = r"qmm_gemm_kernel<false"
+SUM = r"qgemm_reduce_kernel"
+
+
+def read(run):
+    if run.trace is None or run.peaks is None:
+        return None
+    want = expect.train(run)["qgemm"]
+    got = run.trace.kernels(KERNEL)
+    if not expect.matches("qgemm_roofline.train", want, got):
+        return None
+    d = run.dims
+    need = sum(costs.least_time(*costs.qgemm_call(m, k, n, d.group, d.n_outlier), run.peaks)
+               for m, k, n in want)
+    return 100.0 * need / expect.seconds(got + run.trace.kernels(SUM))
