@@ -1,0 +1,9 @@
+"""Share of the traced window (whole WCT steps) in which the device was idle
+while the host was innermost in a packed-linear span (``qeft.linear.*``:
+forward, backward)."""
+
+from portbench import programspans
+
+
+def read(run):
+    return programspans.idle_share(run.trace, "linear")

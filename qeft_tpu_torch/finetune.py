@@ -42,6 +42,7 @@ from qeft_tpu_torch.models.llama import (
     rope_tables,
 )
 from qeft_tpu_torch.ops.packing import QLinearParams
+from qeft_tpu_torch.utils.profiling import span
 
 IGNORE_INDEX = -100
 
@@ -273,9 +274,12 @@ def make_train_step(cfg, opt: WCTOptimizer, remat: bool = True,
     def train_step(oweights: Oweights, frozen: Dict, input_ids: torch.Tensor,
                    labels: torch.Tensor) -> torch.Tensor:
         opt.zero_grad()
-        loss = wct_loss(oweights, frozen, input_ids, labels, cfg, remat, family)
-        loss.backward()
-        opt.step()
+        with span("qeft.finetune.loss"):
+            loss = wct_loss(oweights, frozen, input_ids, labels, cfg, remat, family)
+        with span("qeft.finetune.backward"):
+            loss.backward()
+        with span("qeft.finetune.optimizer"):
+            opt.step()
         return loss.detach()
 
     return train_step

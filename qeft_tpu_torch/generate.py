@@ -31,6 +31,7 @@ import torch
 from qeft_tpu_torch.device import check_on, resolve_device
 from qeft_tpu_torch.models.api import ModelApi, get_model_api
 from qeft_tpu_torch.ops import cuda_lib
+from qeft_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,17 +123,23 @@ def _graph_loop(api, params, cache, cfg, tokens, s_prompt, sc, generator) -> Non
     n = tokens.shape[1]
     if s_prompt + n - 1 > cache["k"].shape[3]:
         raise IndexError(f"{s_prompt} + {n} tokens do not fit a {cache['k'].shape[3]}-slot cache")
-    loop = DecodeLoop(api, params, cache, cfg, tokens, s_prompt, sc, generator)
-    caller = torch.cuda.current_stream(tokens.device)
-    stream = torch.cuda.Stream(tokens.device)
-    stream.wait_stream(caller)
-    with torch.cuda.stream(stream):
-        loop.step()
-    graph = loop.capture(stream) if n > 2 else None
-    if graph is not None:
-        graph.replay(n - 2)
-    caller.wait_stream(stream)
-    stream.synchronize()  # before `graph` goes
+    with span("qeft.generate.first_step"):
+        loop = DecodeLoop(api, params, cache, cfg, tokens, s_prompt, sc, generator)
+        caller = torch.cuda.current_stream(tokens.device)
+        stream = torch.cuda.Stream(tokens.device)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            loop.step()
+    graph = None
+    if n > 2:
+        with span("qeft.generate.capture"):
+            graph = loop.capture(stream)
+        with span("qeft.generate.replay"):
+            graph.replay(n - 2)
+    with span("qeft.generate.wait"):
+        caller.wait_stream(stream)
+        stream.synchronize()  # before `graph` goes
+        del graph
 
 
 @torch.inference_mode()
@@ -157,10 +164,11 @@ def generate(params: Dict, prompt: torch.Tensor, cache: Dict, cfg, max_new_token
         generator = default_generator(device)
     prompt = prompt.to(device=device, dtype=torch.int64)
     b, s_prompt = prompt.shape
-    logits, cache = api.prefill(params, prompt, cache, cfg)
-    tokens = torch.full((b, max_new_tokens), -1 if eos_id is None else eos_id,
-                        dtype=torch.int64, device=device)
-    tokens[:, 0] = _sample_token(logits[:, -1, :], generator, sc)
+    with span("qeft.generate.prefill"):
+        logits, cache = api.prefill(params, prompt, cache, cfg)
+        tokens = torch.full((b, max_new_tokens), -1 if eos_id is None else eos_id,
+                            dtype=torch.int64, device=device)
+        tokens[:, 0] = _sample_token(logits[:, -1, :], generator, sc)
     if graph and eos_id is None and device.type == "cuda" and max_new_tokens > 1:
         _graph_loop(api, params, cache, cfg, tokens, s_prompt, sc, generator)
         return tokens, cache

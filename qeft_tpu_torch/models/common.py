@@ -23,6 +23,7 @@ import torch
 
 from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.qlinear import qlinear_apply
+from qeft_tpu_torch.utils.profiling import span
 
 
 def init_generator(device: torch.device, seed: int) -> torch.Generator:
@@ -80,17 +81,18 @@ def attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     q [B, Sq, H, Dh]; k/v [B, H_kv, Sk, Dh] head-major; ``mask`` an additive
     f32 bias broadcastable to [B, H, Sq, Sk].  Scores in x's dtype, then f32
     for the scale, the bias and the softmax.  Returns ctx [B, Sq, H*Dh]."""
-    b, sq, h, dh = q.shape
-    dtype = q.dtype
-    n_rep = h // k_all.shape[1]
-    k, v = k_all.to(dtype), v_all.to(dtype)
-    if n_rep > 1:
-        k, v = k.repeat_interleave(n_rep, dim=1), v.repeat_interleave(n_rep, dim=1)
-    scores = torch.matmul(q.transpose(1, 2), k.transpose(2, 3)).to(torch.float32) * dh ** -0.5
-    if mask is not None:
-        scores = scores + mask
-    probs = torch.softmax(scores, dim=-1).to(dtype)
-    return torch.matmul(probs, v).transpose(1, 2).reshape(b, sq, h * dh)
+    with span("qeft.model.attention"):
+        b, sq, h, dh = q.shape
+        dtype = q.dtype
+        n_rep = h // k_all.shape[1]
+        k, v = k_all.to(dtype), v_all.to(dtype)
+        if n_rep > 1:
+            k, v = k.repeat_interleave(n_rep, dim=1), v.repeat_interleave(n_rep, dim=1)
+        scores = torch.matmul(q.transpose(1, 2), k.transpose(2, 3)).to(torch.float32) * dh ** -0.5
+        if mask is not None:
+            scores = scores + mask
+        probs = torch.softmax(scores, dim=-1).to(dtype)
+        return torch.matmul(probs, v).transpose(1, 2).reshape(b, sq, h * dh)
 
 
 def causal_bias(query_pos: torch.Tensor, n_keys: int) -> torch.Tensor:
@@ -164,11 +166,14 @@ def forward_window(dec: Decoder, params: Dict, tokens: torch.Tensor, cache: Opti
     if dec.score_bias is not None:
         mask = mask + dec.score_bias(cfg, n_keys, tokens.device)
     rope = None if dec.rope is None else dec.rope(cfg, positions[None, :])
-    x = dec.embed(params, tokens, positions, cfg)
+    with span("qeft.model.embed"):
+        x = dec.embed(params, tokens, positions, cfg)
     layers = params["layers"]
     for l in range(layers[dec.norm].shape[0]):
-        x = dec.block(layers, l, x, cfg, mask, rope, cache, pos)
-    return dec.final(params, x, cfg), cache
+        with span("qeft.model.block"):
+            x = dec.block(layers, l, x, cfg, mask, rope, cache, pos)
+    with span("qeft.model.head"):
+        return dec.final(params, x, cfg), cache
 
 
 def pipeline_block_forward(dec: Decoder, layers: Dict, x: torch.Tensor, cfg,
@@ -202,15 +207,18 @@ def forward_train(dec: Decoder, params: Dict, tokens: torch.Tensor, cfg,
     checkpoints the whole forward: the same loss and gradients)."""
     from torch.utils.checkpoint import checkpoint
 
+    def block(layers, l, x):  # the recompute under remat opens the span again
+        with span("qeft.model.block"):
+            return dec.block(layers, l, x, cfg, mask, rope)
+
     mask, rope = full_window(dec, cfg, tokens.shape[1], tokens.device)
-    x = dec.embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device), cfg)
+    with span("qeft.model.embed"):
+        x = dec.embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device), cfg)
     layers = params["layers"]
     for l in range(layers[dec.norm].shape[0]):
-        if remat:
-            x = checkpoint(dec.block, layers, l, x, cfg, mask, rope, use_reentrant=False)
-        else:
-            x = dec.block(layers, l, x, cfg, mask, rope)
-    return dec.final(params, x, cfg)
+        x = checkpoint(block, layers, l, x, use_reentrant=False) if remat else block(layers, l, x)
+    with span("qeft.model.head"):
+        return dec.final(params, x, cfg)
 
 
 def forward(dec: Decoder, params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:

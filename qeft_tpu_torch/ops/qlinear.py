@@ -53,6 +53,7 @@ from qeft_tpu_torch.ops.qmm import (
     qgemv_stacked_fused,
     rms_norm,
 )
+from qeft_tpu_torch.utils.profiling import span
 
 
 def _without_kernels() -> bool:
@@ -75,20 +76,21 @@ def qlinear_fused_stage(x: torch.Tensor, p: QLinearParams, layer: int,
     `qlinear_apply_stacked` and the residual add one after another); more
     rows run the norm in PyTorch and the GEMM with the residual in its
     epilogue."""
-    tokens = x.numel() // x.shape[-1]
-    if _without_kernels():
+    with span("qeft.linear.forward"):
+        tokens = x.numel() // x.shape[-1]
+        if _without_kernels():
+            if lnw is not None:
+                x = rms_norm(x, lnw, eps, one_offset)
+            return qgemm_plain(x, p.layer(layer), residual)
+        if tokens <= DECODE_MAX_TOKENS and env.FUSED_DECODE:
+            return qgemv_stacked_fused(x, p, layer, lnw=lnw, residual=residual,
+                                       eps=eps, one_offset=one_offset)
         if lnw is not None:
             x = rms_norm(x, lnw, eps, one_offset)
-        return qgemm_plain(x, p.layer(layer), residual)
-    if tokens <= DECODE_MAX_TOKENS and env.FUSED_DECODE:
-        return qgemv_stacked_fused(x, p, layer, lnw=lnw, residual=residual,
-                                   eps=eps, one_offset=one_offset)
-    if lnw is not None:
-        x = rms_norm(x, lnw, eps, one_offset)
-    if tokens <= DECODE_MAX_TOKENS:
-        y = qlinear_apply_stacked(x, p, layer)
-        return y if residual is None else residual + y
-    return qgemm(x, p.layer(layer), residual=residual)
+        if tokens <= DECODE_MAX_TOKENS:
+            y = qlinear_apply_stacked(x, p, layer)
+            return y if residual is None else residual + y
+        return qgemm(x, p.layer(layer), residual=residual)
 
 
 def qlinear_apply_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torch.Tensor:
@@ -96,13 +98,14 @@ def qlinear_apply_stacked(x: torch.Tensor, p: QLinearParams, layer: int) -> torc
     no residual: the plain decode matvec (K6; K5 on the layer's view under
     ``QEFT_STACKED_GEMV=0``) for few rows, the GEMM (K2) on the layer's view
     for more."""
-    if _without_kernels():
-        return qgemm_plain(x, p.layer(layer))
-    if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
-        if env.STACKED_GEMV:
-            return qgemv_stacked(x, p, layer)
-        return qgemv(x, p.layer(layer))
-    return qgemm(x, p.layer(layer))
+    with span("qeft.linear.forward"):
+        if _without_kernels():
+            return qgemm_plain(x, p.layer(layer))
+        if x.numel() // x.shape[-1] <= DECODE_MAX_TOKENS:
+            if env.STACKED_GEMV:
+                return qgemv_stacked(x, p, layer)
+            return qgemv(x, p.layer(layer))
+        return qgemm(x, p.layer(layer))
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -141,22 +144,23 @@ class QLinearFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, qweight, scales, scaled_zeros, oweight, bias = ctx.saved_tensors
-        n, k = g.shape[-1], x.shape[-1]
-        g2 = g.reshape(-1, n)
-        ow = None if oweight is None else oweight.to(g.dtype)
-        dx = dow = dbias = None
-        if ctx.needs_input_grad[0]:
-            p = QLinearParams(qweight, scales, scaled_zeros, group_size=ctx.group_size)
-            tail = None if ow is None else matmul_f32(g2, ow.t())
-            dx = qgemm_t(g2, p, tail).reshape(x.shape)
-        if oweight is not None and ctx.needs_input_grad[4]:
-            r = oweight.shape[-2]
-            xr = x.reshape(-1, k)[:, k - r:].to(g.dtype)
-            dow = matmul_f32(xr.t(), g2).to(oweight.dtype)
-        if bias is not None and ctx.needs_input_grad[5]:
-            dbias = g2.to(torch.float32).sum(0).to(bias.dtype)
-        return dx, None, None, None, dow, dbias, None
+        with span("qeft.linear.backward"):
+            x, qweight, scales, scaled_zeros, oweight, bias = ctx.saved_tensors
+            n, k = g.shape[-1], x.shape[-1]
+            g2 = g.reshape(-1, n)
+            ow = None if oweight is None else oweight.to(g.dtype)
+            dx = dow = dbias = None
+            if ctx.needs_input_grad[0]:
+                p = QLinearParams(qweight, scales, scaled_zeros, group_size=ctx.group_size)
+                tail = None if ow is None else matmul_f32(g2, ow.t())
+                dx = qgemm_t(g2, p, tail).reshape(x.shape)
+            if oweight is not None and ctx.needs_input_grad[4]:
+                r = oweight.shape[-2]
+                xr = x.reshape(-1, k)[:, k - r:].to(g.dtype)
+                dow = matmul_f32(xr.t(), g2).to(oweight.dtype)
+            if bias is not None and ctx.needs_input_grad[5]:
+                dbias = g2.to(torch.float32).sum(0).to(bias.dtype)
+            return dx, None, None, None, dow, dbias, None
 
 
 def qlinear_apply(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
@@ -166,12 +170,13 @@ def qlinear_apply(x: torch.Tensor, p: QLinearParams) -> torch.Tensor:
     by its own permutation), then `QLinearFunction` -- or its forward alone
     where nothing needs a gradient (serving), which spares the autograd
     bookkeeping on the host.  ``x`` [..., K] -> [..., N]."""
-    if p.reorder_ids is not None:
-        x = x.index_select(-1, p.reorder_ids)
-    if _without_kernels():  # differentiable as it stands; the gather is done
-        return qgemm_plain(x, p)
-    args = (x, p.qweight, p.scales, p.scaled_zeros, p.oweight, p.bias, p.group_size)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, p.oweight, p.bias)):
-        return QLinearFunction.apply(*args)
-    return _forward(*args)
+    with span("qeft.linear.forward"):
+        if p.reorder_ids is not None:
+            x = x.index_select(-1, p.reorder_ids)
+        if _without_kernels():  # differentiable as it stands; the gather is done
+            return qgemm_plain(x, p)
+        args = (x, p.qweight, p.scales, p.scaled_zeros, p.oweight, p.bias, p.group_size)
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in (x, p.oweight, p.bias)):
+            return QLinearFunction.apply(*args)
+        return _forward(*args)

@@ -1,3 +1,3 @@
-from qeft_tpu_torch.utils.profiling import GLOBAL, Telemetry, phase_timer, profile_trace
+from qeft_tpu_torch.utils.profiling import profile_trace, span
 
-__all__ = ["GLOBAL", "Telemetry", "phase_timer", "profile_trace"]
+__all__ = ["profile_trace", "span"]

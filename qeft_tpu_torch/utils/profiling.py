@@ -1,76 +1,33 @@
-"""Phase timing and device traces.  Counterpart of
-``qeft_tpu/utils/profiling.py``.
+"""Spans and device traces of the port.
 
-`Telemetry` is a registry of phase times, `phase_timer` times a phase into
-it (the clock stopped after ``sync``: a callable, or a device whose work is
-synchronised first), and `profile_trace` records a ``torch.profiler`` trace
-of the CPU and, on the card, CUDA activity and writes it to ``logdir`` as a
-Chrome trace (chrome://tracing, Perfetto).
+`span` names a stretch of the program (``qeft.<layer>.<what>``, the list in
+``PERF.md`` §3) as a ``torch.profiler`` range, so that it lies on the device
+trace's own clock beside the kernels it launched; it costs one flag check
+when no profiler records.  `profile_trace` records a ``torch.profiler``
+trace of the CPU and, on the card, CUDA activity and writes it to
+``logdir`` as a Chrome trace (chrome://tracing, Perfetto).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
-import time
-from collections import defaultdict
-from typing import Dict, Optional
 
 import torch
 
-
-class Telemetry:
-    """Phase times by name: their total, count and mean."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    def record(self, name: str, seconds: float) -> None:
-        self.totals[name] += seconds
-        self.counts[name] += 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {name: {"total_s": round(self.totals[name], 4), "count": self.counts[name],
-                       "mean_s": round(self.totals[name] / max(self.counts[name], 1), 6)}
-                for name in sorted(self.totals)}
-
-    def dump(self, path: Optional[str] = None) -> str:
-        s = json.dumps(self.summary(), indent=1)
-        if path:
-            with open(path, "w") as f:
-                f.write(s)
-        return s
+_NO_RANGE = contextlib.nullcontext()
 
 
-GLOBAL = Telemetry()
-
-
-def _synchronise(sync) -> None:
-    if sync is None:
-        return
-    if callable(sync):
-        sync()
-        return
-    device = torch.device(sync)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def phase_timer(name: str, telemetry: Optional[Telemetry] = None, sync=None):
-    """Time the block as phase ``name`` (into `GLOBAL` by default).  The
-    clock stops after ``sync``: a callable (``lambda: out.cpu()``), or a
-    device (``"cuda"``, a ``torch.device``) synchronised first -- without
-    it an asynchronous launch is timed as its enqueue."""
-    t = telemetry or GLOBAL
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _synchronise(sync)
-        t.record(name, time.perf_counter() - t0)
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records
+    on this thread, else a context that does nothing (no dispatcher call).
+    No range opens while the current stream captures a CUDA graph: the
+    capture's host time stays with the span around the capture."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_RANGE
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        return _NO_RANGE
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
