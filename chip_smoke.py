@@ -21,7 +21,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and 4096 (llama2-7b's eval window) without a cache; K4,
    K4q and K8 at the main path's last position, each with its SDPA
    yardstick timed hot (one layer's cache) and rotating over a 32-layer
-   cache; K4, K4q and K8 each one CUDA kernel a call in the profiler
+   cache; K4's grouped-head path at Falcon-7b's batch of 8 (71 over 1,
+   2048 slots) and Falcon-40b's 128 over 8, timed at four positions beside
+   the families' plain attention over the whole cache that it replaced;
+   K4, K4q and K8 each one CUDA kernel a call in the profiler
    (``--only attention`` runs this phase alone, after device and build, and
    prints its rows with the profiler's kernels a call in place of launch
    counts, since no main path runs);
@@ -276,6 +279,10 @@ K1_STAGES = (("qkv", True, False), ("o", False, True), ("upgate", True, False),
 FAMILY_RUNS = (("phi", "phi-2", 128, True), ("bloom", "bloom-7b1", 128, False),
                ("falcon", "falcon-7b", 64, True))
 FAMILY_LAYERS, FAMILY_NEW = 2, 32
+# K4's grouped-head path at the falcon-7b.batch8 cell's shape: batch, query
+# heads over one kv head, cache slots, and the positions timed
+GROUP_B, GROUP_HEADS, GROUP_SLOTS = 8, 71, 2048
+GROUP_POSITIONS = (256, 700, 1280, 2047)
 HF_LAYERS = 1  # the hf phase's OPT-6.7B directory (cut from 2 for the time budget)
 # K3 windows without a cache: eval_ppl at 512, the calibration length, llama2-7b's context
 FULL_WINDOWS = (512, 2048, 4096)
@@ -851,6 +858,42 @@ def phase_attention_kernels(cfg, bw, rows):
     del kc, vc, lib_in
     k4.d["per"] = (f"one decode layer at pos {main_pos}, {CACHE} slots, rotating over {n_layers} "
                    "layers (hot_*: one layer; *_4096: pos 4095 of 4096, one cache)")
+
+    # ---- K4's grouped-head path (H / Hkv >= 16): Falcon-7b's batch of 8
+    log(f"[attention] K4 group path vs plain: Falcon-7b's {GROUP_B} x {GROUP_HEADS}/1 heads of 64 "
+        f"over {GROUP_SLOTS} slots; Falcon-40b's 128/8")
+    from qeft_tpu_torch.models.common import attention as family_attention
+    from qeft_tpu_torch.models.common import causal_bias
+
+    for b, h, kvh in ((GROUP_B, GROUP_HEADS, 1), (GROUP_B, 128, 8)):
+        q = randn(b, h, 64)
+        kc, vc = randn(b, kvh, GROUP_SLOTS, 64), randn(b, kvh, GROUP_SLOTS, 64)
+        for pos in (0, 15, 16, *GROUP_POSITIONS):
+            keep_err(k4, check(f"K4 group B={b} heads {h}/{kvh} pos {pos}",
+                               attention.decode_attention(q, kc, vc, pos),
+                               attention.decode_attention_plain(f32(q), f32(kc), f32(vc), pos)))
+        del kc, vc
+    q = randn(GROUP_B, GROUP_HEADS, 64)
+    kc, vc = randn(n_layers, GROUP_B, 1, GROUP_SLOTS, 64), randn(n_layers, GROUP_B, 1, GROUP_SLOTS, 64)
+    for pos in GROUP_POSITIONS:
+        ms = time_ms(lambda i: attention.decode_attention(q, kc[i % n_layers], vc[i % n_layers], pos))
+        mask = causal_bias(torch.tensor([pos], device="cuda"), GROUP_SLOTS)
+        glue = time_ms(lambda i: family_attention(q[:, None], kc[i % n_layers], vc[i % n_layers],
+                                                  mask))
+        nbytes = 2 * (2 * GROUP_B * GROUP_HEADS * 64) + 2 * GROUP_B * (pos + 1) * 64 * 2
+        b = bound_ms(nbytes, 4 * GROUP_B * GROUP_HEADS * (pos + 1) * 64)
+        k4.d.update({f"group_ms_{pos}": ms, f"group_glue_ms_{pos}": glue,
+                     f"group_bound_ms_{pos}": b[0]})
+        log(f"    pos {pos}, rotating over {n_layers} layers: kernel {ms * 1e3:.2f} us, the "
+            f"families' plain attention over the whole cache {glue * 1e3:.1f} us, bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B)")
+    per_call["decode_attention group"] = _kernels_a_call(
+        lambda i: attention.decode_attention(q, kc[i % n_layers], vc[i % n_layers],
+                                             GROUP_POSITIONS[1]))
+    del kc, vc
+    k4.d["per"] += (f"; group_*: Falcon-7b's B = {GROUP_B}, {GROUP_HEADS}/1 heads over "
+                    f"{GROUP_SLOTS} slots at pos {GROUP_POSITIONS}, rotating over {n_layers} layers, "
+                    "group_glue_*: the families' plain attention it replaces")
 
     # ---- K4q
     log("[attention] K4q decode_attention_int8 vs plain (int8 codes, f32 scales)")
@@ -2329,11 +2372,27 @@ def phase_family_kernels(cfg, params, bw, rows):
         del p
 
 
+def _decode_attention_launches(family, cfg, steps):
+    """The K4 launches of ``steps`` decode steps of a ``family`` model on the
+    card with a bf16 cache: one a layer and step where the family's decode
+    route holds (``common.decode_route``), else none."""
+    import importlib
+
+    from qeft_tpu_torch.models.common import decode_route
+
+    dec = importlib.import_module(f"qeft_tpu_torch.models.{family}").DECODER
+    if decode_route(1, torch.bfloat16, torch.bfloat16, "cuda", cfg.head_dim, dec.score_bias):
+        return {"decode_attention": cfg.num_layers * steps}
+    return {}
+
+
 def _family_generate(family, cfg, params, new_tokens, label):
     """``generate`` (prompt 64, ``new_tokens`` greedy, batch 1, 320-slot bf16
     cache) after a short warm-up, with the launch counts of path ``label``
     checked: K5 for every linear of every decode step, K2 for every linear
-    of the prefill, nothing else.  -> (prompt, tokens, seconds)."""
+    of the prefill, K4 for every layer of every decode step where the
+    family's decode route holds (``common.decode_route``), nothing else.
+    -> (prompt, tokens, seconds)."""
     from qeft_tpu_torch.generate import generate
     from qeft_tpu_torch.models.api import get_model_api
     from qeft_tpu_torch.models.registry import get_model_meta
@@ -2354,7 +2413,8 @@ def _family_generate(family, cfg, params, new_tokens, label):
         torch.cuda.synchronize()
         dt = time.perf_counter() - tick
     linears = len(get_model_meta(family).all_linears) * cfg.num_layers
-    want = {"qgemv": linears * (new_tokens - 1), "qgemm": linears}
+    want = {"qgemv": linears * (new_tokens - 1), "qgemm": linears,
+            **_decode_attention_launches(family, cfg, new_tokens - 1)}
     log(f"[{label}] prefill {PROMPT} + {new_tokens} greedy tokens in {dt:.3f} s -> "
         f"{new_tokens / dt:.2f} tok/s, {dt / new_tokens * 1e3:.3f} ms/token (host clock, decode "
         f"loop as CUDA graph replays); launches {c.counts}; expected {want}")
@@ -2367,16 +2427,19 @@ def _family_generate(family, cfg, params, new_tokens, label):
 
 def _dense_oracle(label, family, cfg, params, prompt, tokens):
     """The generated tokens teacher-forced through the kernel path and the
-    dense bf16 model it stands for (plain PyTorch): max logit difference per
-    step within ORACLE_RTOL of the dense logit scale, as phase_oracle bounds
-    it; the greedy agreement is that of the two argmaxes at each step."""
+    dense bf16 model it stands for (plain PyTorch, decode attention too:
+    ``QEFT_PALLAS_ATTN=0``): max logit difference per step within
+    ORACLE_RTOL of the dense logit scale, as phase_oracle bounds it; the
+    greedy agreement is that of the two argmaxes at each step."""
+    from qeft_tpu_torch import env
     from qeft_tpu_torch.models.api import get_model_api
     from qeft_tpu_torch.testing import dense_model
 
     api = get_model_api(family)
     dense = dense_model(params)
     lk = _teacher_forced(params, cfg, api, prompt, tokens)
-    ld = _teacher_forced(dense, cfg, api, prompt, tokens)
+    with env.setting(QEFT_PALLAS_ATTN="0"):
+        ld = _teacher_forced(dense, cfg, api, prompt, tokens)
     del dense
     torch.cuda.empty_cache()
     diff = (lk - ld).abs().amax(dim=-1)
@@ -2932,7 +2995,8 @@ def _family_quantize_one(family, preset, n_layers, g, reorder):
         torch.cuda.synchronize()
         dt = time.perf_counter() - tick
     _expect(f"{tag} generate from the packed checkpoint", c.counts,
-            {"qgemv": n_lin * (FAMILY_QUANT_NEW - 1), "qgemm": n_lin})
+            {"qgemv": n_lin * (FAMILY_QUANT_NEW - 1), "qgemm": n_lin,
+             **_decode_attention_launches(family, cfg, FAMILY_QUANT_NEW - 1)})
     eager = run(False)
     same = bool(torch.equal(got, eager))
     log(f"[{tag}] generate: {PROMPT} + {FAMILY_QUANT_NEW} tokens in {dt:.3f} s through the graph; "

@@ -49,6 +49,33 @@
 // 0.  No scratch, no second kernel, and every call sums in the same order
 // (bit-identical calls).
 //
+// The grouped-head path (decode_group_kernel): K4 where a kv head serves
+// rep = H / Hkv >= kGroupMin query heads (Falcon-7b's 71 over 1, Falcon-40b's
+// 128 over 8).  Passes of at most 4 heads would stream each chunk rep / HB
+// times (71 times: 71 is prime) with the tensor cores idle; the group's q
+// rows are instead the M dimension of mma.sync.m16n8k16 (71 rows: five m16
+// tiles, a warp each, padded with zero rows), and K and V stream once.  One
+// block a (sequence, kv head, split) -- blocks along z where rep exceeds a
+// block's 128 rows (64 at D = 256) -- the splits of one (sequence, kv head)
+// a cluster, as many as cover the card's SMs once, up to kGroupSplits (B = 8
+// groups of Falcon-7b: 16 splits, 128 blocks); the chunks are split_chunk's
+// over that number, so again a function of the valid length alone.  Warp 0
+// feeds a two-stage ring on mbarriers with one bulk copy a K or V row, into
+// rows padded by 16 bytes so that ldmatrix reads them without bank
+// conflicts.  Each warp runs FlashAttention-2 over its 16 rows as K3 does:
+// S = Q.K^T on the tensor cores (q as A fragments in registers, K through
+// ldmatrix; exact bf16 products, f32 sums), the online softmax in registers
+// (exp2 of scores prescaled by D^-0.5 log2 e, row max and sum across a
+// quad), P rounded to bf16 straight from the S registers as the A operand
+// of P.V (V through ldmatrix.trans, keys past the chunk's end read as 0).
+// The block's (max, sum, accumulator) go into its own shared memory, over
+// the consumed ring; after a cluster barrier each rank reads every split's
+// rows through distributed shared memory for its share of the output and
+// combines them in rank order; a second barrier keeps every block's shared
+// memory alive until then.  No scratch, no second kernel, bit-identical
+// calls.  Bound: HBM bytes, as K4 -- the tensor cores do 4 * 80 * D flops a
+// key and group (Falcon-7b), far under the card's ridge.
+//
 // Position on the device (pos_dev, an int64 scalar; NULL: the host int
 // pos).  A decode step captured once as a CUDA graph and replayed at every
 // position reads its position from the device; the grid is the same at
@@ -80,10 +107,10 @@ constexpr int kMaxStages = 2;  // tiles of the ring
 template <bool Q8>
 using kv_t = typename std::conditional<Q8, int8_t, bf16>::type;
 
-// keys a split: ceil(len / kC), rounded up to a multiple of kAlign
-// (qeft_tpu_torch/ops/attention.py:split_chunk is its twin)
-__host__ __device__ constexpr int split_chunk(int len) {
-  return ((len + kC - 1) / kC + kAlign - 1) / kAlign * kAlign;
+// keys a split of `splits`: ceil(len / splits), rounded up to a multiple of
+// kAlign (qeft_tpu_torch/ops/attention.py:split_chunk is its twin)
+__host__ __device__ constexpr int split_chunk(int len, int splits = kC) {
+  return ((len + splits - 1) / splits + kAlign - 1) / kAlign * kAlign;
 }
 
 struct Args {
@@ -494,9 +521,325 @@ cudaError_t launch(Args a, int B, cudaStream_t st) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// ---- the grouped-head path: K4 where H / Hkv >= kGroupMin
+
+constexpr int kGroupMin = 16;     // query heads a kv head from which K4 takes it
+constexpr int kGroupSplits = 16;  // most splits of a cluster (above 8: a non-portable size)
+
+// shared memory of a group block, in bytes from a 16-byte aligned base: a
+// two-stage ring of K and V tiles whose rows are padded by 16 bytes (the 8
+// row addresses of an ldmatrix fall in 8 distinct 16-byte bank groups);
+// over the ring, once its last tile is consumed, the block's [rows][D + 8]
+// f32 accumulator; the rows' max and sum; the mbarriers
+template <int D>
+struct GroupSmem {
+  static constexpr int WARPS = D == 256 ? 4 : 8;  // most m16 row tiles a block
+  static constexpr int ROWS = 16 * WARPS;
+  static constexpr int KT = D == 256 ? 32 : 64;                   // keys a tile
+  static constexpr int KB = D == 64 ? 64 : (D == 128 ? 32 : 16);  // keys a softmax step
+  static constexpr int PITCH = 2 * D + 16;                        // bytes a K or V row
+  static constexpr int STAGE = 2 * KT * PITCH;                    // K rows, then V rows
+  static constexpr int OP = D + 8;                                // floats an accumulator row
+  static constexpr int RING = kMaxStages * STAGE;
+  static constexpr int OACC = ROWS * OP * 4;
+  static constexpr int ML = RING > OACC ? RING : OACC;  // [2][ROWS] f32: max, then sum
+  static constexpr int BAR = ML + 2 * ROWS * 4;
+  static constexpr int BYTES = BAR + 8 * kMaxStages;
+};
+
+// a bf16 pair of V holding keys j (low half) and j + 1 (high half), a key
+// at or past n read as 0: the ring's rows past a chunk's end are stale, and
+// p = 0 times a stale NaN would not be 0
+__device__ __forceinline__ uint32_t keys_below(uint32_t w, int j, int n) {
+  return (j < n ? w & 0xffffu : 0u) | (j + 1 < n ? w & 0xffff0000u : 0u);
+}
+
+// grid (splits, B * Hkv, ceil(rep / rows)), clusters of `splits` along x;
+// a block serves rows = blockDim.x / 2 query heads of its kv head, 16 a warp
+template <int D>
+__global__ void __launch_bounds__(32 * GroupSmem<D>::WARPS)
+    decode_group_kernel(const Args a, const int splits) {
+  using L = GroupSmem<D>;
+  constexpr int KT = L::KT, KB = L::KB, PITCH = L::PITCH, OP = L::OP;
+  constexpr int NT = KB / 8;  // n8 tiles of a step's scores
+  constexpr int DT = D / 8;   // n8 tiles of the accumulator
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* oacc = reinterpret_cast<float*>(smem);
+  float* ml = reinterpret_cast<float*>(smem + L::ML);
+  const uint32_t ring = smem_u32(smem), bar0 = smem_u32(smem + L::BAR);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int head = blockIdx.y;  // b * Hkv + kv head
+  const int b = head / a.Hkv, hk = head - b * a.Hkv;
+  const int rep = a.H / a.Hkv;
+  const int rows = blockDim.x / 2, r0 = blockIdx.z * rows;  // the block's first row of the group
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+
+  const int len = a.pos_dev != nullptr
+                      ? (int)min(max(*a.pos_dev + a.len_off, 0LL), (long long)a.S)
+                      : a.len;
+  const int chunk = split_chunk(len, splits);
+  const int k0 = min(rank * chunk, len), k1 = min(k0 + chunk, len);
+  const int n_tiles = (k1 - k0 + KT - 1) / KT;
+  const bf16* kg = static_cast<const bf16*>(a.k) + (size_t)head * a.S * D;
+  const bf16* vg = static_cast<const bf16*>(a.v) + (size_t)head * a.S * D;
+
+  // warp 0: tile `step`'s K and V rows, one bulk copy a row (the padded
+  // rows are not one contiguous range in shared memory)
+  auto issue = [&](int step) {
+    const int st = step % kMaxStages, j0 = k0 + step * KT, n = min(KT, k1 - j0);
+    const uint32_t bar = bar0 + 8 * st, dst = ring + st * L::STAGE;
+    if (lane == 0) mbar_expect(bar, 2 * n * D * (int)sizeof(bf16));
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) {
+      bulk_load(dst + i * PITCH, kg + (size_t)(j0 + i) * D, D * sizeof(bf16), bar);
+      bulk_load(dst + (KT + i) * PITCH, vg + (size_t)(j0 + i) * D, D * sizeof(bf16), bar);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kMaxStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int s = 0; s < kMaxStages && s < n_tiles; ++s) issue(s);
+
+  // this thread's q rows (gid, gid + 8 of its warp's tile) as A fragments;
+  // rows past the group are zero
+  const int qr0 = r0 + warp * 16 + gid, qr1 = qr0 + 8;
+  const bf16* qg = a.q + ((size_t)b * a.H + (size_t)hk * rep) * D;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = 16 * kk + 2 * t;
+    auto word = [&](int r, int col) {
+      return r < rep ? __ldg(reinterpret_cast<const unsigned int*>(qg + (size_t)r * D + col)) : 0u;
+    };
+    qa[kk][0] = word(qr0, c);
+    qa[kk][1] = word(qr1, c);
+    qa[kk][2] = word(qr0, c + 8);
+    qa[kk][3] = word(qr1, c + 8);
+  }
+
+  const float sl2 = rsqrtf((float)D) * 1.4426950408889634f;  // D^-0.5 * log2 e
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
+  // ldmatrix row addresses, as K3 takes them: K two n8 tiles of one k step,
+  // V (transposed) two n8 tiles of dims over 16 keys
+  const uint32_t k_lane = ((lane >> 4) * 8 + (lane & 7)) * PITCH + ((lane >> 3) & 1) * 16;
+  const uint32_t v_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + (lane >> 4) * 16;
+
+  for (int step = 0; step < n_tiles; ++step) {
+    const int st = step % kMaxStages, n = min(KT, k1 - k0 - step * KT);
+    const uint32_t kt = ring + st * L::STAGE, vt = kt + KT * PITCH;
+    mbar_wait(bar0 + 8 * st, (step / kMaxStages) & 1);
+    for (int c = 0; c < n; c += KB) {
+      // S = Q K^T over keys c .. c + KB of the tile
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, kt + (c + nt * 8) * PITCH + k_lane + kk * 32);
+          mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], bk[0], bk[1]);
+          mma_bf16(s[nt + 1], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], bk[2], bk[3]);
+        }
+
+      // keys past the chunk's end masked; the online softmax of rows gid
+      // (elements 0, 1) and gid + 8 (2, 3), max across the quad
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = c + nt * 8 + 2 * t + e < n;
+          s[nt][e] = ok ? s[nt][e] * sl2 : -CUDART_INF_F;
+          s[nt][e + 2] = ok ? s[nt][e + 2] * sl2 : -CUDART_INF_F;
+          mx0 = fmaxf(mx0, s[nt][e]);
+          mx1 = fmaxf(mx1, s[nt][e + 2]);
+        }
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: key c is valid
+      const float al0 = m0 == mn0 ? 1.f : exp2f(m0 - mn0);     // 0 at the first step
+      const float al1 = m1 == mn1 ? 1.f : exp2f(m1 - mn1);
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nt][e] = exp2f(s[nt][e] - mn0);
+          s[nt][e + 2] = exp2f(s[nt][e + 2] - mn1);
+          ps0 += s[nt][e];
+          ps1 += s[nt][e + 2];
+        }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        o[dt][0] *= al0;
+        o[dt][1] *= al0;
+        o[dt][2] *= al1;
+        o[dt][3] *= al1;
+      }
+
+      // O += P V: P rounded to bf16 from the S registers, V through
+      // ldmatrix.trans, its keys past the chunk's end read as 0
+#pragma unroll
+      for (int kk = 0; kk < KB / 16; ++kk) {
+        const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        const int j = c + 16 * kk + 2 * t;  // this thread's keys j, j + 1, j + 8, j + 9
+        const bool ragged = c + 16 * kk + 16 > n;
+#pragma unroll
+        for (int dt = 0; dt < DT; dt += 2) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, vt + (c + 16 * kk) * PITCH + v_lane + dt * 16);
+          if (ragged) {
+            bv[0] = keys_below(bv[0], j, n);
+            bv[1] = keys_below(bv[1], j + 8, n);
+            bv[2] = keys_below(bv[2], j, n);
+            bv[3] = keys_below(bv[3], j + 8, n);
+          }
+          mma_bf16(o[dt], a0, a1, a2, a3, bv[0], bv[1]);
+          mma_bf16(o[dt + 1], a0, a1, a2, a3, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp has consumed the stage
+    if (warp == 0 && step + kMaxStages < n_tiles) {
+      fence_async_proxy();
+      issue(step + kMaxStages);
+    }
+  }
+
+  // the split's rows: (max, sum, unnormalised accumulator) into this
+  // block's shared memory, over the consumed ring (an empty chunk: max
+  // -inf, sum 0, accumulator 0)
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const int lr0 = warp * 16 + gid, lr1 = lr0 + 8;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    *reinterpret_cast<float2*>(oacc + lr0 * OP + dt * 8 + 2 * t) = make_float2(o[dt][0], o[dt][1]);
+    *reinterpret_cast<float2*>(oacc + lr1 * OP + dt * 8 + 2 * t) = make_float2(o[dt][2], o[dt][3]);
+  }
+  if (t == 0) {
+    ml[lr0] = m0;
+    ml[lr1] = m1;
+    ml[L::ROWS + lr0] = l0;
+    ml[L::ROWS + lr1] = l1;
+  }
+  cluster_arrive();
+  cluster_wait();  // every split's rows are written
+
+  // the output, 4 dims a thread and the rows shared out over the ranks:
+  // each reads every split's (max, sum, accumulator) through distributed
+  // shared memory and combines them in rank order
+  const int nrows = min(rows, rep - r0), vecs = D / 4;
+  for (int i = rank * blockDim.x + tid; i < nrows * vecs; i += splits * blockDim.x) {
+    const int row = i / vecs, d = (i - row * vecs) * 4;
+    float mr[kGroupSplits], mx = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < kGroupSplits; ++r) {
+      mr[r] = r < splits ? *cluster.map_shared_rank(ml + row, r) : -CUDART_INF_F;
+      mx = fmaxf(mx, mr[r]);
+    }
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kGroupSplits; ++r) {
+      if (r >= splits) break;
+      const float w = mr[r] == -CUDART_INF_F ? 0.f : exp2f(mr[r] - mx);
+      l += *cluster.map_shared_rank(ml + L::ROWS + row, r) * w;
+      const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(oacc + row * OP + d, r));
+      acc.x += x.x * w;
+      acc.y += x.y * w;
+      acc.z += x.z * w;
+      acc.w += x.w * w;
+    }
+    const bf162 lo = __floats2bfloat162_rn(l > 0.f ? acc.x / l : 0.f, l > 0.f ? acc.y / l : 0.f);
+    const bf162 hi = __floats2bfloat162_rn(l > 0.f ? acc.z / l : 0.f, l > 0.f ? acc.w / l : 0.f);
+    bf162* dst = reinterpret_cast<bf162*>(a.out + ((size_t)b * a.H + (size_t)hk * rep + r0 + row) * D + d);
+    dst[0] = lo;
+    dst[1] = hi;
+  }
+  cluster_arrive();
+  cluster_wait();  // no block leaves while its rows may still be read
+}
+
+// the group path's launch: as many m16 row tiles a block as the group
+// needs, up to GroupSmem's WARPS (more rows: blocks along z), and splits
+// enough that the grid covers the card's SMs once, at most kGroupSplits
+// (or 8 where the card cannot schedule a cluster of kGroupSplits)
+template <int D>
+cudaError_t launch_group(const Args& a, int B, cudaStream_t st) {
+  using L = GroupSmem<D>;
+  const int rep = a.H / a.Hkv;
+  const int warps = min((rep + 15) / 16, L::WARPS);
+  const int zb = (rep + 16 * warps - 1) / (16 * warps);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = st;
+  static int most = 0;  // the largest cluster, found at the first launch
+  if (most == 0) {
+    cudaError_t e = cudaFuncSetAttribute(decode_group_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (e != cudaSuccess) return e;
+    most = kC;
+    if (cudaFuncSetAttribute(decode_group_kernel<D>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess) {
+      int clusters = 0;
+      cfg.gridDim = dim3(kGroupSplits, 1, 1);
+      cfg.blockDim = dim3(32 * L::WARPS);
+      attrs[0].val.clusterDim.x = kGroupSplits;
+      if (cudaOccupancyMaxActiveClusters(&clusters, decode_group_kernel<D>, &cfg) == cudaSuccess &&
+          clusters > 0)
+        most = kGroupSplits;
+    }
+    cudaGetLastError();  // a refused query leaves no error behind
+  }
+  const int splits = max(1, min(most, sm_count() / (B * a.Hkv * zb)));
+  cfg.gridDim = dim3(splits, B * a.Hkv, zb);
+  cfg.blockDim = dim3(32 * warps);
+  attrs[0].val.clusterDim.x = splits;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, decode_group_kernel<D>, a, splits);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <int D, bool Q8>
 cudaError_t launch_heads(const Args& a, int B, cudaStream_t st) {
-  const int rep = a.H / a.Hkv;  // query heads a pass: the largest of 4, 2, 1 dividing it
+  const int rep = a.H / a.Hkv;
+  if (!Q8 && a.k_new == nullptr && rep >= kGroupMin) return launch_group<D>(a, B, st);  // K4 only
+  // query heads a pass: the largest of 4, 2, 1 dividing rep
   if (rep % 4 == 0) return launch<D, Q8, 4>(a, B, st);
   if (rep % 2 == 0) return launch<D, Q8, 2>(a, B, st);
   return launch<D, Q8, 1>(a, B, st);

@@ -115,6 +115,21 @@ class DecodeLoop:
         return cuda_lib.Graph(self.step, stream, generators=gens)
 
 
+# the decode loops' side stream of each device, by device index
+_side_streams: Dict[int, torch.cuda.Stream] = {}
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream the decode loops run and are captured on, one a device
+    for the process: PyTorch keeps a cuBLAS workspace (32 MiB on an H100)
+    for every stream a matmul has run on, so a fresh stream a request would
+    hold one more workspace after every request."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _side_streams:
+        _side_streams[index] = torch.cuda.Stream(index)
+    return _side_streams[index]
+
+
 def _graph_loop(api, params, cache, cfg, tokens, s_prompt, sc, generator) -> None:
     """Tokens 1.. of ``tokens``: the first decode step eagerly on a side
     stream, then the step captured there and replayed for the rest.  The
@@ -126,7 +141,7 @@ def _graph_loop(api, params, cache, cfg, tokens, s_prompt, sc, generator) -> Non
     with span("qeft.generate.first_step"):
         loop = DecodeLoop(api, params, cache, cfg, tokens, s_prompt, sc, generator)
         caller = torch.cuda.current_stream(tokens.device)
-        stream = torch.cuda.Stream(tokens.device)
+        stream = _side_stream(tokens.device)
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
             loop.step()

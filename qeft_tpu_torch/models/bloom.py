@@ -144,7 +144,7 @@ def bloom_block(layers: Dict, l: int, x: torch.Tensor, cfg: BloomConfig, mask: t
     vh = qkv[..., 2 * d:].reshape(b, s, h, dh).transpose(1, 2)
     if cache is not None:
         kh, vh = cache_write(cache, l, kh, vh, pos)
-    ctx = attention(q, kh, vh, mask)
+    ctx = attention(q, kh, vh, mask, pos)
     o_reorder = layers.get("o_reorder")
     x = x + linear(layers, "dense", l, apply_o_reorder(ctx, None if o_reorder is None
                                                        else o_reorder[l]))

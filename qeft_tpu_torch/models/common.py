@@ -11,7 +11,13 @@ stacked on a leading layer axis, every linear's bias is its own leaf
 Dh]``.  A packed linear is addressed as ``QLinearParams.layer(l)``, an
 unstacked view, so it reaches `ops.qlinear.qlinear_apply`: K5 at decode,
 K2 for a prefill window.  Attention is plain PyTorch, as the JAX families
-run XLA's ``_attention`` and no Pallas kernel.
+run XLA's ``_attention`` and no Pallas kernel -- except a decode step on the
+card, which `decode_route` sends through the port's decode kernel (K4, its
+grouped-head tensor-core path at 16 or more query heads a kv head: Falcon's
+71 over 1) over the valid prefix only: one token over a bf16 cache, bf16
+activations, a head size of 64, 128 or 256 and no score bias.  Prefill,
+windows, training, the quantization pipeline, CPU tensors, Bloom (ALiBi)
+and Phi-2 (head size 80) keep the plain path; ``QEFT_PALLAS_ATTN=0`` too.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from qeft_tpu_torch import env
+from qeft_tpu_torch.ops import cuda_lib
+from qeft_tpu_torch.ops.attention import decode_attention
 from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.qlinear import qlinear_apply
 from qeft_tpu_torch.utils.profiling import span
@@ -75,14 +84,53 @@ def gelu(y: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(y.to(torch.float32), approximate="tanh").to(y.dtype)
 
 
+# head sizes the decode kernel takes (csrc/decode_attention.cu)
+DECODE_HEAD_DIMS = (64, 128, 256)
+
+
+def decode_route(window: int, dtype, kv_dtype, device_type: str, head_dim: int,
+                 score_bias) -> bool:
+    """Whether a window's attention over the cache runs the decode kernel:
+    one token (``window`` 1) in ``dtype`` bf16 over a bf16 cache
+    (``kv_dtype``; None: no cache) on the card, a head size the kernel
+    takes, and no ``score_bias`` (Bloom's ALiBi is one).  Everything else
+    runs the plain `attention` over the whole cache."""
+    return (window == 1 and device_type == "cuda" and dtype == torch.bfloat16
+            and kv_dtype == torch.bfloat16 and head_dim in DECODE_HEAD_DIMS
+            and score_bias is None)
+
+
+def _decode_kernel(dec: "Decoder", x: torch.Tensor, cache: Optional[Dict]) -> bool:
+    """`decode_route` of the window x [B, W, D] over ``cache``; under
+    ``QEFT_PALLAS_ATTN=0`` the plain path, as the llama decoders' ablation."""
+    if cache is None:
+        return False
+    k = cache["k"]
+    if not decode_route(x.shape[1], x.dtype, k.dtype, k.device.type, k.shape[-1],
+                        dec.score_bias):
+        return False
+    if not env.PALLAS_ATTN:
+        env.announce("QEFT_PALLAS_ATTN")
+        return False
+    return True
+
+
 def attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
-              mask: Optional[torch.Tensor]) -> torch.Tensor:
+              mask: Optional[torch.Tensor], pos=None) -> torch.Tensor:
     """Masked softmax attention (``qeft_tpu/models/llama.py::_attention``):
     q [B, Sq, H, Dh]; k/v [B, H_kv, Sk, Dh] head-major; ``mask`` an additive
     f32 bias broadcastable to [B, H, Sq, Sk].  Scores in x's dtype, then f32
-    for the scale, the bias and the softmax.  Returns ctx [B, Sq, H*Dh]."""
+    for the scale, the bias and the softmax.  Returns ctx [B, Sq, H*Dh].
+
+    ``mask`` None: a decode step that `forward_window` routed to the kernel
+    (`decode_route`): q's one token at ``pos`` (an int, or an int64 scalar
+    on the card) over the cache's slots <= pos, through
+    `ops.attention.decode_attention`."""
     with span("qeft.model.attention"):
         b, sq, h, dh = q.shape
+        if mask is None:
+            ctx = decode_attention(cuda_lib.aligned(q[:, 0]), k_all, v_all, pos)
+            return ctx.reshape(b, 1, h * dh)
         dtype = q.dtype
         n_rep = h // k_all.shape[1]
         k, v = k_all.to(dtype), v_all.to(dtype)
@@ -157,17 +205,20 @@ def forward_window(dec: Decoder, params: Dict, tokens: torch.Tensor, cache: Opti
     step also an int64 scalar tensor on the device, with bit-identical
     logits: nothing here reads it on the host); with ``cache`` its K/V
     are written in place and attention reads the whole cache (prefill at
-    pos = 0, a decode step at W = 1), without one it attends within the
-    window.  Returns (logits [B, W, V], cache)."""
+    pos = 0, a decode step at W = 1) -- or, where `decode_route` holds, the
+    decode kernel reads slots <= pos and no mask is built -- without one it
+    attends within the window.  Returns (logits [B, W, V], cache)."""
     w = tokens.shape[1]
     positions = pos + torch.arange(w, device=tokens.device)
-    n_keys = w if cache is None else cache["k"].shape[3]
-    mask = causal_bias(positions, n_keys)
-    if dec.score_bias is not None:
-        mask = mask + dec.score_bias(cfg, n_keys, tokens.device)
     rope = None if dec.rope is None else dec.rope(cfg, positions[None, :])
     with span("qeft.model.embed"):
         x = dec.embed(params, tokens, positions, cfg)
+    mask = None
+    if not _decode_kernel(dec, x, cache):
+        n_keys = w if cache is None else cache["k"].shape[3]
+        mask = causal_bias(positions, n_keys)
+        if dec.score_bias is not None:
+            mask = mask + dec.score_bias(cfg, n_keys, tokens.device)
     layers = params["layers"]
     for l in range(layers[dec.norm].shape[0]):
         with span("qeft.model.block"):

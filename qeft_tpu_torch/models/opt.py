@@ -130,7 +130,8 @@ def opt_block(layers: Dict, l: int, x: torch.Tensor, cfg: OPTConfig, mask: torch
               rope=None, cache: Optional[Dict] = None, pos: int = 0,
               capture: Optional[Dict] = None) -> torch.Tensor:
     """Decoder block ``l``; with ``cache`` its K/V are written at ``pos`` and
-    attention reads the layer's whole cache under ``mask``.  OPT has no
+    attention reads the layer's whole cache under ``mask`` (None: the decode
+    kernel reads slots <= ``pos``, `common.attention`).  OPT has no
     rotary embedding (``rope`` is None).  ``capture`` receives the inputs of
     the four quantization stages (``qkv_in``, ``o_in`` before the o gather,
     ``ffn1_in``, ``ffn2_in``), as JAX's ``opt_block(capture=True)`` returns
@@ -149,7 +150,7 @@ def opt_block(layers: Dict, l: int, x: torch.Tensor, cfg: OPTConfig, mask: torch
     vh = linear(layers, "v", l, x).reshape(b, s, h, dh).transpose(1, 2)
     if cache is not None:
         kh, vh = cache_write(cache, l, kh, vh, pos)
-    ctx = attention(q, kh, vh, mask)
+    ctx = attention(q, kh, vh, mask, pos)
     o_reorder = layers.get("o_reorder")
     if capture is not None:
         capture["o_in"] = ctx

@@ -131,7 +131,7 @@ def phi_block(layers: Dict, l: int, x: torch.Tensor, cfg: PhiConfig, mask: torch
     vh = linear(layers, "v", l, h).reshape(b, s, hkv, dh).transpose(1, 2)
     if cache is not None:
         kh, vh = cache_write(cache, l, kh, vh, pos)
-    ctx = attention(q, kh, vh, mask)
+    ctx = attention(q, kh, vh, mask, pos)
     o_reorder = layers.get("o_reorder")
     attn_out = linear(layers, "o", l, apply_o_reorder(ctx, None if o_reorder is None
                                                       else o_reorder[l]))

@@ -26,7 +26,11 @@ kernels apply them.
 The three are one kernel template: one launch of a thread block cluster
 of `SPLITS` blocks per (sequence, kv head), each over a chunk of
 `split_chunk` keys from key 0, combined in rank order through the
-cluster's shared memory -- no scratch and no second pass.
+cluster's shared memory -- no scratch and no second pass.  `decode_attention`
+on a bf16 cache whose kv head serves `GROUP_MIN` or more query heads
+(Falcon's 71 over 1) takes the kernel's grouped-head path instead: the
+group's query rows on the tensor cores, K and V streamed once, and the
+splits that `group_grid` gives, combined the same way.
 
 ``pos`` is a Python int or an int64 scalar tensor (the position of a decode
 step captured once as a CUDA graph and replayed at every position).  The
@@ -49,14 +53,30 @@ from qeft_tpu_torch.ops.flash import masked_attention
 
 # blocks of a cluster: the splits of one (sequence, kv head)'s keys (csrc kC)
 SPLITS = 8
+# the grouped-head path: from this many query heads a kv head (csrc
+# kGroupMin), with at most this many splits a cluster (kGroupSplits)
+GROUP_MIN = 16
+GROUP_SPLITS = 16
 
 
-def split_chunk(length: int) -> int:
-    """Keys a split takes of ``length`` valid keys: ceil(length / SPLITS)
+def split_chunk(length: int, splits: int = SPLITS) -> int:
+    """Keys a split takes of ``length`` valid keys: ceil(length / splits)
     rounded up to a multiple of 16, from key 0 (the twin of csrc's
     ``split_chunk``); split r takes keys [r * chunk, (r + 1) * chunk)."""
-    per = -(-length // SPLITS)
+    per = -(-length // splits)
     return -(-per // 16) * 16
+
+
+def group_grid(b: int, h: int, hkv: int, d: int, sms: int) -> tuple:
+    """(splits, warps, row blocks) of the grouped-head path (the twin of
+    csrc's ``launch_group`` on a card that schedules clusters of
+    `GROUP_SPLITS`): a warp a 16-row tile of the group's ``h // hkv`` query
+    heads, at most 8 a block (4 at ``d`` = 256), blocks along z for more;
+    splits enough that the grid covers ``sms`` SMs once."""
+    rep = h // hkv
+    warps = min(-(-rep // 16), 4 if d == 256 else 8)
+    blocks = -(-rep // (16 * warps))
+    return max(1, min(GROUP_SPLITS, sms // (b * hkv * blocks))), warps, blocks
 
 
 def _scores(q, k, d):

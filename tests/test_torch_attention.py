@@ -4,7 +4,8 @@ run in interpret mode on the CPU, in f32.
 K3: `flash_window_attention` (plain on CPU tensors) against
 ``pallas_flash.flash_window_attention`` with GQA, pos > 0, S not a multiple
 of the query block, and per-sequence [B] positions.  K4: `decode_attention`
-against ``pallas_attention.decode_attention`` at several positions.
+against ``pallas_attention.decode_attention`` at several positions, also at
+the query groups of the kernel's grouped-head path (71 over 1, 16 over 1).
 
 Tolerance 2e-5 (abs and rel), the JAX flash test's own: both sides are f32
 softmaxes, blockwise-online on the Pallas side and one masked softmax here.
@@ -73,7 +74,7 @@ def test_flash_rows_do_not_depend_on_window_width():
 
 
 @pytest.mark.parametrize("pos", [0, 5, 15, 37, 63])
-@pytest.mark.parametrize("h,hkv,d", [(8, 4, 128), (4, 4, 64)])
+@pytest.mark.parametrize("h,hkv,d", [(8, 4, 128), (4, 4, 64), (71, 1, 64), (16, 1, 64)])
 def test_decode_attention_matches_pallas(pos, h, hkv, d):
     rng = np.random.default_rng(pos)
     b, s = 2, 64

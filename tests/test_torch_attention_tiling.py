@@ -13,6 +13,11 @@ rank order, seeded with K8's new-token term.  Tolerance 2e-5, the JAX
 attention tests' own: f32 softmaxes, blockwise online on both sides in
 another order.
 
+K4's grouped-head path (H / Hkv >= 16): the splits that cover the card's
+SMs, chunks of ``split_chunk(len, splits)`` keys, each walked in tiles and
+softmax steps of its head size with base-2 exponentials and P in bf16 for
+P.V, the splits combined in rank order; against the JAX kernel as K3 below.
+
 K3: rows in tiles of 16, key chunks of 64 from key 0 up to the last key the
 tile's rows may see, scores prescaled by D^-0.5 log2 e and exponentiated in
 base 2, alpha exactly 1 while a row's max holds, and P rounded to bf16 for
@@ -199,6 +204,115 @@ def test_stacked_at_position_zero_is_the_new_token():
     kn, vn = (rng.normal(size=(1, 2, 64)).astype(F32) for _ in range(2))
     got = emulate_decode(q, kc, vc, 0, k_new=kn, v_new=vn)
     assert np.array_equal(got, np.repeat(vn, 2, axis=1))
+
+
+
+# ---------------------------------------------------------------- K4's group path
+
+SMS = 132  # the H100's SMs, from which launch_group sizes its splits
+
+
+def _group_sizes(d):
+    """(keys a tile, keys a softmax step) of the group path at head size d
+    (csrc GroupSmem's KT, KB)."""
+    return (32 if d == 256 else 64), {64: 64, 128: 32, 256: 16}[d]
+
+
+def emulate_group(q, k, v, length, bf16_p=True):
+    """K4's grouped-head path over slots [0, length): q [B, H, D], k / v
+    [B, Hkv, S, D].  The splits of `attention.group_grid`, chunks of
+    `split_chunk` keys, tiles and softmax steps as the kernel walks them,
+    exp2 of scores prescaled by D^-0.5 log2 e, alpha exactly 1 while a row's
+    max holds, P in bf16 for P.V, the splits combined in rank order.
+    Returns [B, H, D] f32."""
+    b_, h_, d = q.shape
+    hkv = k.shape[1]
+    rep = h_ // hkv
+    splits = attention.group_grid(b_, h_, hkv, d, SMS)[0]
+    kt, kb = _group_sizes(d)
+    chunk = attention.split_chunk(length, splits)
+    sl2 = F32(d ** -0.5) * F32(1.4426950408889634)
+    out = np.zeros((b_, h_, d), F32)
+    for b in range(b_):
+        for hk in range(hkv):
+            qh = q[b, hk * rep:(hk + 1) * rep].astype(F32)
+            parts = []
+            for r in range(splits):
+                k0, k1 = min(r * chunk, length), min(r * chunk + chunk, length)
+                m = np.full(rep, -np.inf, F32)
+                l = np.zeros(rep, F32)
+                acc = np.zeros((rep, d), F32)
+                for t0 in range(k0, k1, kt):
+                    for j0 in range(t0, min(t0 + kt, k1), kb):
+                        j1 = min(j0 + kb, k1)
+                        s = (qh @ k[b, hk, j0:j1].astype(F32).T) * sl2
+                        mn = np.maximum(m, s.max(axis=1))
+                        al = np.where(m == mn, F32(1), np.exp2(m - mn)).astype(F32)
+                        p = np.exp2(s - mn[:, None]).astype(F32)
+                        l = l * al + p.sum(axis=1)
+                        acc = acc * al[:, None] + (_bf16(p) if bf16_p else p) @ v[b, hk, j0:j1]
+                        m = mn
+                parts.append((m, l, acc))
+            mx = np.max([m_r for m_r, _, _ in parts], axis=0)
+            l = np.zeros(rep, F32)
+            o = np.zeros((rep, d), F32)
+            for m_r, l_r, acc_r in parts:  # rank order; an empty chunk adds nothing
+                ok = m_r != -np.inf
+                w = np.where(ok, np.exp2(np.where(ok, m_r - mx, 0)), 0).astype(F32)
+                l = l + l_r * w
+                o = o + acc_r * w[:, None]
+            out[b, hk * rep:(hk + 1) * rep] = o / l[:, None]
+    return out
+
+
+def test_group_constants_are_the_kernels():
+    src = (CSRC / "decode_attention.cu").read_text()
+    assert re.search(rf"constexpr int kGroupMin = {attention.GROUP_MIN};", src)
+    assert re.search(rf"constexpr int kGroupSplits = {attention.GROUP_SPLITS};", src)
+    assert re.search(r"KT = D == 256 \? 32 : 64;", src)
+    assert re.search(r"KB = D == 64 \? 64 : \(D == 128 \? 32 : 16\);", src)
+
+
+@pytest.mark.parametrize("b,h,hkv,d,want", [
+    (8, 71, 1, 64, (16, 5, 1)),    # Falcon-7b's batch of 8: 128 blocks of five row tiles
+    (1, 71, 1, 64, (16, 5, 1)),
+    (8, 128, 8, 64, (2, 1, 1)),    # Falcon-40b: 16 over 8, one row tile
+    (1, 16, 1, 256, (16, 1, 1)),
+    (1, 160, 1, 64, (16, 8, 2)),   # past 128 rows: a second block along z
+    (4, 96, 1, 256, (16, 4, 2)),   # 64 rows a block at D = 256
+    (64, 64, 4, 128, (1, 1, 1)),   # more groups than SMs: one split
+])
+def test_group_grid(b, h, hkv, d, want):
+    assert attention.group_grid(b, h, hkv, d, SMS) == want
+
+
+@pytest.mark.parametrize("splits", [1, 2, 16])
+@pytest.mark.parametrize("length", [1, 15, 16, 17, 255, 256, 257, 700, 2048])
+def test_group_split_chunks_tile_the_valid_keys(splits, length):
+    """The group path's chunks, from key 0 at multiples of 16, cover [0,
+    length) once in rank order for any number of splits."""
+    c = attention.split_chunk(length, splits)
+    assert c % 16 == 0 and c * splits >= length
+    covered = []
+    for r in range(splits):
+        covered.extend(range(min(r * c, length), min(r * c + c, length)))
+    assert covered == list(range(length))
+
+
+@pytest.mark.parametrize("pos", [0, 15, 16, 100, 255])
+@pytest.mark.parametrize("h,hkv,d", [(71, 1, 64), (16, 1, 64), (32, 2, 128), (16, 1, 256)])
+def test_group_path_matches_pallas(pos, h, hkv, d):
+    """With P kept in f32 the group path's order of operations meets the
+    JAX kernel at 2e-5; with P in bf16 (the kernel) each weight moves by at
+    most 2**-8 of itself, so the output by at most 2**-8 of max |v|."""
+    rng = np.random.default_rng(pos + d)
+    b, s = 2, 256
+    q = rng.normal(size=(b, h, d)).astype(F32)
+    k, v = (rng.normal(size=(b, hkv, s, d)).astype(F32) for _ in range(2))
+    ref = np.asarray(jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos, blk=64))
+    np.testing.assert_allclose(emulate_group(q, k, v, pos + 1, bf16_p=False), ref, **TOL)
+    got = emulate_group(q, k, v, pos + 1)
+    assert np.abs(got - ref).max() <= 2.0 ** -8 * np.abs(v).max()
 
 
 # ---------------------------------------------------------------- K3

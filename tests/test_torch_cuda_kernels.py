@@ -86,11 +86,11 @@ def _f32(t):
     return t.float() if t is not None and t.is_floating_point() else t
 
 
-def _close(got, want):
+def _close(got, want, rtol=RTOL):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     err = (got.float() - want).abs().max().item()
     assert torch.isfinite(got.float()).all()
-    assert err <= RTOL * want.abs().max().item(), err
+    assert err <= rtol * want.abs().max().item(), err
 
 
 @pytest.mark.parametrize("m", [1, 3, 8])
@@ -693,6 +693,126 @@ def test_decode_attention_at_a_device_position_is_bit_identical(gen, pos):
         sk, sv = (t[None].expand(2, *t.shape).contiguous() for t in (kk, vv))
         assert torch.equal(attention.decode_attention_stacked(q, sk, sv, 1, at, kn, vn, **stacked),
                            attention.decode_attention_stacked(q, sk, sv, 1, pos, kn, vn, **stacked))
+
+
+# the grouped-head path of K4 (H / Hkv >= 16, bf16): Falcon-7b's batch of 8
+# (71 over 1), Falcon-40b's 128 over 8, 16 over 1 at D = 128 and 256, and
+# 160 over 1 (a second block of rows along z)
+GROUP_CASES = [(8, 71, 1, 64, 2048), (8, 128, 8, 64, 2048), (2, 32, 2, 128, 1024),
+               (1, 16, 1, 256, 512), (1, 160, 1, 64, 300)]
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s", GROUP_CASES)
+def test_decode_group_path(gen, b, h, hkv, d, s):
+    """The group path against the plain version in f32 and against the
+    families' plain attention over the whole cache under the causal mask
+    (``common.attention``, what a family's decode step ran before the
+    route), at positions where the splits' chunks are empty (0, 15),
+    step (16) and fill the cache; one launch a call, bit-identical calls.
+    The families' path runs in bf16 and rounds each score q.k to bf16
+    before the softmax (2**-9 of |q.k|, about 0.06 at these inputs, before
+    the D**-0.5 scale), which alone moves its outputs by about 1 % of their
+    scale: it is held at twice the f32 tolerance."""
+    from qeft_tpu_torch.models.common import attention as family_attention
+    from qeft_tpu_torch.models.common import causal_bias
+
+    q = _randn(gen, b, h, d)
+    k, v = _randn(gen, b, hkv, s, d), _randn(gen, b, hkv, s, d)
+    for pos in sorted({0, 15, 16, 255, 700, 2047} & set(range(s)) | {s - 1}):
+        got = _once_and_again("decode_attention", lambda: attention.decode_attention(q, k, v, pos))
+        _close(got, attention.decode_attention_plain(_f32(q), _f32(k), _f32(v), pos))
+        mask = causal_bias(torch.tensor([pos], device="cuda"), s)
+        old = family_attention(q[:, None], k, v, mask).reshape(b, h, d)
+        _close(got, old.float(), rtol=2 * RTOL)
+
+
+def test_decode_group_path_at_a_device_position_and_in_a_graph(gen):
+    """Falcon-7b's batch-8 shape: the position read on the device gives the
+    host int's output bit for bit, and one captured launch replayed at
+    advancing positions gives each eager launch's output."""
+    b, h, hkv, d, s = 8, 71, 1, 64, 2048
+    q = _randn(gen, b, h, d)
+    k, v = _randn(gen, b, hkv, s, d), _randn(gen, b, hkv, s, d)
+    positions = [0, 15, 16, 255, 700, 1280, 2047]
+    at = torch.zeros((), dtype=torch.int64, device="cuda")
+    for pos in positions:
+        at.fill_(pos)
+        assert torch.equal(attention.decode_attention(q, k, v, at),
+                           attention.decode_attention(q, k, v, pos)), pos
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = cuda_lib.Graph(lambda: attention.decode_attention(q, k, v, at), stream)
+    for pos in positions:
+        at.fill_(pos)
+        torch.cuda.current_stream().synchronize()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph.output, attention.decode_attention(q, k, v, pos)), pos
+
+
+def _tiny_family(family, **widths):
+    """A two-layer packed model of ``family`` on the card at head size 64
+    (the tiny presets' 32 is no size the decode kernel takes)."""
+    import importlib
+
+    from qeft_tpu_torch.testing import build_packed_model
+
+    module = importlib.import_module(f"qeft_tpu_torch.models.{family}")
+    cfg = dataclasses.replace(getattr(module, f"{family.upper()}_PRESETS")[f"{family}-tiny"],
+                              **widths)
+    return cfg, build_packed_model(cfg, seed=0, g=64, r=16, device="cuda", family=family)
+
+
+@pytest.mark.parametrize("family,widths,routed", [
+    ("falcon", dict(hidden_size=256, num_heads=4), True),     # 4 over 1: K4's 4-head pass
+    ("falcon", dict(hidden_size=1024, num_heads=16), True),   # 16 over 1: the group path
+    ("bloom", dict(hidden_size=256, num_heads=4), False),     # ALiBi: the plain path
+])
+def test_family_decode_attention_launches(gen, family, widths, routed):
+    """A greedy ``generate`` of n tokens (graph replays counted) launches
+    one decode-attention kernel a layer and step where the route holds, 2 x
+    (n - 1), and none for Bloom; its tokens equal those of the plain path
+    (``QEFT_PALLAS_ATTN=0``) on the same prompt."""
+    from qeft_tpu_torch import env
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+
+    cfg, params = _tiny_family(family, **widths)
+    api = get_model_api(family)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen, device="cuda")
+    n = 24
+    out = {}
+    for kernel in ("1", "0"):
+        with env.setting(QEFT_PALLAS_ATTN=kernel):
+            cache = api.init_cache(cfg, 2, 40, dtype=torch.bfloat16, device="cuda")
+            cuda_lib.reset_launches()
+            out[kernel], _ = generate(params, prompt, cache, cfg, n, api=api, device="cuda")
+            torch.cuda.synchronize()
+            out[kernel, "attention"] = cuda_lib.launches["decode_attention"]
+    assert out["1", "attention"] == (cfg.num_layers * (n - 1) if routed else 0)
+    assert out["0", "attention"] == 0
+    assert torch.equal(out["1"], out["0"])
+
+
+
+def test_graph_generate_holds_no_memory_from_request_to_request(gen):
+    """Each ``generate`` on the card captures its decode step on the same
+    side stream, so a request leaves nothing allocated behind it (a fresh
+    stream a request kept one more cuBLAS workspace after every request)."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+
+    cfg, params = _tiny_family("falcon", hidden_size=256, num_heads=4)
+    api = get_model_api("falcon")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen, device="cuda")
+    cache = api.init_cache(cfg, 2, 40, dtype=torch.bfloat16, device="cuda")
+    held = []
+    for _ in range(4):
+        tokens, _ = generate(params, prompt, cache, cfg, 8, api=api, device="cuda")
+        del tokens
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    assert held[1] == held[2] == held[3], held
 
 
 def _graph_models():
