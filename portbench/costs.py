@@ -12,7 +12,9 @@ the bytes a token of ``phase_opt``), with training counted without the
 recomputed forward: operations the step needs, not the ones remat spends.
 
 Attention counts what its inputs need: causal pairs only, and at decode the
-keys up to the position, never the whole static cache."""
+keys up to the position, never the whole static cache.  A whole step's
+count is the family's (`portbench.families`): which linears a step reads,
+and how often, is the family's to state."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import json
 from pathlib import Path
 from typing import Dict, Optional
 
+from portbench.families import family
 from portbench.shapes import Dims
 
 PEAKS = Path(__file__).resolve().parent / "peaks.json"
@@ -58,45 +61,19 @@ def qgemm_t_call(m: int, k: int, n: int, g: int, r_tail: int):
     return 2 * m * k * n, weight_bytes(k, n, g, 0, False) + 2 * m * n + 2 * m * k + 4 * m * r_tail
 
 
-def decode_step(dims: Dims, batch: int, keys: int):
-    """(operations, bytes) one decode step needs at ``keys`` cached positions
-    (the new one included): the packed linears, their slabs, scales and
-    biases, the head, and K and V of every layer up to the position."""
-    ops = nbytes = 0
-    for _, k, n in dims.linears:
-        o, _ = qgemv_call(batch, k, n, dims.group, dims.n_outlier, dims.biases)
-        ops += o
-        nbytes += weight_bytes(k, n, dims.group, dims.n_outlier, dims.biases)
-    ops *= dims.layers
-    nbytes *= dims.layers
-    ops += 4 * batch * dims.heads * dims.head_dim * keys * dims.layers
-    nbytes += 2 * 2 * dims.layers * batch * dims.kv_heads * keys * dims.head_dim
-    ops += 2 * batch * dims.hidden * dims.vocab
-    nbytes += 2 * dims.hidden * dims.vocab
-    return ops, nbytes
-
-
 def attention_pairs(seq: int) -> int:
     """Causal (query, key) pairs of one sequence."""
     return seq * (seq + 1) // 2
 
 
+def decode_step(dims: Dims, *step):
+    """(operations, bytes) one decode step needs; ``step`` is one entry of
+    the family's ``expect_decode`` steps (the dense families: batch and
+    cached keys)."""
+    return family(dims.family).decode_step(dims, *step)
+
+
 def train_step_ops(dims: Dims, batch: int, seq: int) -> int:
-    """Operations one WCT step needs, without the recomputed forward: each
-    packed linear forward over K + r rows, its ``dx`` over K rows (not for the
-    first layer's linears fed by the embedding's norm, whose input needs no
-    gradient), the slab's
-    gradient and its share of ``dx``; causal attention forward and twice
-    backward; the head forward and its ``dx``."""
-    m = batch * seq
-    per_layer = first_layer = 0
-    for name, k, n in dims.linears:
-        r = dims.n_outlier
-        fwd = 2 * m * n * (k + r)
-        dx = 2 * m * k * n
-        slab = 2 * (2 * m * r * n)
-        per_layer += fwd + dx + slab
-        first_layer += fwd + (0 if name in dims.norm_fed else dx) + slab
-    attn = 3 * 4 * batch * dims.heads * dims.head_dim * attention_pairs(seq)
-    head = 2 * (2 * m * dims.hidden * dims.vocab)
-    return (dims.layers - 1) * (per_layer + attn) + first_layer + attn + head
+    """Operations one WCT step of ``batch`` rows of ``seq`` tokens needs,
+    without the recomputed forward (the family's count)."""
+    return family(dims.family).train_step_ops(dims, batch, seq)

@@ -47,8 +47,9 @@ def run(ctx) -> None:
     oweights, frozen = split_wct(tree)
     del tree  # the packed model's bf16 slabs go; the f32 leaves are the program's copies
     tc = optimizer_config(mix)
-    opt = make_optimizer(tc, oweights)
-    step = make_train_step(program.config(dims), opt, remat=tc.remat, family=dims.family)
+    optim = make_optimizer(tc, oweights)
+    step = make_train_step(program.config(dims), optim, remat=tc.remat,
+                           family=program.port_family(dims))
     ids, labels = traffic.train_rows(mix, ctx.seed, mix["max_steps"], dims.vocab)
     ids, labels = torch.as_tensor(ids, device=dev), torch.as_tensor(labels, device=dev)
     beta1 = mix["optimizer"]["betas"][0]
@@ -59,7 +60,7 @@ def run(ctx) -> None:
         with span("step", i):
             losses.append(step(oweights, frozen, ids[i], labels[i]))
         if i == 0:
-            state = opt.optimizer.state
+            state = optim.optimizer.state
             ctx.program_numbers["grad1"] = slab_norms(
                 oweights, lambda n, l, t: state[t]["exp_avg"] / (1 - beta1))
     start = {name: weights.slab(dims, ctx.seed, name, dev) for name in oweights}

@@ -8,36 +8,22 @@ from __future__ import annotations
 import sys
 from typing import Dict, List, Tuple
 
-Call = Tuple[int, int, int]  # (M, K, N)
+from portbench.families import family
+
+Call = Tuple[int, int, int, int, int, bool]  # (M, K, N, g, r, bias): a call's cost inputs
 
 
 def decode(run) -> Dict[str, List]:
-    """K5 calls of the decode steps, K2 calls of the prefills, and (batch,
-    keys) of every decode step of the traced requests.  The first token
-    comes from the prefill, so a request of T tokens runs T - 1 steps."""
-    d = run.dims
-    qgemv, qgemm, steps = [], [], []
-    for prompt, output, batch in run.traced["requests"]:
-        for _, k, n in d.linears:
-            qgemv += [(batch, k, n)] * (d.layers * (output - 1))
-            qgemm += [(batch * prompt, k, n)] * d.layers
-        steps += [(batch, prompt + i) for i in range(1, output)]
-    return {"qgemv": qgemv, "qgemm": qgemm, "steps": steps}
+    """{"qgemv": K5 calls of the decode steps, "qgemm": K2 calls of the
+    prefills, "steps": every decode step of the traced requests, each a
+    tuple `costs.decode_step` takes}: the family's ``expect_decode``."""
+    return family(run.dims.family).expect_decode(run)
 
 
 def train(run) -> Dict[str, List]:
-    """K2 calls (each linear forward and once more recomputed, remat on) and
-    K7 calls (each linear's dx but the first layer's norm-fed ones) of the
-    traced steps."""
-    d, mix = run.dims, run.mix
-    m = mix["batch"] * mix["seq"]
-    remat = 2 if mix["optimizer"]["remat"] else 1
-    qgemm, qgemm_t = [], []
-    for _ in range(run.traced["steps"]):
-        for name, k, n in d.linears:
-            qgemm += [(m, k, n)] * (remat * d.layers)
-            qgemm_t += [(m, k, n)] * (d.layers - (name in d.norm_fed))
-    return {"qgemm": qgemm, "qgemm_t": qgemm_t}
+    """{"qgemm": K2 calls, "qgemm_t": K7 calls} of the traced WCT steps: the
+    family's ``expect_train``."""
+    return family(run.dims.family).expect_train(run)
 
 
 def matches(metric: str, want: List, got: List) -> bool:

@@ -16,7 +16,6 @@ def read(run):
     got = run.trace.kernels(KERNEL)
     if not expect.matches("qgemm_roofline.prefill", want, got):
         return None
-    d = run.dims
-    need = sum(costs.least_time(*costs.qgemm_call(m, k, n, d.group, d.n_outlier), run.peaks)
-               for m, k, n in want)
+    need = sum(costs.least_time(*costs.qgemm_call(m, k, n, g, r), run.peaks)
+               for m, k, n, g, r, _ in want)
     return 100.0 * need / expect.seconds(got + run.trace.kernels(SUM))

@@ -14,7 +14,6 @@ def read(run):
     got = run.trace.kernels(KERNEL)
     if not expect.matches("qgemm_t_roofline.train", want, got):
         return None
-    d = run.dims
-    need = sum(costs.least_time(*costs.qgemm_t_call(m, k, n, d.group, d.n_outlier), run.peaks)
-               for m, k, n in want)
+    need = sum(costs.least_time(*costs.qgemm_t_call(m, k, n, g, r), run.peaks)
+               for m, k, n, g, r, _ in want)
     return 100.0 * need / expect.seconds(got)

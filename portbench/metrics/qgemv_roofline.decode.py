@@ -14,7 +14,5 @@ def read(run):
     got = run.trace.kernels(KERNEL)
     if not expect.matches("qgemv_roofline.decode", want, got):
         return None
-    d = run.dims
-    need = sum(costs.least_time(*costs.qgemv_call(m, k, n, d.group, d.n_outlier, d.biases),
-                                run.peaks) for m, k, n in want)
+    need = sum(costs.least_time(*costs.qgemv_call(*call), run.peaks) for call in want)
     return 100.0 * need / expect.seconds(got)

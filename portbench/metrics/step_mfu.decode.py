@@ -27,6 +27,6 @@ def read(run):
         if not pre:
             return None
         spent += max(a.end for a in acts) - max(pre)
-    need = sum(costs.least_time(*costs.decode_step(run.dims, b, keys), run.peaks)
-               for b, keys in expect.decode(run)["steps"])
+    need = sum(costs.least_time(*costs.decode_step(run.dims, *step), run.peaks)
+               for step in expect.decode(run)["steps"])
     return 100.0 * need / (spent / 1e9) if spent > 0 else None

@@ -1,4 +1,4 @@
-"""The model layer's glue (``models/common.py``, ``opt.py``, ``falcon.py``:
+"""The model layer's glue (``models/common.py`` and each family's module:
 the PyTorch ops between the port's kernels): share of the decode steps'
 device busy time in activities that are not the port's own kernels (every
 ``__global__`` kernel of ``qeft_tpu_torch/csrc``), copies and fills

@@ -11,7 +11,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from portbench.reference import common, family
+from portbench.reference import common, family, layer_params
 
 
 @torch.no_grad()
@@ -22,11 +22,12 @@ def gaps(dims, raw: Dict, seqs: List[Tuple[torch.Tensor, int, torch.Tensor]],
     widest gap of the float8 forward's first choice at each position}."""
     common.no_tf32()
     fam = family(dims.family)
+    params = layer_params(fam)
     ariths = [common.F32] + ([common.FP8] if control else [])
     xs = {ar: [fam.embed(raw, dims, torch.cat([p, s[:, :-1]], dim=1)) for p, _, s in seqs]
           for ar in ariths}
     for l in range(dims.layers):
-        lp = common.layer_params(raw, dims, l)
+        lp = params(raw, dims, l)
         for ar in ariths:
             xs[ar] = [fam.block(lp, x, dims, ar) for x in xs[ar]]
         del lp

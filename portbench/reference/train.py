@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from portbench.reference import common, family
+from portbench.reference import common, family, layer_params
 
 IGNORE_INDEX = -100
 
@@ -36,9 +36,10 @@ def lr_factor(o: Dict, count: int) -> float:
 
 def loss_fn(dims, raw, slabs, ids, labels, ar) -> torch.Tensor:
     fam = family(dims.family)
+    params = layer_params(fam)
 
     def block(x, l):
-        return fam.block(common.layer_params(raw, dims, l, slabs), x, dims, ar)
+        return fam.block(params(raw, dims, l, slabs), x, dims, ar)
 
     x = fam.embed(raw, dims, ids)
     for l in range(dims.layers):
