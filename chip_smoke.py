@@ -13,9 +13,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shapes (bf16), with their time, the plain version's time, one PyTorch
    library call's time as a yardstick (never used by the port) and the bound;
    two K1 calls on the same inputs bit-identical (``--only matvec`` runs K1
-   at the four stage shapes at M = 1 and 8, with K6 on the same inputs, and
-   P4 alone, after device and build, on random weights, and prints its rows
-   without launch counts);
+   at the four stage shapes at M = 1 and 8, with K6 on the same inputs, P4
+   and the grouped expert matvec (below) alone, after device and build, on
+   random weights, and prints its rows without launch counts);
 5. attention: K3 at the S = 64 prefill, the engine's W = 1 windows (B = 8,
    positions 64..191, 200 slots) and windows of S = 512, 2048 (calibration)
    and 4096 (llama2-7b's eval window) without a cache; K4,
@@ -24,7 +24,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    cache; K4's grouped-head path at Falcon-7b's batch of 8 (71 over 1,
    2048 slots) and Falcon-40b's 128 over 8, timed at four positions beside
    the families' plain attention over the whole cache that it replaced;
-   K4, K4q and K8 each one CUDA kernel a call in the profiler
+   the latent decode attention at the deepseek-v2-lite.batch64 cell's
+   shape (B = 64, 16 heads over 1280 rows of 576), checked at ten positions
+   and timed at three beside its bound;
+   K4, K4q, K8 and the latent kernel each one CUDA kernel a call in the
+   profiler
    (``--only attention`` runs this phase alone, after device and build, and
    prints its rows with the profiler's kernels a call in place of launch
    counts, since no main path runs);
@@ -110,6 +114,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    gathered input, with its bias, through K5 (M = 1) and K2 (M = 64)
    against the plain versions; prefill 64 + 32 greedy each, launch counts
    and the dense-model oracle;
+25b. deepseek: the grouped expert matvec (``qgemv_moe``) at one expert
+   layer of the deepseek-v2-lite.batch64 cell's decode (64 tokens top-6
+   over 64 experts, gate/up 2048 -> 2816 and down 1408 -> 2048) against its
+   plain version, timed beside its bound; then DeepSeek-V2-Lite at full
+   size built on the card and ``generate`` (64 prompts of 128 + 32 greedy
+   over the cell's 1280-slot latent cache) with its prefill counted alone
+   and the decode steps' launches checked (``qgemv_moe`` twice an expert
+   layer, the latent kernel once a layer, K2 for each dense linear), its
+   tokens equal to the eager loop's (``--only deepseek`` runs this phase
+   alone after device and build, with the latent kernel's rows);
 26. family cli: ``main --load <2-layer OPT-6.7B> --eval --benchmark 64`` and
    ``run_benchmark --method qeft --load`` as two subprocesses run together;
 27. quantize: QEFT's quantizer at full Llama-2-7B width, 2 layers of random
@@ -283,6 +297,12 @@ FAMILY_LAYERS, FAMILY_NEW = 2, 32
 # heads over one kv head, cache slots, and the positions timed
 GROUP_B, GROUP_HEADS, GROUP_SLOTS = 8, 71, 2048
 GROUP_POSITIONS = (256, 700, 1280, 2047)
+# the deepseek-v2-lite.batch64 cell's decode: batch, latent cache slots and
+# the positions its latent kernel is timed at; the deepseek phase's
+# generate: prompt and new tokens a sequence over the cell's cache
+DS_BATCH, DS_SLOTS = 64, 1280
+DS_POSITIONS = (256, 700, 1279)
+DS_PROMPT, DS_NEW = 128, 32
 HF_LAYERS = 1  # the hf phase's OPT-6.7B directory (cut from 2 for the time budget)
 # K3 windows without a cache: eval_ppl at 512, the calibration length, llama2-7b's context
 FULL_WINDOWS = (512, 2048, 4096)
@@ -619,7 +639,8 @@ def phase_matvec(bw, rows):
     kernels can be timed in the same call: K1 at the four Llama-2-7B decode
     stages (random stacked w4/g128/r128 weights, as many layers as keep the
     rotation out of L2) at M = 1 and 8, with K6 on the same inputs, then P4
-    with its K6 and K1 rows (`_p4_row`)."""
+    with its K6 and K1 rows (`_p4_row`) and the grouped expert matvec
+    (`_moe_matvec_rows`)."""
     from qeft_tpu_torch.models.llama import LLAMA_PRESETS
     from qeft_tpu_torch.probes import common
     from qeft_tpu_torch.probes import gemv_ablation as p4
@@ -656,6 +677,7 @@ def phase_matvec(bw, rows):
         f"{d['library_ms'] * 1e3:.1f}; K6 {k6[m] * 1e3:.1f})"
         for m, d in ((1, row.d), (8, m8.d))))
     _p4_row(p4.measure(torch.device("cuda")), rows, bw)
+    _moe_matvec_rows(bw, rows)
 
 
 def _kernels_a_call(fn, calls: int = 16):
@@ -1007,9 +1029,186 @@ def phase_attention_kernels(cfg, bw, rows):
         del kc, vc, scales, lib_in
     k8.d["per"] = (f"one decode layer at pos {main_pos}, {CACHE} slots, bf16 cache, rotating over "
                    f"{n_layers} layers (hot_*: layer 0 only; int8_*: the int8 cache)")
+    per_call["decode_latent_attention"] = _latent_rows(bw, rows)
     log(f"[attention] the CUDA kernels of a call in the profiler (names, records a call): "
         f"{per_call}")
     return per_call
+
+
+def _latent_rows(bw, rows):
+    """The latent decode attention (`decode_latent_attention`) against its
+    plain version in f32 at the deepseek-v2-lite.batch64 cell's shape: B =
+    DS_BATCH sequences of 16 heads over DS_SLOTS rows of 576 (values the
+    first 512), at positions where the splits' chunks are empty or ragged
+    and up to the cache's end; timed at DS_POSITIONS rotating over the
+    model's 27 layers beside its bound (B x (pos + 1) x 1152 B of rows, q
+    and the output).  Returns its CUDA kernels a call in the profiler."""
+    from qeft_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_PRESETS
+    from qeft_tpu_torch.ops import attention
+
+    cfg = DEEPSEEK_V2_PRESETS["deepseek-v2-lite"]
+    h, d, dv, n_layers = cfg.num_heads, cfg.latent_dim, cfg.kv_lora_rank, cfg.num_layers
+    scale = cfg.softmax_scale
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    row = rows["decode_latent_attention"] = Row(
+        "decode_latent_attention", "qeft_tpu_torch/csrc/decode_attention.cu",
+        "none (qeft_tpu has no latent attention)", False)
+    log(f"[attention] latent decode attention vs plain: B={DS_BATCH}, {h} heads over "
+        f"{DS_SLOTS} rows of {d} (values the first {dv}), rotating over {n_layers} layers")
+    q = randn(DS_BATCH, h, d)
+    c = randn(n_layers, DS_BATCH, DS_SLOTS, d)
+    for pos in (0, 1, 15, 16, 31, 32, 255, *DS_POSITIONS):
+        err = check(f"latent B={DS_BATCH} pos {pos}",
+                    attention.decode_latent_attention(q, c[0], pos, scale),
+                    attention.decode_latent_attention_plain(f32(q), f32(c[0]), pos, scale))
+        row.d["max_abs_err"] = max(row.d["max_abs_err"], err)
+    for pos in DS_POSITIONS:
+        ms = time_ms(lambda i: attention.decode_latent_attention(q, c[i % n_layers], pos, scale))
+        plain = time_ms(lambda i: attention.decode_latent_attention_plain(
+            q, c[i % n_layers], pos, scale), inner=2, reps=3)
+        nbytes = DS_BATCH * (pos + 1) * d * 2 + 2 * DS_BATCH * h * (d + dv)
+        flops = 2 * DS_BATCH * h * (pos + 1) * (d + dv)
+        if pos == DS_POSITIONS[-1]:
+            b = row.add(0.0, ms, plain, None, nbytes, flops, bw)
+        else:
+            b = bound_ms(nbytes, flops)
+        row.d.update({f"ms_{pos}": ms, f"plain_ms_{pos}": plain, f"bound_ms_{pos}": b[0]})
+        log(f"    pos {pos}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B), {b[0] / ms * 100:.1f} % of it")
+    per_call = _kernels_a_call(
+        lambda i: attention.decode_latent_attention(q, c[i % n_layers], DS_POSITIONS[1], scale))
+    row.d["per"] = (f"one decode layer of deepseek-v2-lite.batch64 at pos {DS_POSITIONS[-1]}, "
+                    f"B={DS_BATCH}, {DS_SLOTS} slots, rotating over {n_layers} layers (ms_<pos>: "
+                    "the other positions)")
+    del c
+    torch.cuda.empty_cache()
+    return per_call
+
+
+def _moe_matvec_rows(bw, rows):
+    """The grouped expert matvec (`qgemv_moe`) against its plain version in
+    f32 at one expert layer of the deepseek-v2-lite.batch64 cell's decode:
+    DS_BATCH tokens routed top-6 over 64 experts by ``moe.route`` (a random
+    router) and sorted by ``moe.dispatch``, through the experts' gate/up
+    (2048 -> 2816) and down (1408 -> 2048), random w4/g128/r128 weights of
+    fan-in scale; timed beside its bound (the touched experts' codes, scales
+    and slab once, the rows in and out)."""
+    from qeft_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_PRESETS
+    from qeft_tpu_torch.ops import moe, qmm
+    from qeft_tpu_torch.testing import random_packed_linear
+
+    cfg = DEEPSEEK_V2_PRESETS["deepseek-v2-lite"]
+    e, top_k, d, f = (cfg.n_routed_experts, cfg.num_experts_per_tok, cfg.hidden_size,
+                      cfg.moe_intermediate_size)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    x = torch.randn(DS_BATCH, d, generator=gen, device="cuda").to(torch.bfloat16)
+    router = (torch.randn(d, e, generator=gen, device="cuda") * d ** -0.5).to(torch.bfloat16)
+    _, chosen = moe.route(x, router, top_k)
+    counts, offsets, _ = moe.dispatch(chosen, e)
+    touched, most = int((counts > 0).sum()), int(counts.max())
+    n_rows = DS_BATCH * top_k
+    row = rows["qgemv_moe"] = Row("qgemv_moe", "qeft_tpu_torch/csrc/qmm.cu",
+                                  "none (qeft_tpu has no expert layer)", False)
+    log(f"[matvec] grouped expert matvec vs plain: {DS_BATCH} tokens top-{top_k} over {e} "
+        f"experts ({touched} touched, at most {most} rows on one)")
+    for name, k, n in (("gate_up", d, 2 * f), ("down", f, d)):
+        p = random_packed_linear(gen, e, k, n, 128, 128, fan_in=True)
+        xs = torch.randn(n_rows, k, generator=gen, device="cuda").to(torch.bfloat16)
+        got = qmm.qgemv_moe(xs, p, counts, offsets, DS_BATCH)
+        if not torch.equal(qmm.qgemv_moe(xs, p, counts, offsets, DS_BATCH), got):
+            raise AssertionError(f"qgemv_moe {name}: two calls on the same inputs differ")
+        err = check(f"qgemv_moe {name} {k}->{n}", got,
+                    qmm.qgemv_moe_plain(f32(xs), f32(p), counts, offsets))
+        ms = time_ms(lambda i: qmm.qgemv_moe(xs, p, counts, offsets, DS_BATCH))
+        plain = time_ms(lambda i: qmm.qgemv_moe_plain(xs, p, counts, offsets), inner=2, reps=3)
+        nbytes = touched * (k * n // 2 + 2 * 2 * (k // 128) * n + 2 * 128 * n) + 2 * n_rows * (k + n)
+        b = row.add(err, ms, plain, None, nbytes, 2 * n_rows * k * n, bw)
+        row.d.update({f"{name}_ms": ms, f"{name}_bound_ms": b[0]})
+        log(f"    {name}: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}: {nbytes} B), {b[0] / ms * 100:.1f} % of it")
+        del p, xs
+    row.d.update(touched=touched, max_rows=most)
+    row.d["per"] = (f"one expert layer of deepseek-v2-lite.batch64 at decode: gate_up + down over "
+                    f"{DS_BATCH} x {top_k} rows ({touched} experts touched)")
+    torch.cuda.empty_cache()
+
+
+def phase_deepseek(bw, rows, kernels=False):
+    """DeepSeek-V2-Lite's main path: the grouped expert matvec's rows
+    (`_moe_matvec_rows`; ``kernels``: the latent kernel's too, which the
+    attention phase times otherwise), then a random packed model at full
+    size (27 layers, 64 + 2 experts a layer, w4/g128/r128) built on the
+    card and ``generate`` -- DS_BATCH prompts of DS_PROMPT tokens, DS_NEW
+    greedy, the cell's DS_SLOTS-slot latent cache, the decode loop as
+    replays of one captured step -- with its prefill counted alone first
+    and the decode steps' launches checked: per step qgemv_moe twice an
+    expert layer, decode_latent_attention once a layer, K2 for every dense
+    linear at M = DS_BATCH, nothing else; tokens equal to the eager
+    loop's."""
+    from qeft_tpu_torch.generate import generate
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_PRESETS
+    from qeft_tpu_torch.testing import build_packed_model
+
+    if kernels:
+        per_call = _latent_rows(bw, rows)
+        if len(per_call[0]) != 1 or not 0 < per_call[1] <= 1:
+            raise AssertionError(f"the latent kernel must be one kernel a call: {per_call}")
+    _moe_matvec_rows(bw, rows)
+    cfg = DEEPSEEK_V2_PRESETS["deepseek-v2-lite"]
+    tick = time.perf_counter()
+    params = build_packed_model(cfg, seed=0, g=128, r=128, device="cuda", family="deepseek_v2")
+    torch.cuda.synchronize()
+    log(f"[deepseek] random packed deepseek-v2-lite (27 layers, 64 + 2 experts a layer, "
+        f"w4/g128/r128) built in {time.perf_counter() - tick:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    api = get_model_api("deepseek_v2")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (DS_BATCH, DS_PROMPT), generator=gen, device="cuda")
+
+    def new_cache():
+        return api.init_cache(cfg, DS_BATCH, DS_SLOTS, device="cuda")
+
+    generate(params, prompt, new_cache(), cfg, 8, api=api, device="cuda")  # warm-up
+    with counted("deepseek prefill") as pre:
+        api.prefill(params, prompt, new_cache(), cfg)
+    with counted("deepseek generate") as c:
+        tick = time.perf_counter()
+        tokens, _ = generate(params, prompt, new_cache(), cfg, DS_NEW, api=api, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - tick
+    steps = DS_NEW - 1
+    # the prefill's (K2, and K5 for an expert of 8 rows or fewer), then per
+    # step: q, kv_a and o and the dense MLP's or the shared experts' gate/up
+    # and down of each layer (K2 above 8 rows, else K5), the experts' two
+    # grouped matvecs and the latent attention
+    want = dict(pre.counts)
+    dense = "qgemm" if DS_BATCH > 8 else "qgemv"
+    want[dense] = want.get(dense, 0) + 5 * cfg.num_layers * steps
+    want.update(qgemv_moe=2 * cfg.moe_layers * steps,
+                decode_latent_attention=cfg.num_layers * steps)
+    log(f"[deepseek generate] {DS_BATCH} x ({DS_PROMPT} + {DS_NEW} greedy) in {dt:.3f} s "
+        f"({DS_BATCH * DS_NEW / dt:.1f} tokens/s, host clock, decode loop as CUDA graph "
+        f"replays); prefill alone launched {pre.counts}; generate {c.counts}; expected {want}")
+    if c.counts != want or pre.counts.get("qgemv_moe") or pre.counts.get("decode_latent_attention"):
+        raise AssertionError("deepseek generate: did not launch each kernel as expected")
+    eager, _ = generate(params, prompt, new_cache(), cfg, DS_NEW, api=api, device="cuda",
+                        graph=False)
+    if not torch.equal(eager, tokens):
+        raise AssertionError("deepseek generate: the graph loop's tokens differ from the eager "
+                             "loop's")
+    log(f"[deepseek generate] graph tokens equal to the eager loop's ({tokens.numel()} tokens); "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return dict(tok_s=DS_BATCH * DS_NEW / dt)
 
 
 def _one_layer(p, l):
@@ -4629,10 +4828,11 @@ class _Beside(threading.Thread):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of qeft_tpu_torch on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=["attention", "matvec", "probes"], default=None,
+    ap.add_argument("--only", choices=["attention", "matvec", "probes", "deepseek"], default=None,
                     help="run only the device and build phases and the attention kernels (K3, "
-                    "K4, K4q, K8), the matvec kernels (K1, P4) or the probes (P2, P3, P4), for "
-                    "an A/B of those kernels against another checkout's")
+                    "K4, K4q, K8, the latent kernel), the matvec kernels (K1, P4, the grouped "
+                    "expert matvec) or the probes (P2, P3, P4), for an A/B of those kernels "
+                    "against another checkout's; or DeepSeek-V2-Lite's kernels and main path")
     ap.add_argument("--parent", default=None,
                     help="with --only probes: the root of another checkout (the parent "
                     "commit's), whose P2 and P3 are timed beside this one's in the same call")
@@ -4659,6 +4859,16 @@ def main(argv=None) -> int:
         from qeft_tpu_torch.models.llama import LLAMA_PRESETS
 
         rows, extra = {}, {}
+        if args.only == "deepseek":  # a main path runs: its rows carry their launches
+            timed(phase_deepseek, copy_rate(), rows, True)
+            for key, row in rows.items():
+                row.d["launches_by_path"] = {p: c[key] for p, c in PATH_LAUNCHES.items()
+                                             if c.get(key)}
+                row.d["launches"] = sum(row.d["launches_by_path"].values())
+            log(f"[done] {time.perf_counter() - tick:.1f} s; seconds by phase {seconds}")
+            print(json.dumps({"deepseek_kernels": [r.d for r in rows.values()]}))
+            print(smi)
+            return 0
         if args.only == "attention":
             # the profiler's kernels a call stand beside the rows
             extra["kernels_a_call"] = timed(phase_attention_kernels, LLAMA_PRESETS["llama2-7b"],
@@ -4718,6 +4928,7 @@ def main(argv=None) -> int:
     del opt_params
     torch.cuda.empty_cache()
     timed(phase_families, rows)
+    timed(phase_deepseek, bw, rows)
     timed(phase_family_cli, opt_cfg)
     timed(phase_quantize)
     # the quantization CLIs are subprocesses on tiny-v2: they run beside the

@@ -76,6 +76,22 @@
 // calls.  Bound: HBM bytes, as K4 -- the tensor cores do 4 * 80 * D flops a
 // key and group (Falcon-7b), far under the card's ridge.
 //
+// The latent path (decode_latent_attention, decode_latent_kernel) has no
+// counterpart in the JAX package: DeepSeek-V2's multi-head latent attention
+// at decode.  16 query heads ([q_lat, q_pe], 576 wide) attend one cached
+// 576-wide row a token (the normalised latent and the roped shared key);
+// the values are the rows' first 512 dims.  Split-K over the valid slots
+// as K4, a cluster of up to 8 splits a sequence (enough to cover the SMs
+// about twice); warp 0 streams each split's rows once through a two-stage
+// ring of padded rows, one bulk copy a row.  The 16 heads are one m16
+// tile: each of 4 warps computes S = Q.K^T for 8 keys of a 32-key tile
+// over all 576 dims (q and K through ldmatrix, f32 sums), the online
+// softmax runs a warp per 4 heads (P rounded to bf16, the sum of the f32
+// values), and each warp accumulates O += P.V for its 128 of the 512
+// value dims (V through ldmatrix.trans of the same rows).  Splits combine
+// in rank order over distributed shared memory as the group path does.
+// Bound: HBM bytes, B * (pos + 1) * 1152 a layer.
+//
 // Position on the device (pos_dev, an int64 scalar; NULL: the host int
 // pos).  A decode step captured once as a CUDA graph and replayed at every
 // position reads its position from the device; the grid is the same at
@@ -835,6 +851,272 @@ cudaError_t launch_group(const Args& a, int B, cudaStream_t st) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// ---- the latent path: multi-head latent attention (DeepSeek-V2) at decode
+
+constexpr int kLatK = 576;      // a cached row: the normalised latent (512) and the roped key (64)
+constexpr int kLatV = 512;      // the values: each row's first 512
+constexpr int kLatHeads = 16;   // query heads: one m16 tile
+constexpr int kLatWarps = 4;
+constexpr int kLatKT = 32;      // keys a tile: an n8 tile of scores a warp
+constexpr int kLatSplits = 8;   // most splits of a cluster
+constexpr int kLatDW = kLatV / kLatWarps;  // accumulator dims a warp
+
+// shared memory of a latent block, in bytes from a 16-byte aligned base: a
+// two-stage ring of cached rows padded by 16 bytes (ldmatrix without bank
+// conflicts), the queries in the same pitch, the tile's probabilities
+// (bf16) and scores (f32), the heads' max, sum and rescale, the mbarriers;
+// over the ring, once its last tile is consumed, the [16][512 + 8] f32
+// accumulator
+struct LatentSmem {
+  static constexpr int PITCH = 2 * kLatK + 16;
+  static constexpr int PPITCH = 2 * kLatKT + 16;
+  static constexpr int STAGE = kLatKT * PITCH;
+  static constexpr int OP = kLatV + 8;
+  static constexpr int Q = kMaxStages * STAGE;
+  static constexpr int P = Q + kLatHeads * PITCH;
+  static constexpr int S = P + kLatHeads * PPITCH;
+  static constexpr int ML = S + kLatHeads * kLatKT * 4;  // [3][16] f32: max, sum, rescale
+  static constexpr int BAR = (ML + 3 * kLatHeads * 4 + 7) / 8 * 8;
+  static constexpr int BYTES = BAR + 8 * kMaxStages;
+  static_assert(kLatHeads * OP * 4 <= Q, "the accumulator fits over the ring");
+};
+
+struct LatentArgs {
+  const bf16* q;             // [B, 16, 576]: the absorbed query and the roped q_pe
+  const bf16* c;             // [B, S, 576] of the layer
+  bf16* out;                 // [B, 16, 512]
+  const long long* pos_dev;  // NULL: `len` holds
+  int S, len;
+  float scale;               // the softmax scale
+};
+
+// grid (splits, B), clusters of `splits` along x: all 16 query heads of a
+// sequence read each cached row of the split's chunk once
+__global__ void __launch_bounds__(32 * kLatWarps)
+    decode_latent_kernel(const LatentArgs a, const int splits) {
+  using L = LatentSmem;
+  constexpr int KT = kLatKT, PITCH = L::PITCH, PPITCH = L::PPITCH, NT = kLatDW / 8;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* oacc = reinterpret_cast<float*>(smem);
+  float* sc = reinterpret_cast<float*>(smem + L::S);
+  float* ml = reinterpret_cast<float*>(smem + L::ML);
+  const uint32_t ring = smem_u32(smem), qs = ring + L::Q, ps = ring + L::P;
+  const uint32_t bar0 = smem_u32(smem + L::BAR);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+
+  const int len = a.pos_dev != nullptr
+                      ? (int)min(max(*a.pos_dev + 1, 0LL), (long long)a.S)
+                      : a.len;
+  const int chunk = split_chunk(len, splits);
+  const int k0 = min(rank * chunk, len), k1 = min(k0 + chunk, len);
+  const int n_tiles = (k1 - k0 + KT - 1) / KT;
+  const bf16* cb = a.c + (size_t)b * a.S * kLatK;
+
+  // warp 0: tile `step`'s rows, one bulk copy a row
+  auto issue = [&](int step) {
+    const int st = step % kMaxStages, j0 = k0 + step * KT, n = min(KT, k1 - j0);
+    const uint32_t bar = bar0 + 8 * st, dst = ring + st * L::STAGE;
+    if (lane == 0) mbar_expect(bar, n * kLatK * (int)sizeof(bf16));
+    __syncwarp();
+    for (int i = lane; i < n; i += 32)
+      bulk_load(dst + i * PITCH, cb + (size_t)(j0 + i) * kLatK, kLatK * sizeof(bf16), bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kMaxStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int s = 0; s < kMaxStages && s < n_tiles; ++s) issue(s);
+
+  // the queries into shared memory; each head's running max and sum
+  const bf16* qb = a.q + (size_t)b * kLatHeads * kLatK;
+  for (int i = tid; i < kLatHeads * kLatK / 8; i += blockDim.x) {
+    const int r = i / (kLatK / 8), c = i - r * (kLatK / 8);
+    *reinterpret_cast<uint4*>(smem + L::Q + r * PITCH + c * 16) =
+        __ldg(reinterpret_cast<const uint4*>(qb + (size_t)r * kLatK) + c);
+  }
+  if (tid < kLatHeads) {
+    ml[tid] = -CUDART_INF_F;
+    ml[kLatHeads + tid] = 0.f;
+  }
+  __syncthreads();
+
+  const float sl2 = a.scale * 1.4426950408889634f;  // the scale times log2 e
+  float o[NT][4];  // rows gid, gid + 8; dims warp * kLatDW + 8 dt + 2t, + 1
+#pragma unroll
+  for (int dt = 0; dt < NT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  // ldmatrix row addresses: q and P as A fragments (rows lane & 15, the
+  // second k8 half for lanes 16..31), K as two k16 steps of the warp's 8
+  // keys, V (transposed) as two n8 tiles of dims over 16 keys
+  const uint32_t a_lane = (lane & 15) * PITCH + (lane >> 4) * 16;
+  const uint32_t p_lane = (lane & 15) * PPITCH + (lane >> 4) * 16;
+  const uint32_t k_lane = (warp * 8 + (lane & 7)) * PITCH + (lane >> 3) * 16;
+  const uint32_t v_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + (lane >> 4) * 16 +
+                          warp * kLatDW * 2;
+
+  for (int step = 0; step < n_tiles; ++step) {
+    const int st = step % kMaxStages, n = min(KT, k1 - k0 - step * KT);
+    const uint32_t kt = ring + st * L::STAGE;
+    mbar_wait(bar0 + 8 * st, (step / kMaxStages) & 1);
+
+    // S = Q K^T of the warp's 8 keys over all 576 dims, f32 sums
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 6
+    for (int kk = 0; kk < kLatK / 16; kk += 2) {
+      uint32_t qa[4], qc[4], bk[4];
+      ldmatrix_x4(qa, qs + a_lane + kk * 32);
+      ldmatrix_x4(qc, qs + a_lane + (kk + 1) * 32);
+      ldmatrix_x4(bk, kt + k_lane + kk * 32);
+      mma_bf16(s4, qa[0], qa[1], qa[2], qa[3], bk[0], bk[1]);
+      mma_bf16(s4, qc[0], qc[1], qc[2], qc[3], bk[2], bk[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = warp * 8 + 2 * t + e;
+      const bool ok = key < n;
+      sc[gid * KT + key] = ok ? s4[e] * sl2 : -CUDART_INF_F;
+      sc[(gid + 8) * KT + key] = ok ? s4[e + 2] * sl2 : -CUDART_INF_F;
+    }
+    __syncthreads();
+
+    // the online softmax: warp w takes heads 4w .. 4w + 3, a lane a key;
+    // P rounded to bf16, the sum taken of the f32 values
+#pragma unroll
+    for (int hh = 0; hh < kLatHeads / kLatWarps; ++hh) {
+      const int h = warp * (kLatHeads / kLatWarps) + hh;
+      const float v = sc[h * KT + lane], m_old = ml[h], l_old = ml[kLatHeads + h];
+      const float m_new = fmaxf(m_old, warp_max(v));  // finite: key 0 is valid
+      const float p = exp2f(v - m_new);
+      const float sum = warp_sum(p);
+      *reinterpret_cast<bf16*>(smem + L::P + h * PPITCH + lane * 2) = f2bf(p);
+      __syncwarp();  // every lane has read the head's max and sum
+      if (lane == 0) {
+        const float alpha = m_old == m_new ? 1.f : exp2f(m_old - m_new);
+        ml[h] = m_new;
+        ml[kLatHeads + h] = l_old * alpha + sum;
+        ml[2 * kLatHeads + h] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // O = alpha O + P V: V is the rows' first 512 dims, through
+    // ldmatrix.trans; keys past the chunk's end read as 0
+    const float al0 = ml[2 * kLatHeads + gid], al1 = ml[2 * kLatHeads + gid + 8];
+#pragma unroll
+    for (int dt = 0; dt < NT; ++dt) {
+      o[dt][0] *= al0;
+      o[dt][1] *= al0;
+      o[dt][2] *= al1;
+      o[dt][3] *= al1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t pa[4];
+      ldmatrix_x4(pa, ps + p_lane + kk * 32);
+      const int j = 16 * kk + 2 * t;  // this thread's keys j, j + 1, j + 8, j + 9
+      const bool ragged = 16 * kk + 16 > n;
+#pragma unroll
+      for (int dt = 0; dt < NT; dt += 2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, kt + 16 * kk * PITCH + v_lane + dt * 16);
+        if (ragged) {
+          bv[0] = keys_below(bv[0], j, n);
+          bv[1] = keys_below(bv[1], j + 8, n);
+          bv[2] = keys_below(bv[2], j, n);
+          bv[3] = keys_below(bv[3], j + 8, n);
+        }
+        mma_bf16(o[dt], pa[0], pa[1], pa[2], pa[3], bv[0], bv[1]);
+        mma_bf16(o[dt + 1], pa[0], pa[1], pa[2], pa[3], bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp has consumed the stage, the scores and P
+    if (warp == 0 && step + kMaxStages < n_tiles) {
+      fence_async_proxy();
+      issue(step + kMaxStages);
+    }
+  }
+
+  // the split's accumulator into this block's shared memory, over the
+  // consumed ring (an empty chunk: max -inf, sum 0, accumulator 0)
+#pragma unroll
+  for (int dt = 0; dt < NT; ++dt) {
+    const int d = warp * kLatDW + dt * 8 + 2 * t;
+    *reinterpret_cast<float2*>(oacc + gid * L::OP + d) = make_float2(o[dt][0], o[dt][1]);
+    *reinterpret_cast<float2*>(oacc + (gid + 8) * L::OP + d) = make_float2(o[dt][2], o[dt][3]);
+  }
+  cluster_arrive();
+  cluster_wait();  // every split's rows are written
+
+  // the output, 4 dims a thread, shared out over the ranks; each combines
+  // every split's (max, sum, accumulator) in rank order
+  constexpr int vecs = kLatV / 4;
+  for (int i = rank * blockDim.x + tid; i < kLatHeads * vecs; i += splits * blockDim.x) {
+    const int row = i / vecs, d = (i - row * vecs) * 4;
+    float mr[kLatSplits], mx = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < kLatSplits; ++r) {
+      mr[r] = r < splits ? *cluster.map_shared_rank(ml + row, r) : -CUDART_INF_F;
+      mx = fmaxf(mx, mr[r]);
+    }
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kLatSplits; ++r) {
+      if (r >= splits) break;
+      const float w = mr[r] == -CUDART_INF_F ? 0.f : exp2f(mr[r] - mx);
+      l += *cluster.map_shared_rank(ml + kLatHeads + row, r) * w;
+      const float4 x =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(oacc + row * L::OP + d, r));
+      acc.x += x.x * w;
+      acc.y += x.y * w;
+      acc.z += x.z * w;
+      acc.w += x.w * w;
+    }
+    const bf162 lo = __floats2bfloat162_rn(l > 0.f ? acc.x / l : 0.f, l > 0.f ? acc.y / l : 0.f);
+    const bf162 hi = __floats2bfloat162_rn(l > 0.f ? acc.z / l : 0.f, l > 0.f ? acc.w / l : 0.f);
+    bf162* dst = reinterpret_cast<bf162*>(a.out + ((size_t)b * kLatHeads + row) * kLatV + d);
+    dst[0] = lo;
+    dst[1] = hi;
+  }
+  cluster_arrive();
+  cluster_wait();  // no block leaves while its rows may still be read
+}
+
+// splits enough that the grid covers the card's SMs about twice
+cudaError_t launch_latent(const LatentArgs& a, int B, cudaStream_t st) {
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_latent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LatentSmem::BYTES);
+    if (e != cudaSuccess) return e;
+    opted = true;
+  }
+  const int splits = max(1, min(kLatSplits, (2 * sm_count() + B - 1) / B));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = splits;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(splits, B, 1);
+  cfg.blockDim = dim3(32 * kLatWarps);
+  cfg.dynamicSmemBytes = LatentSmem::BYTES;
+  cfg.stream = st;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, decode_latent_kernel, a, splits);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <int D, bool Q8>
 cudaError_t launch_heads(const Args& a, int B, cudaStream_t st) {
   const int rep = a.H / a.Hkv;
@@ -912,4 +1194,20 @@ extern "C" int decode_attention_stacked(const void* q, const void* k, const void
   const float* vsl = vs != nullptr ? static_cast<const float*>(vs) + vecs : nullptr;
   return run(make_args(q, kl, vl, ksl, vsl, k_new, v_new, pos_dev, out, 0, H, Hkv, S, pos), B, D,
              stream);
+}
+
+// the latent path: q [B, H, D] (D = 576: the absorbed query and the roped
+// q_pe), c [B, S, D] the layer's latent cache holding the current token,
+// out [B, H, DV] (DV = 512, the values: each row's first DV); H = 16
+extern "C" int decode_latent_attention(const void* q, const void* c, const void* pos_dev,
+                                       void* out, int B, int H, int S, int D, int DV, int pos,
+                                       float scale, void* stream) {
+  if (pos_dev != nullptr) pos = S - 1;
+  if (B < 1 || H != kLatHeads || D != kLatK || DV != kLatV || pos < 0 || pos >= S ||
+      B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const LatentArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(c),
+                     static_cast<bf16*>(out), static_cast<const long long*>(pos_dev), S, pos + 1,
+                     scale};
+  return (int)launch_latent(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -66,6 +66,19 @@
 //   so the fused add leaves code * s rounded once -- and each group folds
 //   in as part + z * sum_g(x).  It costs a bf16x2 FMA per A register more.
 //
+// qgemv_moe has no counterpart in the JAX package (which has no expert
+//   layer): the decode matvec of a mixture of experts' stacked linear
+//   [E, K/8, N] over rows sorted by expert, expert e's counts[e] rows from
+//   offsets[e] on, both read on the device, so a decode step captured once
+//   as a CUDA graph replays correctly whatever the routing.  One kernel,
+//   qgemv_moe_kernel, on K5's main loop (gemv_tile): blocks along z are
+//   (expert, tile of 8 rows); a block past its expert's rows leaves at once
+//   with its cluster, so untouched experts cost a launch slot and nothing
+//   else.  An expert's codes, scales and slab are read once for each of its
+//   row tiles: once from HBM for up to 8 rows, again (from L2, its tiles'
+//   blocks being neighbours in z) for each further 8.
+//   Bound: HBM bytes of the touched experts, as K5's per expert.
+//
 // qgemm (K2) replaces pallas_qmm.py::qgemm (_run_qmm / _qmm_kernel): the
 //   W4A16 GEMM for more rows (prefill, PPL windows, the training forward),
 //   with the weak-column slab and an optional residual in the epilogue
@@ -216,11 +229,14 @@ struct GemvArgs {
   int bf16w;           // the bf16w variant
 };
 
-// NORM: K1 with its norm prologue (p.lnw given); K6 and K5 compile without it.
-// BF16W: the bf16w variant (weights code * scale rounded to bf16)
+// The main loop of K1, K5, K6 and the grouped expert matvec: column tile
+// `tile` of p.out, split `rank` of S over the groups (one block of a cluster
+// of the S splits).  NORM: K1 with its norm prologue (p.lnw given); K6 and
+// K5 compile without it.  BF16W: the bf16w variant (weights code * scale
+// rounded to bf16)
 template <int UPG, bool NORM, bool BF16W>
-__global__ void __launch_bounds__(kD_THREADS, kD_BLOCKS_PER_SM)
-qgemv_mma_kernel(const GemvArgs p) {
+__device__ __forceinline__ void gemv_tile(const GemvArgs& p, const int tile, const int rank,
+                                          const int S) {
   constexpr int HH = UPG * 4, GROUP = HH * 8, GPB = kD_STEP_UNITS / UPG;
   __shared__ __align__(16) bf16 xs[kD_CHUNK * kD_UNIT];   // [unit][token][32], chunk order
   __shared__ __align__(8) float psum[kD_CHUNK * 8];       // [unit][token]: its 32 values
@@ -233,9 +249,8 @@ qgemv_mma_kernel(const GemvArgs p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, t = lane & 3;
   const int M = p.M, K = p.K, N = p.N, G = K / GROUP;
-  const int S = gridDim.y, rank = blockIdx.y;
   const int gb0 = rank * G / S, gb1 = (rank + 1) * G / S;  // this split's groups
-  const int n4 = blockIdx.x * kD_BN + warp * 32 + 4 * gid;  // this lane's 4 columns
+  const int n4 = tile * kD_BN + warp * 32 + 4 * gid;  // this lane's 4 columns
   const bool col_ok = n4 < N;                              // N % 4 == 0
 
   // the words (4 columns, word row jj0 + t), scales and zero points of
@@ -491,7 +506,7 @@ qgemv_mma_kernel(const GemvArgs p) {
   cluster.sync();
   const int per = (8 * kD_BN + S - 1) / S, end = min(8 * kD_BN, (rank + 1) * per);
   for (int idx = rank * per + tid; idx < end; idx += kD_THREADS) {
-    const int m = idx / kD_BN, nn = blockIdx.x * kD_BN + idx % kD_BN;
+    const int m = idx / kD_BN, nn = tile * kD_BN + idx % kD_BN;
     if (m >= M || nn >= N) continue;
     float y = 0.f;
     for (int r = 0; r < S; ++r) y += cluster.map_shared_rank(red, r)[idx];
@@ -500,6 +515,47 @@ qgemv_mma_kernel(const GemvArgs p) {
     p.out[(size_t)m * N + nn] = f2bf(y);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int UPG, bool NORM, bool BF16W>
+__global__ void __launch_bounds__(kD_THREADS, kD_BLOCKS_PER_SM)
+qgemv_mma_kernel(const GemvArgs p) {
+  gemv_tile<UPG, NORM, BF16W>(p, blockIdx.x, blockIdx.y, gridDim.y);
+}
+
+// The grouped expert matvec: p.x and p.out hold every expert's rows, expert
+// e's counts[e] rows from row offsets[e] on; p.qw, p.sc, p.sz and p.ow are
+// expert 0's, the experts' buffers one after another.  Blocks along z are
+// (expert, tile of 8 rows); a block past its expert's rows leaves at once,
+// with the rest of its cluster (the splits share z).  An expert with more
+// rows than its row_tiles hold takes the rest in further turns of the same
+// blocks (each turn ends on a cluster barrier), so no row is left unwritten
+// whatever the counts.
+struct MoeArgs {
+  GemvArgs g;          // M unused
+  const int* counts;   // [E] rows of each expert
+  const int* offsets;  // [E] each expert's first row
+  int row_tiles;       // tiles of 8 rows an expert is given blocks for
+};
+
+template <int UPG>
+__global__ void __launch_bounds__(kD_THREADS, kD_BLOCKS_PER_SM)
+qgemv_moe_kernel(const MoeArgs a) {
+  const int e = blockIdx.z / a.row_tiles;
+  const int rows = a.counts[e];
+  const size_t groups = a.g.K / (UPG * 32);
+  for (int m0 = (blockIdx.z - e * a.row_tiles) * 8; m0 < rows; m0 += a.row_tiles * 8) {
+    GemvArgs p = a.g;
+    const size_t row = (size_t)a.offsets[e] + m0;
+    p.M = min(8, rows - m0);
+    p.x += row * p.K;
+    p.out += row * p.N;
+    p.qw += (size_t)e * (p.K / 8) * p.N;
+    p.sc += (size_t)e * groups * p.N;
+    p.sz += (size_t)e * groups * p.N;
+    if (p.ow != nullptr) p.ow += (size_t)e * p.R * p.N;
+    gemv_tile<UPG, false, false>(p, blockIdx.x, blockIdx.y, gridDim.y);
+  }
 }
 
 // the groups split over a cluster of up to 8 blocks, at most two blocks an SM
@@ -516,6 +572,20 @@ cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
   else
     e = a.lnw != nullptr ? cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, true, false>, a)
                          : cudaLaunchKernelEx(&cfg, qgemv_mma_kernel<UPG, false, false>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// the grouped matvec's grid: (tiles, splits, experts x row tiles), the
+// splits sized for one row tile of every expert
+template <int UPG>
+cudaError_t launch_moe(const MoeArgs& a, int experts, cudaStream_t stream) {
+  const int tiles = (a.g.N + kD_BN - 1) / kD_BN;
+  const int splits =
+      k_splits(tiles * experts, a.g.K / (UPG * 32), kD_MAX_SPLITS, kD_BLOCKS_PER_SM);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = split_cluster_config(tiles, splits, kD_THREADS, stream, &attr);
+  cfg.gridDim.z = experts * a.row_tiles;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, qgemv_moe_kernel<UPG>, a);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -1080,6 +1150,29 @@ QGEMV_STACKED(qgemv_stacked_bf16w, 1)
   }
 QGEMV(qgemv, 0)
 QGEMV(qgemv_bf16w, 1)
+
+// the grouped expert matvec: x [rows, K] sorted by expert, expert e's
+// counts[e] rows from offsets[e] on (int32 [E] on the device; blocks are
+// sized for max_rows an expert, and a larger count takes more turns of
+// them); qweight [E, K/8, N], scales and szeros [E, K/g, N], oweight
+// [E, R, N] or NULL; out [rows, N]
+extern "C" int qgemv_moe(const void* x, const void* qweight, const void* scales,
+                         const void* szeros, const void* ow, const void* counts,
+                         const void* offsets, void* out, int E, int max_rows, int K, int N, int g,
+                         int R, void* stream) {
+  if (E < 1 || max_rows < 1 || K <= 0 || N <= 0 || N % 4 || (g != 64 && g != 128) || K % g ||
+      R < 0 || R > K || counts == nullptr || offsets == nullptr ||
+      (long long)E * ((max_rows + 7) / 8) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const GemvArgs p{static_cast<const bf16*>(x), nullptr, static_cast<const int32_t*>(qweight),
+                   static_cast<const bf16*>(scales), static_cast<const bf16*>(szeros),
+                   static_cast<const bf16*>(ow), nullptr, nullptr, static_cast<bf16*>(out),
+                   0, K, N, ow ? R : 0, 0.f, 0, 0};
+  const MoeArgs a{p, static_cast<const int*>(counts), static_cast<const int*>(offsets),
+                  (max_rows + 7) / 8};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(g == 128 ? launch_moe<4>(a, E, st) : launch_moe<2>(a, E, st));
+}
 
 // bm: rows of a block (64 or 128); ws: f32 [splits, M, N] scratch when
 // splits > 1 (else unused)

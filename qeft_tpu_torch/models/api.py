@@ -1,7 +1,7 @@
 """Family-dispatched model API: the forward surfaces every caller (eval,
 generation, benchmark) programs against.  Counterpart of
 ``qeft_tpu/models/api.py``: llama (gemma on the same topology), OPT, Phi,
-Bloom and Falcon."""
+Bloom and Falcon; and DeepSeek-V2, which only the port has."""
 
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ class ModelApi:
 
 # family -> (module under qeft_tpu_torch.models, its config class).  The
 # llama module names its own llama_forward, _prefill, _decode_step and
-# _forward_window; every other family's module gives `models.common`'s layer
-# loop its DECODER hooks.  gemma runs on the llama topology (LlamaConfig
+# _forward_window, the deepseek_v2 module its own forward, prefill,
+# decode_step and forward_window; every other family's module gives
+# `models.common`'s layer loop its DECODER hooks.  gemma runs on the llama topology (LlamaConfig
 # switches).
 _FAMILIES = {
     "llama": ("llama", "LlamaConfig"),
@@ -34,6 +35,7 @@ _FAMILIES = {
     "phi": ("phi", "PhiConfig"),
     "bloom": ("bloom", "BloomConfig"),
     "falcon": ("falcon", "FalconConfig"),
+    "deepseek_v2": ("deepseek_v2", "DeepseekV2Config"),
 }
 _CACHE: Dict[str, ModelApi] = {}
 
@@ -48,6 +50,8 @@ def get_model_api(family: str) -> ModelApi:
         if module == "llama":
             fns = (m.llama_forward, m.llama_prefill, m.llama_decode_step,
                    m.llama_forward_window, m.init_kv_cache)
+        elif module == "deepseek_v2":
+            fns = (m.forward, m.prefill, m.decode_step, m.forward_window, m.init_kv_cache)
         else:
             from qeft_tpu_torch.models import common
 

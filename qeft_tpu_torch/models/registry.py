@@ -22,10 +22,11 @@ class ModelMeta:
     ffn2: Tuple[str, ...]  # input = MLP internal space
     ratios: Dict[str, float] = dataclasses.field(default_factory=dict, hash=False)
     ln: Tuple[str, ...] = ("input_ln", "post_ln")  # norm scales permuted with the stream
+    latent: Tuple[str, ...] = ()  # input = a latent space of attention (DeepSeek-V2's kv_b)
 
     @property
     def all_linears(self) -> Tuple[str, ...]:
-        return self.qkv + self.out + self.ffn1 + self.ffn2
+        return self.qkv + self.out + self.ffn1 + self.ffn2 + self.latent
 
 
 _LLAMA_STAGES = dict(qkv=("q", "k", "v"), out=("o",), ffn1=("up", "gate"), ffn2=("down",))
@@ -49,12 +50,21 @@ _METAS: Dict[str, ModelMeta] = {
     # mlp_ln exists only on the falcon-40B lineage's blocks (dual_ln)
     "falcon": ModelMeta(family="falcon", **_FUSED_QKV_STAGES, ratios={
         "qkv": 3.0, "dense": 1.0, "fc1": 0.25, "fc2": 0.25}, ln=("attn_ln", "mlp_ln")),
+    # the port's own family: the dense MLP on the leading layers, the shared
+    # and routed experts' on the rest; kv_b reads the normalised latent
+    "deepseek_v2": ModelMeta(
+        family="deepseek_v2", qkv=("q", "kv_a"), out=("o",),
+        ffn1=("gate_up", "shared_gate_up", "experts_gate_up"),
+        ffn2=("down", "shared_down", "experts_down"), latent=("kv_b",),
+        ln=("input_ln", "post_ln", "kv_a_ln")),
 }
 
 
 def get_model_meta(name: str) -> ModelMeta:
     """Name-based dispatch, in the JAX package's order."""
     low = name.lower()
+    if "deepseek" in low:
+        return _METAS["deepseek_v2"]
     if "opt" in low:
         return _METAS["opt"]
     if "llama" in low or "vicuna" in low or "stablebeluga" in low:

@@ -19,6 +19,13 @@ version:
   slots ``< pos`` only -- slot ``pos`` is stale -- plus the current token's
   unquantized ``k_new``/``v_new`` as one extra softmax term.
 
+- `decode_latent_attention` has no counterpart in ``qeft_tpu``: DeepSeek-V2's
+  multi-head latent attention at decode, 16 query heads over one cached
+  576-wide row a token (the normalised latent and the roped key), the
+  values the same rows' first 512 dims.  All heads of a sequence read each
+  row once (the heads are the M rows of the tensor cores' tiles), split-K
+  over the valid slots in one cluster launch, as K4's grouped-head path.
+
 The plain versions are the masked f32 softmax of ``qeft_tpu/models/
 llama.py::_attention`` over the same slots, with the scales applied as the
 kernels apply them.
@@ -244,4 +251,47 @@ def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor, v_cache: to
         cuda_lib.ptr(v_scale), cuda_lib.ptr(kn), cuda_lib.ptr(vn), cuda_lib.ptr(pos_dev),
         cuda_lib.ptr(out), n_layers, b, h, hkv, s_max, d, layer, pos,
     )
+    return out
+
+
+# the latent path (csrc kLatHeads, kLatK, kLatV)
+LATENT_HEADS, LATENT_DIM, LATENT_VALUE = 16, 576, 512
+
+
+def decode_latent_attention_plain(q, cache, pos, scale: float,
+                                  value_dim: int = LATENT_VALUE) -> torch.Tensor:
+    """q [B, H, D] against the rows of ``cache`` [B, S, D] at slots <= pos
+    (an int, or an int64 scalar tensor: the whole cache masked, no host
+    read), in f32; the values are each row's first ``value_dim`` dims.
+    Returns [B, H, value_dim] in q's dtype."""
+    c = cache.to(torch.float32)
+    s = torch.matmul(q.to(torch.float32), c.transpose(1, 2)) * scale  # [B, H, S]
+    valid = torch.arange(cache.shape[1], device=q.device) <= pos
+    s = s.masked_fill(~valid, float("-inf"))
+    out = torch.matmul(torch.softmax(s, dim=-1), c[..., :value_dim])
+    return out.to(q.dtype)
+
+
+def decode_latent_attention(q: torch.Tensor, cache: torch.Tensor, pos,
+                            scale: float) -> torch.Tensor:
+    """q [B, 16, 576] (the absorbed query and the roped q_pe); ``cache`` [B,
+    S, 576] one layer's latent rows, the current token's written; ``pos``
+    its index, an int or an int64 scalar on the card; ``scale`` the softmax
+    scale.  Returns [B, 16, 512]."""
+    if not q.is_cuda:
+        return decode_latent_attention_plain(q, cache, pos, scale)
+    b, h, d = q.shape
+    if (h, d) != (LATENT_HEADS, LATENT_DIM) or cache.dim() != 3 or cache.shape[0] != b \
+            or cache.shape[2] != d:
+        raise ValueError(f"latent attention takes q [B, {LATENT_HEADS}, {LATENT_DIM}] and a "
+                         f"cache [B, S, {LATENT_DIM}], got {tuple(q.shape)}, "
+                         f"{tuple(cache.shape)}")
+    _check("q", q, torch.bfloat16)
+    _check("cache", cache, torch.bfloat16)
+    s_max = cache.shape[1]
+    pos_dev, pos = _launch_pos(pos, s_max)
+    out = torch.empty(b, h, LATENT_VALUE, dtype=torch.bfloat16, device=q.device)
+    cuda_lib.launch("decode_latent_attention", cuda_lib.ptr(q), cuda_lib.ptr(cache),
+                    cuda_lib.ptr(pos_dev), cuda_lib.ptr(out), b, h, s_max, d, LATENT_VALUE, pos,
+                    float(scale))
     return out

@@ -92,6 +92,16 @@ _ENTRY_POINTS = {
         _I, _I, _I, _I, _I,  # M K N group_size R
         _P,  # stream
     ]),
+    "qgemv_moe": ("qmm.cu", [
+        _P, _P, _P, _P, _P, _P, _P, _P,  # x qweight scales szeros ow counts offsets out
+        _I, _I, _I, _I, _I, _I,  # E max_rows K N group_size R
+        _P,  # stream
+    ]),
+    "decode_latent_attention": ("decode_attention.cu", [
+        _P, _P, _P, _P,  # q cache pos_dev out
+        _I, _I, _I, _I, _I, _I,  # B H S D DV pos
+        _F, _P,  # scale stream
+    ]),
     "add_one": ("probes.cu", [_P, _P, _I, _P]),  # x y n stream
     "dma_only": ("probes.cu", [
         _P, _P, _P, _P,  # qw out workspace tickets

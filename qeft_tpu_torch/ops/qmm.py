@@ -21,6 +21,14 @@ Kernels (``csrc/qmm.cu``), each beside its plain PyTorch version:
   the OPT, Phi, Bloom and Falcon blocks at decode.
 - `qgemm` replaces ``pallas_qmm.py::qgemm``: the W4A16 GEMM for more rows,
   with the weak-column slab and an optional residual in its epilogue.
+- `qgemv_moe` has no counterpart in ``qeft_tpu`` (which has no expert
+  layer): the decode matvec of a mixture of experts' stacked linear
+  ``[E, K/8, N]`` over rows sorted by expert, expert e's ``counts[e]``
+  rows from row ``offsets[e]`` on, both read on the device -- K5's main
+  loop a block per (column tile, expert, tile of 8 rows), an expert's
+  buffers read once a row tile, untouched experts and row tiles past an
+  expert's rows leaving at once, so a decode step captured as a graph
+  replays correctly whatever the routing.
 - `qgemm_t` replaces ``pallas_qmm.py::qgemm_t``: ``dx = g @ W_deq^T`` from
   the packed codes over all K rows, written in original K order, with an
   optional f32 addend on the last r columns (the weak-column product) summed
@@ -131,6 +139,17 @@ def qgemv_stacked_plain(x, p: QLinearParams, layer: int) -> torch.Tensor:
     """``x @ W_deq[l] + x[..., -r:] @ oweight[l]`` (twin of ``qgemv_stacked``
     with its outside weak-column product)."""
     return _matvec_plain(x, p.layer(layer))
+
+
+def qgemv_moe_plain(x: torch.Tensor, p: QLinearParams, counts: torch.Tensor,
+                    offsets: torch.Tensor) -> torch.Tensor:
+    """Each expert's rows through its linear (`qgemm_plain` of ``p.layer(e)``):
+    x [R, K] sorted by expert -> [R, N]; reads the counts on the host."""
+    out = torch.zeros(x.shape[0], p.out_features, dtype=x.dtype, device=x.device)
+    for e, (off, n) in enumerate(zip(offsets.tolist(), counts.tolist())):
+        if n:
+            out[off:off + n] = qgemm_plain(x[off:off + n], p.layer(e))
+    return out
 
 
 def qgemm_t_plain(g: torch.Tensor, p: QLinearParams,
@@ -348,3 +367,33 @@ def qgemm_t(g: torch.Tensor, p: QLinearParams,
         m, k, n, p.group_size, r, gemm_rows(m),
     )
     return out.reshape(*lead, k)
+
+
+def qgemv_moe(x: torch.Tensor, p: QLinearParams, counts: torch.Tensor, offsets: torch.Tensor,
+              max_rows: int) -> torch.Tensor:
+    """The grouped decode matvec of the experts' stacked linear ``p``
+    (qweight [E, K/8, N]): x [R, K] holds expert e's ``counts[e]`` rows from
+    row ``offsets[e]`` on (int32 [E], on the device with x); the launch is
+    sized for ``max_rows`` an expert (the token count: top-k picks an
+    expert once a token), and an expert with more takes further turns of
+    its blocks.  Returns [R, N], each row through its expert's linear and
+    weak-column slab, rounded once.  Nothing is read on the host."""
+    if not x.is_cuda:
+        return qgemv_moe_plain(x, p, counts, offsets)
+    _check_packed(p, stacked=True)
+    e, k8, n = p.qweight.shape
+    k = k8 * 8
+    rows = x.shape[0]
+    x2 = _check_act(x, "x", (rows, k))
+    for name, t in (("counts", counts), ("offsets", offsets)):
+        if t.dtype != torch.int32 or not t.is_cuda or tuple(t.shape) != (e,):
+            raise ValueError(f"{name} must be an int32 CUDA tensor of shape ({e},)")
+    out = torch.empty(rows, n, dtype=torch.bfloat16, device=x.device)
+    cuda_lib.launch(
+        "qgemv_moe",
+        cuda_lib.ptr(x2), cuda_lib.ptr(p.qweight), cuda_lib.ptr(p.scales),
+        cuda_lib.ptr(p.scaled_zeros), cuda_lib.ptr(p.oweight), cuda_lib.ptr(counts.contiguous()),
+        cuda_lib.ptr(offsets.contiguous()), cuda_lib.ptr(out), e, int(max_rows), k, n,
+        p.group_size, p.n_outlier,
+    )
+    return out

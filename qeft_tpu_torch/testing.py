@@ -92,6 +92,10 @@ def build_packed_model(cfg, seed: int = 0, g: int = 128, r: int = 128,
     ``reorder=False`` needs the unfused tree."""
     device = resolve_device(device)
     meta = get_model_meta(family)
+    if meta.family == "deepseek_v2":
+        from qeft_tpu_torch.models.deepseek_v2 import build_packed
+
+        return build_packed(cfg, seed, g, r, dtype, device)
     if meta.family not in ("llama", "gemma"):
         return _build_family(cfg, meta, seed, g, r, dtype, device, reorder)
     if not reorder and fuse_stages:

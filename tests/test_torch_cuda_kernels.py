@@ -47,6 +47,7 @@ import pytest
 import torch
 
 import dataclasses
+import math
 
 from qeft_tpu_torch.ops import attention, cuda_lib, flash, qmm
 from qeft_tpu_torch.ops.packing import QLinearParams
@@ -1283,3 +1284,148 @@ def test_tp_train_step_of_two_ranks_on_the_card(gen):
         else:
             got = ranks[0]["grads"][name]
         assert np.abs(got - w).max() <= 0.1 * np.abs(w).max(), name
+
+
+def _routing(kind, experts, tokens, top_k, gen):
+    """(counts, offsets) int32 on the card of a routing of ``tokens``
+    tokens over ``experts`` (an expert takes a token at most once, so at
+    most ``tokens`` rows): "uneven" (top-k choices from a skewed draw),
+    "one" (every token on expert 1, the rest empty), "empty" (only
+    experts 0 and the last touched, with 3 rows and every token), "gaps"
+    (every even expert empty, the first among them, the odd ones with 1,
+    9, 63, 8, ... rows: ragged last tiles between empty experts; "over"
+    is the same routing, given to the kernel with blocks for 8 rows an
+    expert) or "tail" (the first half touched with those counts, the rest
+    empty, the last among them)."""
+    ragged = (1, 9, 63, 8, 17, tokens, 2, 15)
+    counts = torch.zeros(experts, dtype=torch.int32, device="cuda")
+    if kind == "one":
+        counts[1] = tokens
+    elif kind == "empty":
+        counts[0], counts[-1] = 3, tokens
+    elif kind in ("gaps", "over"):
+        for i, e in enumerate(range(1, experts, 2)):
+            counts[e] = ragged[i % len(ragged)]
+    elif kind == "tail":
+        for e in range(experts // 2):
+            counts[e] = ragged[e % len(ragged)]
+    else:
+        w = torch.rand(tokens, experts, generator=gen, device="cuda") ** 4
+        chosen = torch.topk(w, top_k, dim=-1).indices.reshape(-1)
+        counts = torch.bincount(chosen, minlength=experts).to(torch.int32)
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    return counts, offsets
+
+
+@pytest.mark.parametrize("kind", ["uneven", "one", "empty", "gaps", "tail", "over"])
+@pytest.mark.parametrize("experts,k,n,g,r", [
+    (8, 512, 96, 128, 16),      # small, splits in a cluster
+    (64, 2048, 2816, 128, 128),  # DeepSeek-V2-Lite's experts' gate/up
+    (64, 1408, 2048, 128, 128),  # and down (11 groups)
+    (4, 1024, 200, 64, 0),       # g = 64, no weak columns
+])
+def test_grouped_expert_matvec(gen, kind, experts, k, n, g, r):
+    """The grouped matvec (``qgemv_moe``) against each expert's plain
+    linear: uneven routing, every row of 64 tokens on one expert (eight
+    tiles of 8 rows), experts left empty first, last and between touched
+    ones, and experts with more rows than the blocks the launch was sized
+    for ("over": every row is still computed); one launch, bit-identical
+    calls."""
+    tokens, top_k = 64, 6 if experts >= 6 else 2
+    p = _packed(gen, experts, k, n, g, r)
+    counts, offsets = _routing(kind, experts, tokens, top_k, gen)
+    rows, max_rows = int(counts.sum()), 8 if kind == "over" else tokens
+    x = _randn(gen, rows, k)
+    got = _once_and_again("qgemv_moe", lambda: qmm.qgemv_moe(x, p, counts, offsets, max_rows))
+    _close(got, qmm.qgemv_moe_plain(_f32(x), _f32(p), counts, offsets))
+
+
+@pytest.mark.parametrize("b,s", [(3, 300), (64, 1280)])
+def test_latent_decode_attention(gen, b, s):
+    """The latent kernel against its plain version at positions where the
+    splits' chunks are empty or ragged (0, 1, 15, 16, 31, 32) and up to the
+    cache's end, and at a device position bit for bit as the host int; one
+    launch, bit-identical calls."""
+    scale = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+    q = _randn(gen, b, 16, 576)
+    c = _randn(gen, b, s, 576)
+    at = torch.zeros((), dtype=torch.int64, device="cuda")
+    for pos in sorted({0, 1, 15, 16, 31, 32, 255, 700, s - 1} & set(range(s))):
+        got = _once_and_again("decode_latent_attention",
+                              lambda: attention.decode_latent_attention(q, c, pos, scale))
+        _close(got, attention.decode_latent_attention_plain(_f32(q), _f32(c), pos, scale))
+        at.fill_(pos)
+        assert torch.equal(attention.decode_latent_attention(q, c, at, scale), got), pos
+
+
+def _deepseek_small():
+    """Two layers of DeepSeek-V2-Lite's attention widths (16 heads, the
+    576-wide latent row) over a narrow residual, one dense and one expert
+    layer of 8 experts, top 2, packed at g = 128 with 16 weak rows."""
+    from qeft_tpu_torch.models.deepseek_v2 import DEEPSEEK_V2_PRESETS
+    from qeft_tpu_torch.testing import build_packed_model
+
+    cfg = dataclasses.replace(DEEPSEEK_V2_PRESETS["deepseek-v2-lite"], vocab_size=512,
+                              hidden_size=256, intermediate_size=512, moe_intermediate_size=128,
+                              num_layers=2, n_routed_experts=8, n_shared_experts=1,
+                              num_experts_per_tok=2)
+    return cfg, build_packed_model(cfg, seed=0, g=128, r=16, device="cuda",
+                                   family="deepseek_v2")
+
+
+@pytest.mark.parametrize("b", [8, 64])
+def test_deepseek_decode_step_replays_under_changing_routing(gen, b):
+    """One decode step captured as a CUDA graph and replayed with new
+    tokens (so new routings) at advancing positions, no host sync inside
+    capture or replays (``set_sync_debug_mode("error")``): each replay's
+    logits equal the eager step's at the same position; the routing of
+    the expert layer changes between replays.  At 8 rows the dense
+    linears run K5, at 64 K2."""
+    from qeft_tpu_torch.models.api import get_model_api
+    from qeft_tpu_torch.ops import moe
+
+    cfg, params = _deepseek_small()
+    api = get_model_api("deepseek_v2")
+    plen = 12
+    prompt = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen, device="cuda")
+    caches = [api.init_cache(cfg, b, 40, device="cuda") for _ in range(2)]
+    for cache in caches:
+        api.prefill(params, prompt, cache, cfg)
+    cur = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device="cuda")
+    pos = torch.full((), plen, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the warm-up a capture needs, on a copy of the cache
+        warm = {"k": caches[0]["k"].clone()}
+        api.decode_step(params, cur, warm, pos, cfg)
+    torch.cuda.synchronize()
+
+    def unsynced(fn):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graph = unsynced(lambda: cuda_lib.Graph(
+        lambda: api.decode_step(params, cur, caches[0], pos, cfg)[0], stream))
+    routings, real_route = [], moe.route
+
+    def recorded(*args, **kw):
+        out = real_route(*args, **kw)
+        routings.append(out[1].sort(-1).values.flatten().tolist())
+        return out
+
+    for i in range(6):
+        cur.copy_(torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device="cuda"))
+        pos.fill_(plen + i)
+        torch.cuda.synchronize()
+        unsynced(graph.replay)
+        torch.cuda.synchronize()
+        moe.route = recorded
+        try:
+            want, _ = api.decode_step(params, cur, caches[1], plen + i, cfg)
+        finally:
+            moe.route = real_route
+        assert torch.equal(graph.output, want), i
+    assert len({tuple(r) for r in routings}) == 6  # a new routing every replay
