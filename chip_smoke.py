@@ -13,9 +13,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shapes (bf16), with their time, the plain version's time, one PyTorch
    library call's time as a yardstick (never used by the port) and the bound;
    two K1 calls on the same inputs bit-identical (``--only matvec`` runs K1
-   at the four stage shapes at M = 1 and 8, with K6 on the same inputs, P4
-   and the grouped expert matvec (below) alone, after device and build, on
-   random weights, and prints its rows without launch counts);
+   at the four stage shapes at M = 1 and 8, with K6 on the same inputs, P4,
+   K5 at the OPT-6.7B and Falcon-7b stage shapes and the grouped expert
+   matvec (below) alone, after device and build, on random weights, and
+   prints its rows without launch counts; with ``--outputs FILE`` it saves
+   the K5 and grouped-matvec outputs there, or holds them equal bit for bit
+   to the file another checkout's run left);
 5. attention: K3 at the S = 64 prefill, the engine's W = 1 windows (B = 8,
    positions 64..191, 200 slots) and windows of S = 512, 2048 (calibration)
    and 4096 (llama2-7b's eval window) without a cache; K4,
@@ -285,6 +288,16 @@ ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_CTX, ENGINE_GEN = 8, 16, 64, 128
 GRAPH_EAGER_TOKENS, SERVING_CLI_GEN = 64, 64
 SPEC_DRAFT_LAYERS = 8
 OPT_LINEARS = ("q", "k", "v", "o", "fc1", "fc2")
+# K5's stage shapes (label, K, N, group size, calls a decode layer, token
+# rows): OPT-6.7B's q/k/v/o, fc1 and fc2 at M = 1 and 8, Falcon-7b's qkv, o,
+# fc1 and fc2 (g = 64) at M = 8, as chat-b1 and batch8 run them
+K5_STAGES = (("opt-6.7b q/k/v/o", 4096, 4096, 128, 4, (1, 8)),
+             ("opt-6.7b fc1", 4096, 16384, 128, 1, (1, 8)),
+             ("opt-6.7b fc2", 16384, 4096, 128, 1, (1, 8)),
+             ("falcon-7b qkv", 4544, 4672, 64, 1, (8,)),
+             ("falcon-7b o", 4544, 4544, 64, 1, (8,)),
+             ("falcon-7b fc1", 4544, 18176, 64, 1, (8,)),
+             ("falcon-7b fc2", 18176, 4544, 64, 1, (8,)))
 WIDE_K = (13824, 16384, 28672)  # llama2-13b / OPT-6.7B fc2 / 70B down
 # the decode stages of a Llama layer: (name, RMS norm before it, residual after it)
 K1_STAGES = (("qkv", True, False), ("o", False, True), ("upgate", True, False),
@@ -376,6 +389,9 @@ PROFILE_ATTEMPTS = 3
 # (graph=False) beside the captured run, and held bit-identical to it
 BREAKDOWN_EAGER = ("q", "down")
 PATH_LAUNCHES: dict = {}  # launch counts of each main path, by path
+# the decode matvecs' outputs at their stage shapes, by label, each with its
+# split count (--outputs)
+OUTPUTS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -639,7 +655,8 @@ def phase_matvec(bw, rows):
     kernels can be timed in the same call: K1 at the four Llama-2-7B decode
     stages (random stacked w4/g128/r128 weights, as many layers as keep the
     rotation out of L2) at M = 1 and 8, with K6 on the same inputs, then P4
-    with its K6 and K1 rows (`_p4_row`) and the grouped expert matvec
+    with its K6 and K1 rows (`_p4_row`), K5 at the OPT-6.7B and Falcon-7b
+    stage shapes (`_k5_stage_rows`) and the grouped expert matvec
     (`_moe_matvec_rows`)."""
     from qeft_tpu_torch.models.llama import LLAMA_PRESETS
     from qeft_tpu_torch.probes import common
@@ -677,7 +694,94 @@ def phase_matvec(bw, rows):
         f"{d['library_ms'] * 1e3:.1f}; K6 {k6[m] * 1e3:.1f})"
         for m, d in ((1, row.d), (8, m8.d))))
     _p4_row(p4.measure(torch.device("cuda")), rows, bw)
+    log("[matvec] K5 at the OPT-6.7B and Falcon-7b stage shapes (random weights, cold)")
+    _k5_stage_rows(bw, rows)
     _moe_matvec_rows(bw, rows)
+
+
+def _k5_stage_rows(bw, rows, stages=K5_STAGES):
+    """K5 at its stage shapes (`K5_STAGES`), random w4/r128 weights with a
+    bias, as many layers as keep the rotation out of L2: each shape and row
+    count against its plain version in f32, a second call bit-identical,
+    timed rotating beside its bound (codes, scales, zero points, slab and
+    bias once, the rows in and out); the output on layer 0 kept in
+    `OUTPUTS`.  Sums per decode layer into the ``qgemv`` row (``stage_us``
+    by shape, ``<family>_layer_m<M>_us`` and their bounds)."""
+    from qeft_tpu_torch.ops import qmm
+    from qeft_tpu_torch.probes import common
+    from qeft_tpu_torch.testing import random_packed_linear
+
+    row = rows.setdefault("qgemv", Row("qgemv", "qeft_tpu_torch/csrc/qmm.cu",
+                                       "qeft_tpu/ops/pallas_qmm.py:599", False))
+    d = row.d
+    for label, k, n, g, calls, ms in stages:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(k * 7 + n)
+        wbytes = k * n // 2 + 4 * (k // g) * n + 2 * 128 * n + 2 * n
+        depth = common.n_copies(wbytes)
+        p = random_packed_linear(gen, depth, k, n, g, 128)
+        bias = (torch.randn(depth, n, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        lins = [dataclasses.replace(p.layer(i), bias=bias[i]) for i in range(depth)]
+        for m in ms:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            got = qmm.qgemv(x, lins[0])
+            if not torch.equal(qmm.qgemv(x, lins[0]), got):
+                raise AssertionError(f"K5 {label} M={m}: two calls on the same inputs differ")
+            err = check(f"K5 {label} {k}->{n} g={g} M={m}", got,
+                        qmm.qgemv_plain(f32(x), f32(lins[0])))
+            d["max_abs_err"] = max(d["max_abs_err"], err)
+            OUTPUTS[f"K5 {label} M={m}"] = (_splits(-(-n // 256), k // g), got.cpu())
+            us = time_ms(lambda i: qmm.qgemv(x, lins[i % depth]), inner=20, reps=9) * 1e3
+            bound = bound_ms(wbytes + 2 * m * (k + n), 2 * m * (k + 128) * n)[0] * 1e3
+            d.setdefault("stage_us", {})[f"{label} M={m}"] = us
+            d.setdefault("stage_bound_us", {})[f"{label} M={m}"] = bound
+            key = f"{label.split()[0]}_layer_m{m}"
+            d[f"{key}_us"] = d.get(f"{key}_us", 0.0) + calls * us
+            d[f"{key}_bound_us"] = d.get(f"{key}_bound_us", 0.0) + calls * bound
+            log(f"    K5 {label} M={m}: {us:.2f} us, bound {bound:.2f} us ({bound / us:.1%}); "
+                f"{calls} a decode layer; {depth} layers rotating")
+        del p, bias, lins
+        torch.cuda.empty_cache()
+    for key in sorted(k for k in d if "_layer_m" in k and not k.endswith("bound_us")):
+        base = key[:-3]
+        log(f"[matvec] K5 per {base.replace('_layer_m', ' layer at M = ')}: {d[key]:.1f} us, "
+            f"bound {d[base + '_bound_us']:.2f} us ({d[base + '_bound_us'] / d[key]:.1%})")
+
+
+def _splits(tiles, units):
+    """The split count of a decode matvec over ``tiles`` column tiles (x
+    experts) and ``units`` groups in the checkout that runs this script: its
+    ``qmm.gemv_splits``, or, in a checkout without it, the earlier rule (two
+    blocks an SM)."""
+    from qeft_tpu_torch.ops import qmm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hasattr(qmm, "gemv_splits"):
+        return qmm.gemv_splits(tiles, units, sms)
+    s = 1
+    while 2 * s <= 8 and 2 * s <= units and tiles * 2 * s <= 2 * sms:
+        s *= 2
+    return s
+
+
+def _outputs_against(path):
+    """`OUTPUTS` saved to ``path``; where ``path`` already holds another
+    checkout's (the parent's, run first in the same call), every output the
+    two share at the same split count held equal bit for bit instead (a
+    different split count sums the splits' tiles in another grouping)."""
+    if not os.path.exists(path):
+        torch.save(OUTPUTS, path)
+        log(f"[outputs] {len(OUTPUTS)} outputs saved to {path}")
+        return
+    theirs = torch.load(path)
+    shared = sorted(key for key in set(theirs) & set(OUTPUTS) if theirs[key][0] == OUTPUTS[key][0])
+    for key in sorted(set(theirs) & set(OUTPUTS) - set(shared)):
+        log(f"[outputs] {key}: {theirs[key][0]} splits there, {OUTPUTS[key][0]} here: not compared")
+    differ = [key for key in shared if not torch.equal(theirs[key][1], OUTPUTS[key][1])]
+    log(f"[outputs] {len(shared)} outputs at the same split count held against {path}: "
+        f"{len(shared) - len(differ)} equal bit for bit")
+    if differ or not shared:
+        raise AssertionError(f"outputs differ from {path}'s: {differ or 'none shared'}")
 
 
 def _kernels_a_call(fn, calls: int = 16):
@@ -1125,6 +1229,7 @@ def _moe_matvec_rows(bw, rows):
             raise AssertionError(f"qgemv_moe {name}: two calls on the same inputs differ")
         err = check(f"qgemv_moe {name} {k}->{n}", got,
                     qmm.qgemv_moe_plain(f32(xs), f32(p), counts, offsets))
+        OUTPUTS[f"qgemv_moe {name}"] = (_splits(-(-n // 256) * e, k // 128), got.cpu())
         ms = time_ms(lambda i: qmm.qgemv_moe(xs, p, counts, offsets, DS_BATCH))
         plain = time_ms(lambda i: qmm.qgemv_moe_plain(xs, p, counts, offsets), inner=2, reps=3)
         nbytes = touched * (k * n // 2 + 2 * 2 * (k // 128) * n + 2 * 128 * n) + 2 * n_rows * (k + n)
@@ -2472,7 +2577,8 @@ def phase_family_kernels(cfg, params, bw, rows):
     """K5 against its plain version evaluated in f32 at the OPT-6.7B stage
     shapes (the row: one decode layer at M = 1, bias on, as the main path
     runs it), every linear of layer 0 through K5 and K2 as `_check_layer0`
-    holds it, and K1 / K6 at eight rows of wide K."""
+    holds it, K5 at Falcon-7b's four stage shapes at M = 8 (`_k5_stage_rows`)
+    and K1 / K6 at eight rows of wide K."""
     from qeft_tpu_torch.ops import qmm
     from qeft_tpu_torch.testing import dense_linear, random_packed_linear
 
@@ -2520,6 +2626,8 @@ def phase_family_kernels(cfg, params, bw, rows):
         f"{r.d['bound_ms'] * 1e3:.2f}; torch.addmm {r.d['library_ms'] * 1e3:.1f})"
         for m, r in ((1, k5), (8, k5_m8))))
     _check_layer0("opt-6.7b", layers, rows)
+    log("[family-kernels] K5 at the Falcon-7b stage shapes, M = 8, g = 64 (random weights)")
+    _k5_stage_rows(bw, rows, [s for s in K5_STAGES if s[0].startswith("falcon")])
 
     from qeft_tpu_torch.pipeline import rtn_pack_linear
 
@@ -4836,9 +4944,15 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None,
                     help="with --only probes: the root of another checkout (the parent "
                     "commit's), whose P2 and P3 are timed beside this one's in the same call")
+    ap.add_argument("--outputs", default=None,
+                    help="with --only matvec or deepseek: save the decode matvecs' outputs at "
+                    "their stage shapes to this file, or, where it exists (another checkout's "
+                    "run), hold them equal to it bit for bit")
     args = ap.parse_args(argv)
     if args.parent and args.only != "probes":
         ap.error("--parent goes with --only probes")
+    if args.outputs and args.only not in ("matvec", "deepseek"):
+        ap.error("--outputs goes with --only matvec or deepseek")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4861,6 +4975,8 @@ def main(argv=None) -> int:
         rows, extra = {}, {}
         if args.only == "deepseek":  # a main path runs: its rows carry their launches
             timed(phase_deepseek, copy_rate(), rows, True)
+            if args.outputs:
+                _outputs_against(args.outputs)
             for key, row in rows.items():
                 row.d["launches_by_path"] = {p: c[key] for p, c in PATH_LAUNCHES.items()
                                              if c.get(key)}
@@ -4877,6 +4993,8 @@ def main(argv=None) -> int:
             timed(phase_probes, copy_rate(), rows, args.parent)
         else:
             timed(phase_matvec, copy_rate(), rows)
+            if args.outputs:
+                _outputs_against(args.outputs)
         log(f"[done] {time.perf_counter() - tick:.1f} s; seconds by phase {seconds}")
         # no main path ran, so the rows carry no launch count
         print(json.dumps({f"{args.only}_kernels": [{k: v for k, v in r.d.items()

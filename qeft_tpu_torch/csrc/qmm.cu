@@ -33,15 +33,25 @@
 //   groups; all its threads stage the split's activations of the M token
 //   rows in MMA order, 16-byte stores (8-byte loads transposed with byte
 //   permutes), in chunks of 64 units (2,048 K rows at g = 128) at any K,
-//   with one sum per (unit, token) for the zero points.  Each lane loads the next step's 16 words and scales
-//   into registers (64 bytes, coalesced as they stand: 128 bytes a word row
-//   across a warp) while it computes the current step; 43 KB of static
-//   shared memory, two blocks an SM.  (A lane-private cp.async ring three
-//   steps deep measured slower on the H100: the kernel is bound by the
-//   latency of its dependent instruction chains and its fixed costs, not by
-//   bytes in flight.)  N = 4096 has 16 tiles of 256 columns for 132 SMs, so
-//   the groups are split over up to 8 blocks (blockIdx.y), one thread block
-//   cluster; the splits' partial tiles are summed in rank order through the
+//   with one sum per (unit, token) for the zero points.  Each lane loads
+//   the next step's 16 words and scales into registers (64 bytes, coalesced
+//   as they stand: 128 bytes a word row across a warp) through pointers
+//   stepped a group on, while it computes the current step; each A register
+//   is one LOP3, (w >> 4q) & mask | 128, with both constants held in
+//   registers (PairConsts).  43 KB of static shared memory, two blocks an
+//   SM.  The loop is bound by these instructions, not by memory: on the H100
+//   the kernel takes the same time with its weights in L2 as from HBM, and a
+//   step of 8 warps took about 1.3 us with no load waited on at all.  So
+//   neither a lane-private cp.async ring three steps deep nor a shared-memory
+//   ring of bulk copies issued by one thread (the whole split asked for at
+//   the first instruction, one copy a 1 KB row or one tensor-map copy a
+//   stage) ran faster: the bulk stream gave 12.5-14 KB a us an SM, under
+//   what the warps consume, and at one block an SM only 15 clusters of 8
+//   fit the card, against q/k/v/o's 16.  N = 4096 has 16 tiles of 256
+//   columns for 132 SMs, so the groups are split over up to 8 blocks
+//   (blockIdx.y), one thread block cluster, as many as keep one block an SM
+//   where that fills 7/8 of the SMs, else two (gemv_splits); the splits'
+//   partial tiles are summed in rank order through the
 //   cluster's distributed shared memory (no atomics, no second pass, no
 //   workspace): two calls on the same inputs are bit-identical.  The weak
 //   columns are k16 steps of oweight (two rows per A register, byte
@@ -188,15 +198,29 @@ __host__ __device__ constexpr int mma_k_row(int hh, int jj0, int t, int j) {
   return ((j >> 1) + 4 * (j & 1)) * hh + jj0 + t;
 }
 
+// The constants of code_pair, the nibble-pair mask and the bf16 pair (128,
+// 128), held in registers: with both as immediates the compiler spends two
+// LOP3s a pair (an and, then an or), with both in registers one LOP3 takes
+// (w & mask) | magic.
+struct PairConsts {
+  uint32_t mask, magic;
+  __device__ PairConsts() : mask(0x000F000Fu), magic(kBF16_128) {
+    asm volatile("" : "+r"(mask), "+r"(magic));  // keeps them out of the immediates
+  }
+};
+
 // mask-or pair q of a word: the bf16 pair (128 + nibble q, 128 + nibble q + 4)
-__device__ __forceinline__ uint32_t code_pair(uint32_t w, int q) {
-  return nibble_pair(w, q) | kBF16_128;
+__device__ __forceinline__ uint32_t code_pair(uint32_t w, int q, const PairConsts& k) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(w >> (4 * q)), "r"(k.mask), "r"(k.magic));
+  return d;
 }
 
 // the bf16w variant's A register: the pair (nibble q * s, nibble q + 4 * s),
 // each product rounded once to bf16; s2 = (s, s), n2 = (-128 s, -128 s)
-__device__ __forceinline__ uint32_t scaled_pair(uint32_t w, int q, uint32_t s2, uint32_t n2) {
-  const uint32_t c = code_pair(w, q);
+__device__ __forceinline__ uint32_t scaled_pair(uint32_t w, int q, uint32_t s2, uint32_t n2,
+                                                const PairConsts& k) {
+  const uint32_t c = code_pair(w, q, k);
   const bf162 r = __hfma2(*reinterpret_cast<const bf162*>(&c),
                           *reinterpret_cast<const bf162*>(&s2),
                           *reinterpret_cast<const bf162*>(&n2));
@@ -254,23 +278,30 @@ __device__ __forceinline__ void gemv_tile(const GemvArgs& p, const int tile, con
   const bool col_ok = n4 < N;                              // N % 4 == 0
 
   // the words (4 columns, word row jj0 + t), scales and zero points of
-  // groups gi .. gi + GPB - 1; zeros past the split
+  // groups gi .. gi + GPB - 1; zeros past the split.  The steps are loaded
+  // in order, so each reads through pointers stepped GPB groups on (word
+  // row 4u + t of group gi lies u units of 4GN words past row t), not
+  // through addresses computed anew in 64 bits for every load
+  const size_t unit = (size_t)4 * G * N;
+  const int32_t* wq = p.qw + ((size_t)t * G + gb0) * N + n4;
+  const bf16* sq = p.sc + (size_t)gb0 * N + n4;
+  const bf16* zq = p.sz + (size_t)gb0 * N + n4;
   auto load = [&](int gi, uint4 (&w)[kD_STEP_UNITS], uint2 (&s)[GPB], uint2 (&z)[GPB]) {
 #pragma unroll
     for (int b = 0; b < GPB; ++b) {
-      const int gg = gi + b;
-      const bool ok = col_ok && gg < gb1;
+      const bool ok = col_ok && gi + b < gb1;
 #pragma unroll
       for (int u = 0; u < UPG; ++u)
-        w[b * UPG + u] = ok ? __ldcs(reinterpret_cast<const uint4*>(
-                                  p.qw + ((size_t)(4 * u + t) * G + gg) * N + n4))
+        w[b * UPG + u] = ok ? __ldcs(reinterpret_cast<const uint4*>(wq + u * unit + b * N))
                             : make_uint4(0u, 0u, 0u, 0u);
-      s[b] = ok ? __ldcs(reinterpret_cast<const uint2*>(p.sc + (size_t)gg * N + n4))
-                : make_uint2(0u, 0u);
-      z[b] = ok ? __ldcs(reinterpret_cast<const uint2*>(p.sz + (size_t)gg * N + n4))
-                : make_uint2(0u, 0u);
+      s[b] = ok ? __ldcs(reinterpret_cast<const uint2*>(sq + b * N)) : make_uint2(0u, 0u);
+      z[b] = ok ? __ldcs(reinterpret_cast<const uint2*>(zq + b * N)) : make_uint2(0u, 0u);
     }
+    wq += (size_t)GPB * N;
+    sq += (size_t)GPB * N;
+    zq += (size_t)GPB * N;
   };
+  const PairConsts pk;
 
   uint4 w[kD_STEP_UNITS], w_next[kD_STEP_UNITS];
   uint2 s[GPB], z[GPB], s_next[GPB], z_next[GPB];
@@ -460,15 +491,15 @@ __device__ __forceinline__ void gemv_tile(const GemvArgs& p, const int tile, con
             const uint32_t e = cw[2 * j], o = cw[2 * j + 1];  // columns 2j, 2j + 1
             if constexpr (BF16W) {
               const uint32_t se = s2[j][0], so = s2[j][1], ne = n2[j][0], no = n2[j][1];
-              mma_bf16(part[j], scaled_pair(e, 0, se, ne), scaled_pair(o, 0, so, no),
-                       scaled_pair(e, 1, se, ne), scaled_pair(o, 1, so, no), xb.x, xb.y);
-              mma_bf16(part[j], scaled_pair(e, 2, se, ne), scaled_pair(o, 2, so, no),
-                       scaled_pair(e, 3, se, ne), scaled_pair(o, 3, so, no), xb.z, xb.w);
+              mma_bf16(part[j], scaled_pair(e, 0, se, ne, pk), scaled_pair(o, 0, so, no, pk),
+                       scaled_pair(e, 1, se, ne, pk), scaled_pair(o, 1, so, no, pk), xb.x, xb.y);
+              mma_bf16(part[j], scaled_pair(e, 2, se, ne, pk), scaled_pair(o, 2, so, no, pk),
+                       scaled_pair(e, 3, se, ne, pk), scaled_pair(o, 3, so, no, pk), xb.z, xb.w);
             } else {
-              mma_bf16(part[j], code_pair(e, 0), code_pair(o, 0), code_pair(e, 1),
-                       code_pair(o, 1), xb.x, xb.y);
-              mma_bf16(part[j], code_pair(e, 2), code_pair(o, 2), code_pair(e, 3),
-                       code_pair(o, 3), xb.z, xb.w);
+              mma_bf16(part[j], code_pair(e, 0, pk), code_pair(o, 0, pk), code_pair(e, 1, pk),
+                       code_pair(o, 1, pk), xb.x, xb.y);
+              mma_bf16(part[j], code_pair(e, 2, pk), code_pair(o, 2, pk), code_pair(e, 3, pk),
+                       code_pair(o, 3, pk), xb.z, xb.w);
             }
           }
         }
@@ -558,11 +589,25 @@ qgemv_moe_kernel(const MoeArgs a) {
   }
 }
 
+// Splits of `units` groups over `tiles` column tiles (a cluster of up to 8
+// blocks): the most that keep the grid within one block an SM where that
+// grid fills 7/8 of the SMs, else within two blocks an SM.  One block an SM
+// walking twice the groups beats two blocks an SM walking half (OPT-6.7B's
+// fc1, 64 tiles, at M = 1 on the H100: 21.3 us at 2 splits, 27.0 at 4);
+// where one block an SM leaves SMs idle (Falcon-7b's 18, 19 and 71 tiles)
+// two blocks an SM still win.  ops/qmm.py:gemv_splits is its twin
+int gemv_splits(int tiles, int units) {
+  const int one = k_splits(tiles, units, kD_MAX_SPLITS, 1);
+  return 8 * tiles * one >= 7 * sm_count()
+             ? one
+             : k_splits(tiles, units, kD_MAX_SPLITS, kD_BLOCKS_PER_SM);
+}
+
 // the groups split over a cluster of up to 8 blocks, at most two blocks an SM
 template <int UPG>
 cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
   const int tiles = (a.N + kD_BN - 1) / kD_BN;
-  const int splits = k_splits(tiles, a.K / (UPG * 32), kD_MAX_SPLITS, kD_BLOCKS_PER_SM);
+  const int splits = gemv_splits(tiles, a.K / (UPG * 32));
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = split_cluster_config(tiles, splits, kD_THREADS, stream, &attr);
   cudaError_t e;
@@ -580,8 +625,7 @@ cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
 template <int UPG>
 cudaError_t launch_moe(const MoeArgs& a, int experts, cudaStream_t stream) {
   const int tiles = (a.g.N + kD_BN - 1) / kD_BN;
-  const int splits =
-      k_splits(tiles * experts, a.g.K / (UPG * 32), kD_MAX_SPLITS, kD_BLOCKS_PER_SM);
+  const int splits = gemv_splits(tiles * experts, a.g.K / (UPG * 32));
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = split_cluster_config(tiles, splits, kD_THREADS, stream, &attr);
   cfg.gridDim.z = experts * a.row_tiles;

@@ -61,6 +61,10 @@ from qeft_tpu_torch.ops.packing import QLinearParams, dequantize_weight, unpack_
 # math.
 DECODE_MAX_TOKENS = 8
 GEMM_BN = 128  # output columns of a GEMM block (csrc/qmm.cu kM_BN), K2 and K7
+# the decode matvecs' blocks (csrc/qmm.cu kD_*): output columns of a block,
+# the most splits of a cluster (the portable cluster size)
+GEMV_BN = 256
+GEMV_MAX_SPLITS = 8
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -231,6 +235,24 @@ def gemm_plan(m: int, n: int, n_groups: int, sms: int):
     want = max(1, min(n_groups, -(-2 * sms // tiles)))
     per = n_groups // want  # groups of a split: at least `want` splits, none empty
     return bm, -(-n_groups // per)
+
+
+def gemv_splits(tiles: int, units: int, sms: int) -> int:
+    """Splits of a decode matvec's ``units`` groups over ``tiles`` column
+    tiles of `GEMV_BN` (K1, K5, K6; the grouped expert matvec with ``tiles``
+    x experts) on a card of ``sms`` SMs: the largest power of two, at most
+    `GEMV_MAX_SPLITS` and ``units``, that keeps the grid within one block an
+    SM where that grid fills 7/8 of the SMs, else within two blocks an SM.
+    Twin of ``csrc/qmm.cu:gemv_splits`` (and ``common.cuh:k_splits``) for
+    the CPU tests; the kernels do not call it."""
+    def most(per_sm):
+        s = 1
+        while 2 * s <= GEMV_MAX_SPLITS and 2 * s <= units and tiles * 2 * s <= per_sm * sms:
+            s *= 2
+        return s
+
+    one = most(1)
+    return one if 8 * tiles * one >= 7 * sms else most(2)
 
 
 def _decode_rows(x: torch.Tensor, p: QLinearParams, layer: Optional[int]):

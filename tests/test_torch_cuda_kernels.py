@@ -513,17 +513,26 @@ def test_unstacked_decode_matvec_refuses_what_it_does_not_take(gen):
         qmm.qgemv_stacked(x, _packed(gen, 2, 256, 66, 64, 0), 0)
 
 
-@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("m", [1, 8, 3])
 @pytest.mark.parametrize("k,n,g,r", [
-    (4096, 4096, 128, 128),   # 32 column tiles: the groups split over a cluster of 8
+    (4096, 4096, 128, 128),   # 16 column tiles: the groups split over a cluster of 8
     (11008, 4096, 128, 128),  # 86 groups over 8 splits
-    (4096, 22016, 128, 128),  # 172 tiles: one split
+    (4096, 22016, 128, 128),  # 86 tiles: two splits, two blocks an SM
     (4544, 4672, 64, 128),
+    # the rest of OPT-6.7B's and Falcon-7b's decode stages: fc1 (64 tiles, 2
+    # splits at one block an SM), fc2, and Falcon's o, fc1 and fc2 (g = 64,
+    # N = 4544 ending in a ragged tile of 192 columns)
+    (4096, 16384, 128, 128),
+    (16384, 4096, 128, 128),
+    (4544, 4544, 64, 128),
+    (4544, 18176, 64, 128),
+    (18176, 4544, 64, 128),
 ])
 def test_decode_matvecs_bit_identical_and_one_launch(gen, m, k, n, g, r):
     """K6, K5 (with a bias) and K1 (with the norm and the residual): each
-    call one launch, and a second call on the same inputs bit-identical (the
-    splits are summed in rank order, and every split takes the same rstd)."""
+    call one launch, a second call on the same inputs bit-identical (the
+    splits are summed in rank order, and every split takes the same rstd),
+    and each against its plain version."""
     p = _packed(gen, 2, k, n, g, r)
     x = _randn(gen, m, k)
     lin = dataclasses.replace(p.layer(1), bias=_randn(gen, n, scale=0.5))
@@ -540,6 +549,8 @@ def test_decode_matvecs_bit_identical_and_one_launch(gen, m, k, n, g, r):
         torch.cuda.synchronize()
         assert cuda_lib.launches[name] == before + 1, name
         assert torch.equal(call(), first), name
+        if name == "qgemv_stacked":
+            _close(first, qmm.qgemv_stacked_plain(_f32(x), _f32(p), 1))
     _close(first, qmm.qgemv_plain(_f32(x), _f32(lin)))
 
 

@@ -29,6 +29,9 @@ weight pairs the CUDA cores build, the activations staged in the kernel's
 MMA order, the splits summed in rank order.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -93,10 +96,10 @@ THREADS, WARPS, SMS = 256, 8, 132  # a block of the kernel; the H100's SMs
 CHUNK_UNITS = 64  # units of 32 K rows staged at once
 
 
-def gemv_splits(tiles, units, most=8):
-    """The kernels' split count: the largest power of two, at most ``most``
-    (the decode matvec: 8, the portable cluster; P4: 16) and ``units``,
-    that keeps two blocks an SM."""
+def gemv_splits(tiles, units, most=16):
+    """P4's split count: the largest power of two, at most ``most`` and
+    ``units``, that keeps two blocks an SM (the decode matvecs' own rule is
+    ``qmm.gemv_splits``)."""
     s = 1
     while 2 * s <= most and 2 * s <= units and tiles * 2 * s <= 2 * SMS:
         s *= 2
@@ -150,7 +153,7 @@ def emulate(x, p, layer, lnw=None, res=None, eps=1e-5, one_offset=False):
     g = p.group_size
     hh, n_groups, n = g // 8, k // g, qw.shape[1]
     upg = hh // 4  # units of a group
-    splits = gemv_splits(-(-n // 256), n_groups)
+    splits = qmm.gemv_splits(-(-n // 256), n_groups, SMS)
     h = x
     if lnw is not None:
         rs = [block_rstd(x, eps) for _ in range(splits)]  # every block of a cluster
@@ -249,6 +252,49 @@ def test_contraction_order_is_a_permutation_of_each_group(g):
         for q in range(4):
             assert qmm.mma_k_row(hh, 4, t, 2 * q) == q * hh + 4 + t
             assert qmm.mma_k_row(hh, 4, t, 2 * q + 1) == (q + 4) * hh + 4 + t
+
+
+@pytest.mark.parametrize("tiles,units,want", [
+    (16, 32, 8),    # OPT-6.7B q/k/v/o: 128 blocks, one an SM
+    (16, 128, 8),   # OPT-6.7B fc2
+    (64, 32, 2),    # OPT-6.7B fc1: 128 blocks one an SM, not 256 two an SM
+    (19, 71, 8),    # Falcon-7b qkv (g = 64): 76 at one an SM would idle 56 SMs
+    (18, 71, 8),    # Falcon-7b o
+    (71, 71, 2),    # Falcon-7b fc1: 71 SMs at one an SM, 142 blocks at two
+    (18, 284, 8),   # Falcon-7b fc2
+    (11 * 64, 16, 1),  # DeepSeek-V2-Lite's experts' gate/up, tiles x experts
+    (197, 32, 1),   # a 50,272-wide head: more tiles than SMs
+    (1, 4, 4),      # a split a group
+])
+def test_decode_matvec_splits(tiles, units, want):
+    """The decode matvecs' splits (``qmm.gemv_splits``, twin of
+    ``csrc/qmm.cu:gemv_splits``) at the cells' shapes on the H100's 132 SMs:
+    one block an SM wherever that fills 7/8 of them, else two; never more
+    than a group a split or a cluster of 8."""
+    s = qmm.gemv_splits(tiles, units, SMS)
+    assert s == want
+    assert s <= min(units, qmm.GEMV_MAX_SPLITS) and s & (s - 1) == 0
+    assert tiles * s <= 2 * SMS or s == 1
+
+
+@pytest.mark.parametrize("q", range(4))
+def test_code_pair_is_one_lop3_of_the_mask_or(q):
+    """K1/K5/K6 build each A register with one LOP3 on (w >> 4q), the nibble
+    mask and the bf16 pair (128, 128), the constants in registers: its truth
+    table, read from csrc/qmm.cu, evaluated bit by bit is the mask-or pair
+    that the emulation below builds, for every word."""
+    src = (Path(qmm.__file__).resolve().parent.parent / "csrc" / "qmm.cu").read_text()
+    luts = re.findall(r"lop3\.b32 %0, %1, %2, %3, (0x[0-9A-Fa-f]+)", src)
+    assert luts, "no lop3 in csrc/qmm.cu"
+    w = np.random.default_rng(q).integers(0, 2**32, size=4096, dtype=np.uint64).astype(np.uint32)
+    a = w >> np.uint32(4 * q)
+    mask, magic = np.uint32(0x000F000F), MAGIC
+    for lut in {int(v, 16) for v in luts}:
+        got = np.zeros_like(a)
+        for bit in range(32):
+            i = (((a >> bit) & 1) << 2) | (((mask >> bit) & 1) << 1) | ((magic >> bit) & 1)
+            got |= ((np.uint32(lut) >> i) & np.uint32(1)) << np.uint32(bit)
+        np.testing.assert_array_equal(got, _code_pair(w, q))
 
 
 @pytest.mark.parametrize("m", [1, 3, 8])
@@ -353,7 +399,7 @@ def emulate_p4(variant, x, qw, s):
                 for r in range(8):
                     i = q if r < 4 else half + q
                     xs[u, i // cp, m, r & 3, i % cp] = _pair(lo[r], hi[r])
-    splits = gemv_splits(-(-n // 256), units, most=16)
+    splits = gemv_splits(-(-n // 256), units)
     y = np.zeros((8, n), np.float32)
     t = np.arange(4)[None, :]
     for n0 in range(0, n, 32):
