@@ -1605,7 +1605,8 @@ def phase_train_oracle(cfg, params):
     gradient -- within ORACLE_RTOL of its scale (as the serving oracle's
     bound: bf16 rounding through 32 layers of backward, where a wrong K7
     moves gradients by their own scale)."""
-    from qeft_tpu_torch.finetune import causal_lm_loss, llama_forward_train, split_wct, wct_loss
+    from qeft_tpu_torch.finetune import causal_lm_loss, split_wct, wct_loss
+    from qeft_tpu_torch.models.llama import llama_forward_train
     from qeft_tpu_torch.testing import dense_model
 
     ids, labels = next(_sft_batches(cfg))
@@ -1674,7 +1675,8 @@ def phase_family_train_oracle(cfg, params, family, label):
     largest ratio of the sound run and of each faulted one are printed and
     returned, so that GRAD_RATIO is seen to lie between them."""
     from qeft_tpu_torch.checkpoint import tree_map
-    from qeft_tpu_torch.finetune import causal_lm_loss, split_wct, train_forward, wct_loss
+    from qeft_tpu_torch.finetune import causal_lm_loss, split_wct, wct_loss
+    from qeft_tpu_torch.models.api import get_model_api
     from qeft_tpu_torch.ops import qlinear
     from qeft_tpu_torch.testing import dense_model
 
@@ -1703,7 +1705,8 @@ def phase_family_train_oracle(cfg, params, family, label):
             for l in ORACLE_LAYERS:
                 leaves[l] = leaves[l].detach().requires_grad_()
             dense["layers"][n] = leaves
-        loss[tag] = causal_lm_loss(train_forward(dense, ids, cfg, True, family), labels)
+        loss[tag] = causal_lm_loss(get_model_api(family).forward_train(dense, ids, cfg, True),
+                                   labels)
         loss[tag].backward()
         r = params["layers"][names[0]].n_outlier
         grads[tag] = {(n, l): dense["layers"][n][l].grad[-r:].float() for n in names
@@ -2874,6 +2877,7 @@ def _quantize_breakdown(dense, calib, cfg, meta, args):
     from torch.profiler import ProfilerActivity, profile
 
     from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.models.api import get_model_api
     from qeft_tpu_torch.quant import gptq, outliers, quantizer
 
     def timed_s(fn):
@@ -2884,7 +2888,7 @@ def _quantize_breakdown(dense, calib, cfg, meta, args):
         return time.perf_counter() - tick, res
 
     blk = {k: v[0] for k, v in pl._member_layers(dense, cfg, meta).items()}
-    inps = pl._embed_tokens(dense, torch.as_tensor(calib, device="cuda"), cfg, meta)
+    inps = get_model_api(meta.family).embed(dense, torch.as_tensor(calib, device="cuda"), cfg)
     t = {}
     t["hessian forward"], (_, hs) = timed_s(lambda: pl.block_hessians(blk, inps, cfg, meta))
     t["re-forward"], _ = timed_s(lambda: pl.block_forward_batch(blk, inps, cfg, meta))

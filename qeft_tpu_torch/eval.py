@@ -71,13 +71,13 @@ def eval_ppl_streamed(params: Dict, test_tokens: np.ndarray, cfg, meta, seqlen: 
     packed tree's linears run their kernels).  ``device`` defaults to the
     GPU, which must exist; ``"cpu"`` runs the branch with host and device
     the same."""
-    from qeft_tpu_torch.models.llama import _embed, _lm_head, llama_block, rope_tables
-    from qeft_tpu_torch.ops.flash import flash_window_attention_any
+    from qeft_tpu_torch.models.llama import _lm_head
 
     device = resolve_device(device)
     if meta.family not in ("llama", "gemma"):
         raise ValueError(f"eval_ppl_streamed covers the llama family, as the JAX package's "
                          f"does, not {meta.family!r}: evaluate it with eval_ppl")
+    api = get_model_api(meta.family)
     n_windows = len(test_tokens) // seqlen
     if max_windows:
         n_windows = min(n_windows, max_windows)
@@ -89,15 +89,13 @@ def eval_ppl_streamed(params: Dict, test_tokens: np.ndarray, cfg, meta, seqlen: 
     tokens = torch.as_tensor(np.stack([np.asarray(test_tokens[i * seqlen: (i + 1) * seqlen])
                                        for i in range(n_windows)]),
                              dtype=torch.int64, device=device)
-    x = _embed({"embed": params["embed"].to(device)}, tokens, cfg)
-    cos, sin = rope_tables(cfg, torch.arange(seqlen, device=device)[None, :])
+    x = api.embed({"embed": params["embed"].to(device)}, tokens, cfg)
     layers = params["layers"]
-    for i in range(layers["input_ln"].shape[0]):
-        one = _one_layer(layers, i, meta, device)
+    for i in range(layers["input_ln"].shape[0]):  # K3 on the card, as calibration runs a block
+        block = api.calibration_block(_one_layer(layers, i, meta, device), cfg, seqlen, device)
         for w in range(n_windows):
-            x[w: w + 1] = llama_block(one, 0, x[w: w + 1], cfg, cos, sin,
-                                      attend=flash_window_attention_any)
-        del one
+            x[w: w + 1] = block(x[w: w + 1], None)
+        del block
     head = tree_map(lambda t: t.to(device), {"final_ln": params["final_ln"],
                                              "lm_head": params["lm_head"]})
     total = 0.0

@@ -7,9 +7,10 @@ slabs are per-layer f32 leaves, ``{stage: [L tensors of [r, N]]}``: a stacked
 ``[L, r, N]`` zero gradient for every slice.  The training forward
 differentiates through the packed GEMM (K2) and takes the transposed INT4
 GEMM (K7) for ``dx`` (``ops/qlinear.py``); each decoder block is
-rematerialised with ``torch.utils.checkpoint`` when ``remat`` is on.  Every
-family trains: llama and gemma through their training block, OPT, Phi,
-Bloom and Falcon through their blocks under autograd (`train_forward`).
+rematerialised with ``torch.utils.checkpoint`` when ``remat`` is on.  Each
+family's `ModelApi` carries its training forward (`train_forward`): llama
+and gemma run their training block, OPT, Phi, Bloom and Falcon their blocks
+under autograd; DeepSeek-V2's raises (ROADMAP F1).
 Only the slabs train; biases, norms and the embeddings stay frozen.
 
 The optimizer is ``torch.optim.AdamW`` behind `WCTOptimizer`, which adds
@@ -24,23 +25,13 @@ value for value, counted in applied updates (step 0 has lr 0).
 from __future__ import annotations
 
 import dataclasses
-import importlib
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from qeft_tpu_torch.models.llama import (
-    LlamaConfig,
-    _embed,
-    _lm_head,
-    _num_layers,
-    causal_mask,
-    llama_block_train,
-    rope_tables,
-)
+from qeft_tpu_torch.models.api import get_model_api
 from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.utils.profiling import span
 
@@ -100,25 +91,6 @@ def merge_wct(oweights: Oweights, frozen: Dict, stack: bool = False) -> Dict:
 # training forward / loss
 
 
-def llama_forward_train(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-                        remat: bool = True) -> torch.Tensor:
-    """Full-sequence forward -> logits [B, S, V] through the differentiable
-    block, with the serving path's embedding and norm numerics (gemma's
-    embedding scale and ``(1 + w)`` norms included)."""
-    _, s = tokens.shape
-    x = _embed(params, tokens, cfg)
-    cos, sin = rope_tables(cfg, torch.arange(s, device=tokens.device)[None, :])
-    mask = causal_mask(s, tokens.device)
-    layers = params["layers"]
-    for l in range(_num_layers(params)):
-        if remat:
-            x = checkpoint(llama_block_train, layers, l, x, cfg, cos, sin, mask,
-                           use_reentrant=False)
-        else:
-            x = llama_block_train(layers, l, x, cfg, cos, sin, mask)
-    return _lm_head(params, x, cfg)
-
-
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Shifted cross-entropy in f32, mean over the targets that are not
     IGNORE_INDEX (0 when there are none)."""
@@ -132,15 +104,8 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def train_forward(params: Dict, tokens: torch.Tensor, cfg, remat: bool = True,
                   family: str = "llama") -> torch.Tensor:
     """The training forward of ``family`` (``qeft_tpu/finetune.py::
-    _train_forward``): llama and gemma run `llama_forward_train`; OPT, Phi,
-    Bloom and Falcon run their forward under autograd
-    (``models.common.forward_train``)."""
-    if family in ("llama", "gemma"):
-        return llama_forward_train(params, tokens, cfg, remat)
-    from qeft_tpu_torch.models import common
-
-    module = importlib.import_module(f"qeft_tpu_torch.models.{family}")
-    return common.forward_train(module.DECODER, params, tokens, cfg, remat)
+    _train_forward``): its `ModelApi`'s ``forward_train``."""
+    return get_model_api(family).forward_train(params, tokens, cfg, remat)
 
 
 def wct_loss(oweights: Oweights, frozen: Dict, input_ids: torch.Tensor, labels: torch.Tensor,

@@ -29,6 +29,7 @@ from qeft_tpu_torch.models.common import (
     gelu,
     layer_norm,
     linear,
+    model_api,
 )
 from qeft_tpu_torch.ops.permute import apply_o_reorder
 
@@ -168,3 +169,4 @@ def _embed_bloom(params: Dict, tokens: torch.Tensor, positions: torch.Tensor,
 
 DECODER = Decoder(norm="attn_ln", embed=_embed_bloom, block=bloom_block, final=_final,
                   score_bias=_alibi_bias)
+MODEL_API = model_api("bloom", DECODER, BloomConfig)

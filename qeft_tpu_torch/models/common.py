@@ -1,8 +1,8 @@
 """Pieces the OPT, Phi, Bloom and Falcon decoders share: LayerNorm, the
 linear of one layer (packed or dense, with its bias leaf), the plain masked
 softmax attention, the KV cache and its in-place write, and the layer loop
-with the generation surface (`forward`, `prefill`, `decode_step`,
-`forward_window`) that each family drives through its `Decoder` hooks.
+with the generation, training and calibration surfaces that each family
+drives through its `Decoder` hooks and holds as `model_api`'s value.
 
 The families keep the JAX package's conventions (``qeft_tpu/models/opt.py``
 and its siblings): dense weights are ``[K, N]``, per-layer parameters are
@@ -23,13 +23,16 @@ and Phi-2 (head size 80) keep the plain path; ``QEFT_PALLAS_ATTN=0`` too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
 
 from qeft_tpu_torch import env
 from qeft_tpu_torch.ops import cuda_lib
+from qeft_tpu_torch.models.api import ModelApi
 from qeft_tpu_torch.ops.attention import decode_attention
+from qeft_tpu_torch.ops.flash import masked_attention
 from qeft_tpu_torch.ops.packing import QLinearParams
 from qeft_tpu_torch.ops.qlinear import qlinear_apply
 from qeft_tpu_torch.utils.profiling import span
@@ -117,30 +120,21 @@ def _decode_kernel(dec: "Decoder", x: torch.Tensor, cache: Optional[Dict]) -> bo
 
 def attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
               mask: Optional[torch.Tensor], pos=None) -> torch.Tensor:
-    """Masked softmax attention (``qeft_tpu/models/llama.py::_attention``):
-    q [B, Sq, H, Dh]; k/v [B, H_kv, Sk, Dh] head-major; ``mask`` an additive
-    f32 bias broadcastable to [B, H, Sq, Sk].  Scores in x's dtype, then f32
-    for the scale, the bias and the softmax.  Returns ctx [B, Sq, H*Dh].
+    """Masked softmax attention (``qeft_tpu/models/llama.py::_attention``,
+    `ops.flash.masked_attention`): q [B, Sq, H, Dh]; k/v [B, H_kv, Sk, Dh]
+    head-major; ``mask`` an additive f32 bias broadcastable to [B, H, Sq,
+    Sk].  Returns ctx [B, Sq, H*Dh].
 
     ``mask`` None: a decode step that `forward_window` routed to the kernel
     (`decode_route`): q's one token at ``pos`` (an int, or an int64 scalar
     on the card) over the cache's slots <= pos, through
     `ops.attention.decode_attention`."""
     with span("qeft.model.attention"):
-        b, sq, h, dh = q.shape
+        b, _, h, dh = q.shape
         if mask is None:
             ctx = decode_attention(cuda_lib.aligned(q[:, 0]), k_all, v_all, pos)
             return ctx.reshape(b, 1, h * dh)
-        dtype = q.dtype
-        n_rep = h // k_all.shape[1]
-        k, v = k_all.to(dtype), v_all.to(dtype)
-        if n_rep > 1:
-            k, v = k.repeat_interleave(n_rep, dim=1), v.repeat_interleave(n_rep, dim=1)
-        scores = torch.matmul(q.transpose(1, 2), k.transpose(2, 3)).to(torch.float32) * dh ** -0.5
-        if mask is not None:
-            scores = scores + mask
-        probs = torch.softmax(scores, dim=-1).to(dtype)
-        return torch.matmul(probs, v).transpose(1, 2).reshape(b, sq, h * dh)
+        return masked_attention(q, k_all, v_all, mask)
 
 
 def causal_bias(query_pos: torch.Tensor, n_keys: int) -> torch.Tensor:
@@ -233,8 +227,14 @@ def pipeline_block_forward(dec: Decoder, layers: Dict, x: torch.Tensor, cfg,
     as the quantization pipeline runs a dense block (the JAX families'
     ``pipeline_block_forward``); ``capture`` receives the inputs of its four
     quantization stages."""
-    mask, rope = full_window(dec, cfg, x.shape[1], x.device)
-    return dec.block(layers, 0, x, cfg, mask, rope, capture=capture)
+    return calibration_block(dec, layers, cfg, x.shape[1], x.device)(x, capture)
+
+
+def calibration_block(dec: Decoder, layers: Dict, cfg, s: int, device):
+    """-> ``block(x, capture)``: `pipeline_block_forward` over windows of
+    ``s`` tokens, with the mask and the rotary tables made once."""
+    mask, rope = full_window(dec, cfg, s, device)
+    return lambda x, capture: dec.block(layers, 0, x, cfg, mask, rope, capture=capture)
 
 
 def full_window(dec: Decoder, cfg, s: int, device):
@@ -264,7 +264,7 @@ def forward_train(dec: Decoder, params: Dict, tokens: torch.Tensor, cfg,
 
     mask, rope = full_window(dec, cfg, tokens.shape[1], tokens.device)
     with span("qeft.model.embed"):
-        x = dec.embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device), cfg)
+        x = embed(dec, params, tokens, cfg)
     layers = params["layers"]
     for l in range(layers[dec.norm].shape[0]):
         x = checkpoint(block, layers, l, x, use_reentrant=False) if remat else block(layers, l, x)
@@ -287,3 +287,17 @@ def decode_step(dec: Decoder, params: Dict, token: torch.Tensor, cache: Dict, po
     tensor); returns (logits [B, V], cache)."""
     logits, cache = forward_window(dec, params, token, cache, pos, cfg)
     return logits[:, 0, :], cache
+
+
+def embed(dec: Decoder, params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Block 0's input for tokens [B, S] at positions 0..S-1."""
+    return dec.embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device), cfg)
+
+
+def model_api(family: str, dec: Decoder, config_cls: type) -> ModelApi:
+    """The `ModelApi` of a family that drives this module's layer loop
+    through ``dec``: each surface is this module's function of that name."""
+    return ModelApi(family, init_cache=init_kv_cache, config_cls=config_cls, **{
+        f.__name__: functools.partial(f, dec) for f in (
+            forward, prefill, decode_step, forward_window, forward_train, embed,
+            calibration_block)})

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from qeft_tpu_torch import env
 from qeft_tpu_torch.device import resolve_device
+from qeft_tpu_torch.models.api import ModelApi
 from qeft_tpu_torch.models.common import linear, write_window
 from qeft_tpu_torch.ops import cuda_lib
 from qeft_tpu_torch.ops.attention import decode_latent_attention, decode_latent_attention_plain
@@ -438,3 +439,18 @@ def decode_step(params: Dict, token: torch.Tensor, cache: Dict, pos, cfg: Deepse
     (logits [B, V], cache)."""
     logits, cache = forward_window(params, token, cache, pos, cfg)
     return logits[:, 0, :], cache
+
+
+def _unported(what: str, item: str):
+    def raise_(*_args, **_kwargs):
+        raise NotImplementedError(f"DeepSeek-V2 {what} (ROADMAP {item})")
+    return raise_
+
+
+_QUANTIZE = _unported("quantization waits for weights and calibration sets that the "
+                      "repository does not hold", "A7b")
+MODEL_API = ModelApi(
+    family="deepseek_v2", forward=forward, prefill=prefill, decode_step=decode_step,
+    forward_window=forward_window, init_cache=init_kv_cache, config_cls=DeepseekV2Config,
+    forward_train=_unported("training (WCT of its expert slabs) is not ported", "F1"),
+    embed=_QUANTIZE, calibration_block=_QUANTIZE)

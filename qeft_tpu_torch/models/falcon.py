@@ -29,6 +29,7 @@ from qeft_tpu_torch.models.common import (
     gelu,
     layer_norm,
     linear,
+    model_api,
 )
 from qeft_tpu_torch.models.llama import apply_rope, rope_tables
 from qeft_tpu_torch.ops.permute import apply_o_reorder
@@ -148,3 +149,4 @@ def _embed(params: Dict, tokens: torch.Tensor, positions: torch.Tensor, cfg) -> 
 
 DECODER = Decoder(norm="attn_ln", embed=_embed, block=falcon_block, final=_final,
                   rope=rope_tables)
+MODEL_API = model_api("falcon", DECODER, FalconConfig)

@@ -27,9 +27,10 @@ Two kinds of parameter tree run through the same functions:
 
 Serving runs `llama_block` (prefill, windows, single-sequence decode) and
 the ragged window forward of continuous batching and speculative decoding;
-training runs `llama_block_train`, a separate differentiable block (norms
-and residuals outside the linears, plain attention) so that the serving
-path and its kernel launches stay as they are.
+training (`llama_forward_train`) runs `llama_block_train`, a separate
+differentiable block (norms and residuals outside the linears, plain
+attention) so that the serving path and its kernel launches stay as they
+are.  `MODEL_API` (gemma's `GEMMA_API`) is the family's `ModelApi`.
 
 The KV cache is bf16 (or the activation dtype), or int8 codes with one f32
 scale per cached vector (``init_kv_cache(quantized=True)``).  Every cache
@@ -52,8 +53,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from qeft_tpu_torch import env
 from qeft_tpu_torch.device import resolve_device
+from qeft_tpu_torch.models.api import ModelApi
 from qeft_tpu_torch.models.common import init_generator, write_window
 from qeft_tpu_torch.ops.attention import (
     decode_attention,
@@ -62,6 +66,7 @@ from qeft_tpu_torch.ops.attention import (
 )
 from qeft_tpu_torch.ops.flash import (
     flash_window_attention,
+    flash_window_attention_any,
     flash_window_attention_plain,
     masked_attention,
 )
@@ -74,7 +79,7 @@ __all__ = [
     "LlamaConfig", "LLAMA_PRESETS", "rms_norm", "rope_tables", "apply_rope",
     "init_params", "init_kv_cache", "cache_quantized", "llama_forward", "llama_prefill",
     "llama_forward_window", "llama_forward_window_ragged", "llama_decode_step",
-    "llama_decode_step_ragged", "causal_mask", "llama_block_train",
+    "llama_decode_step_ragged", "causal_mask", "llama_block_train", "llama_forward_train",
 ]
 
 
@@ -461,6 +466,33 @@ def llama_forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     return _lm_head(params, x, cfg)
 
 
+def llama_forward_train(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                        remat: bool = True) -> torch.Tensor:
+    """Full-sequence forward -> logits [B, S, V] through the differentiable
+    block, with the serving path's embedding and norm numerics (gemma's
+    embedding scale and ``(1 + w)`` norms included)."""
+    _, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    cos, sin = rope_tables(cfg, torch.arange(s, device=tokens.device)[None, :])
+    mask = causal_mask(s, tokens.device)
+    layers = params["layers"]
+    for l in range(_num_layers(params)):
+        if remat:
+            x = checkpoint(llama_block_train, layers, l, x, cfg, cos, sin, mask,
+                           use_reentrant=False)
+        else:
+            x = llama_block_train(layers, l, x, cfg, cos, sin, mask)
+    return _lm_head(params, x, cfg)
+
+
+def llama_calibration_block(layers: Dict, cfg: LlamaConfig, s: int, device):
+    """-> ``block(x, capture)``: `llama_block` 0 of the dense ``layers`` over
+    ``s`` tokens through K3 on the GPU; the rotary tables are made once."""
+    cos, sin = rope_tables(cfg, torch.arange(s, device=device)[None, :])
+    return lambda x, capture: llama_block(layers, 0, x, cfg, cos, sin, capture=capture,
+                                          attend=flash_window_attention_any)
+
+
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
                   device=None, quantized: bool = False) -> Dict:
     """Zeroed head-major static cache {"k", "v"}: [L, B, H_kv, S_max, Dh].
@@ -647,3 +679,11 @@ def llama_decode_step_ragged(params: Dict, tokens: torch.Tensor, cache: Dict,
     Returns (logits [B, V], cache)."""
     logits, cache = llama_forward_window_ragged(params, tokens, cache, pos, cfg)
     return logits[:, 0, :], cache
+
+
+MODEL_API = ModelApi(
+    family="llama", forward=llama_forward, prefill=llama_prefill,
+    decode_step=llama_decode_step, forward_window=llama_forward_window,
+    init_cache=init_kv_cache, config_cls=LlamaConfig, forward_train=llama_forward_train,
+    embed=_embed, calibration_block=llama_calibration_block)
+GEMMA_API = dataclasses.replace(MODEL_API, family="gemma")  # LlamaConfig's switches

@@ -25,6 +25,7 @@ from qeft_tpu_torch.models.common import (
     dense,
     layer_norm,
     linear,
+    model_api,
 )
 from qeft_tpu_torch.ops.permute import apply_o_reorder
 
@@ -180,3 +181,4 @@ def _final(params: Dict, x: torch.Tensor, cfg: OPTConfig) -> torch.Tensor:
 
 
 DECODER = Decoder(norm="attn_ln", embed=_embed_opt, block=opt_block, final=_final)
+MODEL_API = model_api("opt", DECODER, OPTConfig)

@@ -28,6 +28,7 @@ from qeft_tpu_torch.models.common import (
     gelu,
     layer_norm,
     linear,
+    model_api,
 )
 from qeft_tpu_torch.models.llama import apply_rope
 from qeft_tpu_torch.ops.permute import apply_o_reorder
@@ -153,3 +154,4 @@ def _embed(params: Dict, tokens: torch.Tensor, positions: torch.Tensor, cfg) -> 
 
 DECODER = Decoder(norm="input_ln", embed=_embed, block=phi_block, final=_final,
                   rope=phi_rope_tables)
+MODEL_API = model_api("phi", DECODER, PhiConfig)

@@ -27,7 +27,9 @@ CHUNK = 64
 def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                      mask: Optional[torch.Tensor]) -> torch.Tensor:
     """q [B, S, H, D]; k/v [B, Hkv, Sk, D]; mask broadcastable to
-    [B, H, S, Sk] (True = attend).  f32 softmax; returns [B, S, H*D]."""
+    [B, H, S, Sk]: a boolean one (True = attend) or an additive f32 bias
+    (the families' causal bias, with Bloom's ALiBi).  Scores in q's dtype,
+    then f32 for the scale, the mask and the softmax; returns [B, S, H*D]."""
     b, s, h, d = q.shape
     n_rep = h // k_all.shape[1]
     dtype = q.dtype
@@ -36,7 +38,8 @@ def masked_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     scores = torch.matmul(q.transpose(1, 2), k_rep.to(dtype).transpose(2, 3)).to(torch.float32)
     scores = scores * (d ** -0.5)
     if mask is not None:
-        scores = scores.masked_fill(~mask, float("-inf"))
+        scores = (scores.masked_fill(~mask, float("-inf")) if mask.dtype == torch.bool
+                  else scores + mask)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     ctx = torch.matmul(probs, v_rep.to(dtype))  # [B, H, S, D]
     return ctx.transpose(1, 2).reshape(b, s, h * d)

@@ -22,9 +22,11 @@ The port's dense tree fuses ``qkv`` and ``upgate`` (``models.llama.
 init_params``); the pipeline quantizes their members one by one under
 JAX's names (``q``, ``k``, ``v``, ``up``, ``gate``), and the fake tree it
 returns carries those names, as JAX's does (`fuse_dense_stages` fuses it
-for the model functions).  The llama family's calibration forwards run
-K3 on the GPU (``ops.flash.flash_window_attention_any``), as JAX's run its
-flash kernel on the TPU; OPT, Phi, Bloom and Falcon run their blocks
+for the model functions).  Block 0's input and the calibration forward of
+a block are the family's `ModelApi` surfaces ``embed`` and
+``calibration_block``: the llama family's run K3 on the GPU
+(``ops.flash.flash_window_attention_any``), as JAX's run its flash kernel on
+the TPU; OPT, Phi, Bloom and Falcon run their blocks
 (`models.common.pipeline_block_forward`) with the plain attention, as JAX's
 run XLA's.
 
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from qeft_tpu_torch.checkpoint import tree_map
+from qeft_tpu_torch.models.api import get_model_api
 from qeft_tpu_torch.models.registry import ModelMeta
 from qeft_tpu_torch.ops.packing import QLinearParams, pack_layer
 from qeft_tpu_torch.quant.gptq import ColumnLoops, LayerQuantResult, gptq_quantize, gram
@@ -201,16 +204,6 @@ _ALL_STAGES = ("qkv", "out", "ffn1", "ffn2")
 _STAGE_CAP = {"qkv": "qkv_in", "out": "o_in", "ffn1": "ffn1_in", "ffn2": "ffn2_in"}
 
 
-def _is_llama(meta: ModelMeta) -> bool:
-    return meta.family in ("llama", "gemma")
-
-
-def _decoder(meta: ModelMeta):
-    import importlib
-
-    return importlib.import_module(f"qeft_tpu_torch.models.{meta.family}").DECODER
-
-
 def _stage_of(meta: ModelMeta, name: str) -> str:
     for stage, names in zip(_ALL_STAGES, (meta.qkv, meta.out, meta.ffn1, meta.ffn2)):
         if name in names:
@@ -222,18 +215,6 @@ def _member_layers(params: Dict, cfg, meta: ModelMeta) -> Dict[str, torch.Tensor
     """The dense layers by member name: a fused ``qkv`` / ``upgate`` is cut
     into views of its members (no copy)."""
     return split_fused(params["layers"], meta, member_widths(cfg, meta))
-
-
-def _embed_tokens(params: Dict, tokens: torch.Tensor, cfg, meta: ModelMeta) -> torch.Tensor:
-    """Block 0's input, as the family's forward makes it: the embedding rows
-    (scaled by sqrt(hidden) for gemma; OPT's learned positions added and its
-    optional ``project_in`` applied; Bloom's embedding LayerNorm)."""
-    if _is_llama(meta):
-        from qeft_tpu_torch.models.llama import _embed
-
-        return _embed({"embed": params["embed"]}, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    return _decoder(meta).embed(params, tokens, positions, cfg)
 
 
 def _block_layers(blk: Dict[str, torch.Tensor], meta: ModelMeta) -> Dict[str, torch.Tensor]:
@@ -249,23 +230,8 @@ def _block_forward(blk, inps: torch.Tensor, cfg, meta: ModelMeta, stages=(),
     ``scan``); -> (outputs [n, S, D] or None without ``outputs``, {stage:
     sum of x^T x} for ``stages``)."""
     n, s, _ = inps.shape
-    layers = _block_layers(blk, meta)
-    if _is_llama(meta):
-        from qeft_tpu_torch.models.llama import llama_block, rope_tables
-        from qeft_tpu_torch.ops.flash import flash_window_attention_any
-
-        cos, sin = rope_tables(cfg, torch.arange(s, device=inps.device)[None, :])
-
-        def block(x, cap):
-            return llama_block(layers, 0, x, cfg, cos, sin, capture=cap,
-                               attend=flash_window_attention_any)
-    else:
-        from qeft_tpu_torch.models.common import pipeline_block_forward
-
-        dec = _decoder(meta)
-
-        def block(x, cap):
-            return pipeline_block_forward(dec, layers, x, cfg, cap)
+    block = get_model_api(meta.family).calibration_block(_block_layers(blk, meta), cfg, s,
+                                                         inps.device)
     # a stage's Hessian is as wide as its linears' inputs ([K, N] member tensors)
     firsts = dict(zip(_ALL_STAGES, (meta.qkv[0], meta.out[0], meta.ffn1[0], meta.ffn2[0])))
     hs = {st: torch.zeros(blk[firsts[st]].shape[0], blk[firsts[st]].shape[0],
@@ -406,8 +372,8 @@ def extract_global_outidx(params: Dict, calib_tokens: np.ndarray, cfg, meta: Mod
         target_rank = args.perhead * cfg.num_heads
     device, _ = _placement(params, device)
     layers = _member_layers(params, cfg, meta)
-    inps = _embed_tokens(_top_at(params, device), torch.as_tensor(calib_tokens, device=device),
-                         cfg, meta)
+    inps = get_model_api(meta.family).embed(
+        _top_at(params, device), torch.as_tensor(calib_tokens, device=device), cfg)
     n_out = _n_out_dict(layers, meta, args)
     sensitivity = torch.zeros(cfg.hidden_size, dtype=torch.float32, device=device)
     per_layer = {}
@@ -453,8 +419,8 @@ def quantize_model(params: Dict, calib_tokens: np.ndarray, cfg, meta: ModelMeta,
     spec = args.spec
     device, streamed = _placement(params, device)
     layers = _member_layers(params, cfg, meta)
-    inps = _embed_tokens(_top_at(params, device), torch.as_tensor(calib_tokens, device=device),
-                         cfg, meta)
+    inps = get_model_api(meta.family).embed(
+        _top_at(params, device), torch.as_tensor(calib_tokens, device=device), cfg)
     n_out = _n_out_dict(layers, meta, args)
     global_out = None if outidx is None else torch.as_tensor(
         np.asarray(outidx), dtype=torch.int32, device=device)

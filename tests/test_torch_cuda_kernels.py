@@ -1018,6 +1018,7 @@ def test_gptq_of_a_falcon_width_block_on_the_card_matches_the_cpu(gen):
     min and max), and each linear's fake weight as far from the dense one,
     in the Hessian's norm, within 1 %."""
     from qeft_tpu_torch import pipeline as pl
+    from qeft_tpu_torch.models.api import get_model_api
     from qeft_tpu_torch.models.falcon import FALCON_PRESETS, init_params
     from qeft_tpu_torch.models.registry import get_model_meta
     from qeft_tpu_torch.quant.quantizer import QuantSpec
@@ -1033,7 +1034,7 @@ def test_gptq_of_a_falcon_width_block_on_the_card_matches_the_cpu(gen):
         tree = {k: (v.to(dev) if isinstance(v, torch.Tensor) else
                     {n: t.to(dev) for n, t in v.items()}) for k, v in dense.items()}
         runs[dev] = pl.quantize_model(tree, calib, cfg, meta, args)
-    x = pl._embed_tokens(dense, torch.as_tensor(calib, device="cuda"), cfg, meta)
+    x = get_model_api("falcon").embed(dense, torch.as_tensor(calib, device="cuda"), cfg)
     blk = {k: v[0] for k, v in dense["layers"].items()}
     _, hs = pl.block_hessians(blk, x, cfg, meta)
     differ = total = 0

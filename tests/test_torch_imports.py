@@ -477,3 +477,19 @@ def test_the_dry_run_needs_a_gpu_unless_cpu_is_named(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         multihost_dryrun.run()
+
+
+@pytest.mark.parametrize("module", ["finetune.py", "pipeline.py"])
+def test_training_and_quantization_reach_a_family_only_through_its_model_api(module):
+    """``finetune`` and ``pipeline`` import nothing from ``models.llama`` and
+    no underscore name of a model module, read no family's ``DECODER`` and
+    import no family module by name: what a family is lives behind
+    ``models.api.get_model_api``."""
+    tree = ast.parse((PKG / module).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "qeft_tpu_torch.models"):
+            assert node.module != "qeft_tpu_torch.models.llama"
+            assert not [a.name for a in node.names if a.name.startswith("_")], node.module
+        assert not (isinstance(node, ast.Attribute) and node.attr in ("DECODER", "import_module"))
+        assert not (isinstance(node, ast.Name) and node.id in ("importlib", "_is_llama"))
