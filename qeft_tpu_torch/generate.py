@@ -5,11 +5,15 @@ top-p sampling (`SampleConfig`, `warp_logits`), and the EOS variant.
 On the card, without ``eos_id``, the decode loop runs as one CUDA graph, as
 the JAX package runs it as one compiled program (``_decode_loop``, a
 ``lax.fori_loop`` under ``jit``): the prefill runs eagerly (JAX's separate
-``_prefill_first``); the first decode step runs eagerly through the same
-`DecodeLoop.step` the graph captures, which is the warm-up a capture needs;
-then that step is captured once and replayed for every further token.  The
-step reads the current token and its position from device buffers and
-advances both itself, so nothing returns to the host between tokens.  The
+``_prefill_first``); the decode step (`DecodeLoop.step`) is replayed for
+every further token.  The step reads the current token and its position
+from device buffers and advances both itself, so nothing returns to the
+host between tokens.  The captured step is kept, one a device, for the next
+call whose step would read the same memory (`step_key`: the same tensors of
+the model and the cache, the same shapes and settings), as a server that
+reuses one cache calls it; such a call only resets the loop's buffers and
+replays.  Any other call releases the kept step, runs the first step
+eagerly (the warm-up a capture needs), captures the step and keeps it.  The
 EOS variant (JAX's ``while_loop``, which exits early), the CPU and
 ``graph=False`` run a Python loop of the same steps at host-int positions,
 which never waits for the device except that the EOS variant reads once a
@@ -23,11 +27,15 @@ distribution, not token for token; greedy outputs match exactly."""
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict, Optional, Tuple
+import os
+import weakref
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from qeft_tpu_torch import env
 from qeft_tpu_torch.device import check_on, resolve_device
 from qeft_tpu_torch.models.api import ModelApi, get_model_api
 from qeft_tpu_torch.ops import cuda_lib
@@ -88,23 +96,32 @@ def default_generator(device, seed: int = 0) -> torch.Generator:
 class DecodeLoop:
     """The decode loop's state on the device -- the current token [B, 1],
     its position (an int64 scalar) and the index of the next token in
-    ``tokens`` [B, T] -- and `step`, which runs the decode step at that
-    position, samples, writes the token and advances all three.  `step`
-    reads no device value on the host, so `capture` records it as one CUDA
-    graph; replaying it is the decode loop."""
+    ``out`` [B, T] -- and `step`, which runs the decode step at that
+    position, samples, writes the token into ``out`` and advances all
+    three.  `step` reads no device value on the host, so `capture` records
+    it as one CUDA graph; replaying it is the decode loop, and `reset`
+    starts it again at another request's first token and position."""
 
-    def __init__(self, api: ModelApi, params: Dict, cache: Dict, cfg, tokens: torch.Tensor,
+    def __init__(self, api: ModelApi, params: Dict, cache: Dict, cfg, out: torch.Tensor,
                  pos: int, sc: SampleConfig, generator: Optional[torch.Generator]):
-        self.api, self.params, self.cache, self.cfg = api, params, cache, cfg
-        self.tokens, self.sc, self.generator = tokens, sc, generator
-        self.cur = tokens[:, :1].clone()
-        self.pos = torch.full((), pos, dtype=torch.int64, device=tokens.device)
-        self.idx = torch.ones(1, dtype=torch.int64, device=tokens.device)
+        self.decode_step = api.decode_step
+        self.params, self.cache, self.cfg = params, cache, cfg
+        self.out, self.sc, self.generator = out, sc, generator
+        self.cur = out[:, :1].clone()
+        self.pos = torch.full((), pos, dtype=torch.int64, device=out.device)
+        self.idx = torch.ones(1, dtype=torch.int64, device=out.device)
+
+    def reset(self, tokens: torch.Tensor, pos: int) -> None:
+        """Start at token 1 of ``tokens`` [B, n], whose token 0 stands at
+        position ``pos``: three writes on the device, no host read."""
+        self.cur.copy_(tokens[:, :1])
+        self.pos.fill_(pos)
+        self.idx.fill_(1)
 
     def step(self) -> None:
-        logits, _ = self.api.decode_step(self.params, self.cur, self.cache, self.pos, self.cfg)
+        logits, _ = self.decode_step(self.params, self.cur, self.cache, self.pos, self.cfg)
         nxt = _sample_token(logits, self.generator, self.sc)[:, None]
-        self.tokens.index_copy_(1, self.idx, nxt)
+        self.out.index_copy_(1, self.idx, nxt)
         self.cur.copy_(nxt)
         self.pos += 1
         self.idx += 1
@@ -117,6 +134,17 @@ class DecodeLoop:
 
 # the decode loops' side stream of each device, by device index
 _side_streams: Dict[int, torch.cuda.Stream] = {}
+# the kept captured step of each device, by device index: one at most, so
+# that what a device holds for it is one step's graph pool.  Like the side
+# stream, it serves one `generate` at a time on a device.
+_kept: Dict[int, "_Kept"] = {}
+# decode steps captured and kept steps reused by `generate`, counted as
+# `cuda_lib.launches` is
+graph_counts: collections.Counter = collections.Counter()
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
@@ -124,37 +152,140 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     for the process: PyTorch keeps a cuBLAS workspace (32 MiB on an H100)
     for every stream a matmul has run on, so a fresh stream a request would
     hold one more workspace after every request."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     if index not in _side_streams:
         _side_streams[index] = torch.cuda.Stream(index)
     return _side_streams[index]
 
 
+def _leaves(tree, tensors: List[torch.Tensor], plain: List) -> None:
+    """The tensors of ``tree`` (dicts, lists, tuples and dataclasses of
+    them) into ``tensors``, in order; its keys and every other value into
+    ``plain``."""
+    if isinstance(tree, torch.Tensor):
+        tensors.append(tree)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            plain.append(k)
+            _leaves(v, tensors, plain)
+    elif isinstance(tree, (list, tuple)):
+        plain.append(len(tree))
+        for v in tree:
+            _leaves(v, tensors, plain)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        plain.append(type(tree))
+        for f in dataclasses.fields(tree):
+            _leaves(getattr(tree, f.name), tensors, plain)
+    else:
+        plain.append(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepKey:
+    """What a captured decode step reads, as far as the host can tell:
+    ``settings`` compared by value (the decode step function, the config,
+    the sampling, the device, the kernel-path selectors, the trees' keys
+    and plain values, the tensors' shapes and addresses), ``tensors`` (of
+    the model and the cache) and ``generator`` by identity."""
+    settings: tuple
+    tensors: tuple
+    generator: Optional[torch.Generator]
+
+    def hits(self, kept: tuple) -> bool:
+        """Whether a step captured under ``kept`` (`kept_form` of a key)
+        reads what this key names: the same settings and the same live
+        objects.  A dead reference misses."""
+        settings, refs, generator = kept
+        return (settings == self.settings and generator is self.generator
+                and len(refs) == len(self.tensors)
+                and all(r() is t for r, t in zip(refs, self.tensors)))
+
+    def kept_form(self) -> tuple:
+        """(settings, weak references to the tensors, the generator): what
+        a kept step holds, so that it keeps no model or cache alive.  The
+        generator is held as it is: a CUDA ``torch.Generator`` takes no weak
+        reference, and the graph holds its state anyway."""
+        return self.settings, tuple(weakref.ref(t) for t in self.tensors), self.generator
+
+
+def step_key(api: ModelApi, params: Dict, cache: Dict, cfg, batch: int, sc: SampleConfig,
+             generator: Optional[torch.Generator], device: torch.device) -> StepKey:
+    """The `StepKey` of a decode step of ``api`` over ``params`` and
+    ``cache`` at ``batch`` rows.  ``api`` enters through its decode step
+    alone, so an api with another prefill (``dataclasses.replace(api,
+    prefill=...)``) keys the same step."""
+    tensors: List[torch.Tensor] = []
+    plain: List = []
+    _leaves((params, cache), tensors, plain)
+    selectors = (env.STACKED_GEMV, env.FUSED_DECODE, env.PALLAS, env.PALLAS_ATTN,
+                 env.GEMV_F32W, os.environ.get("QEFT_ATTN_STACKED"))
+    settings = (api.decode_step, cfg, batch, sc, device, selectors, tuple(plain),
+                tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors))
+    return StepKey(settings, tuple(tensors), generator)
+
+
+@dataclasses.dataclass
+class _Kept:
+    key: tuple  # `StepKey.kept_form`
+    loop: DecodeLoop  # its buffers only: the model and the cache let go
+    graph: cuda_lib.Graph
+
+
+def _release(index: int) -> None:
+    """Drop the kept step of device ``index``, once its stream is done."""
+    kept = _kept.pop(index, None)
+    if kept is not None:
+        kept.graph.stream.synchronize()
+
+
 def _graph_loop(api, params, cache, cfg, tokens, s_prompt, sc, generator) -> None:
-    """Tokens 1.. of ``tokens``: the first decode step eagerly on a side
-    stream, then the step captured there and replayed for the rest.  The
-    positions are range-checked here, once.  Returns when the replays are
-    done: the graph and its memory pool are released after them."""
-    n = tokens.shape[1]
-    if s_prompt + n - 1 > cache["k"].shape[3]:
-        raise IndexError(f"{s_prompt} + {n} tokens do not fit a {cache['k'].shape[3]}-slot cache")
-    with span("qeft.generate.first_step"):
-        loop = DecodeLoop(api, params, cache, cfg, tokens, s_prompt, sc, generator)
-        caller = torch.cuda.current_stream(tokens.device)
-        stream = _side_stream(tokens.device)
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            loop.step()
-    graph = None
-    if n > 2:
+    """Tokens 1.. of ``tokens`` on a side stream, from the kept captured
+    step where `step_key` hits it: the loop's buffers reset, then ``n - 1``
+    replays.  Otherwise the kept step is released, a new loop runs the
+    first step eagerly, captures it, replays it ``n - 2`` times and is kept
+    (also at ``n == 2``, for the next call).  The loop writes its own
+    buffer [B, slots]; its tokens 1.. are copied into ``tokens`` after the
+    replays.  The positions are range-checked here, once.  Returns when the
+    replays are done."""
+    b, n = tokens.shape
+    slots = cache["k"].shape[3]
+    if s_prompt + n - 1 > slots:
+        raise IndexError(f"{s_prompt} + {n} tokens do not fit a {slots}-slot cache")
+    device = tokens.device
+    index = _device_index(device)
+    key = step_key(api, params, cache, cfg, b, sc, generator, device)
+    caller = torch.cuda.current_stream(device)
+    stream = _side_stream(device)
+    kept = _kept.get(index)
+    if kept is not None and key.hits(kept.key):
+        with span("qeft.generate.first_step"):
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                kept.loop.reset(tokens, s_prompt)
+        graph_counts["reused"] += 1
+        loop, graph, replays = kept.loop, kept.graph, n - 1
+    else:
+        _release(index)
+        with span("qeft.generate.first_step"):
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                out = tokens.new_empty((b, slots))
+                out[:, :1] = tokens[:, :1]
+                loop = DecodeLoop(api, params, cache, cfg, out, s_prompt, sc, generator)
+                loop.step()
         with span("qeft.generate.capture"):
             graph = loop.capture(stream)
-        with span("qeft.generate.replay"):
-            graph.replay(n - 2)
+        loop.params = loop.cache = None  # held weakly, by the key
+        _kept[index] = _Kept(key.kept_form(), loop, graph)
+        graph_counts["captured"] += 1
+        replays = n - 2
+    with span("qeft.generate.replay"):
+        graph.replay(replays)
+        with torch.cuda.stream(stream):
+            tokens[:, 1:].copy_(loop.out[:, 1:n])
     with span("qeft.generate.wait"):
         caller.wait_stream(stream)
-        stream.synchronize()  # before `graph` goes
-        del graph
+        stream.synchronize()
 
 
 @torch.inference_mode()

@@ -31,7 +31,9 @@ prefill and decode step on the card against the single device; K2 and K7
 at the shard shapes of tp-2 training (512 rows), the bf16w variant of K1,
 K6 and K5 (``QEFT_GEMV_F32W=0``) against its plain version, and a two-rank
 tensor-parallel WCT loss and gradient on the card against the single
-device; and the wrappers' refusals.  They need an NVIDIA GPU and ``nvcc``
+device; ``generate``'s captured decode step kept across requests on one
+cache, and seen by a profiler started after its capture; and the wrappers'
+refusals.  They need an NVIDIA GPU and ``nvcc``
 and skip elsewhere:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -808,9 +810,11 @@ def test_family_decode_attention_launches(gen, family, widths, routed):
 
 
 def test_graph_generate_holds_no_memory_from_request_to_request(gen):
-    """Each ``generate`` on the card captures its decode step on the same
-    side stream, so a request leaves nothing allocated behind it (a fresh
-    stream a request kept one more cuBLAS workspace after every request)."""
+    """``generate`` on the card runs its decode step on one side stream a
+    device and keeps the step it captured there for the next request on the
+    same cache, so from the second request on a request leaves nothing
+    allocated behind it (a fresh stream a request kept one more cuBLAS
+    workspace after every request)."""
     from qeft_tpu_torch.generate import generate
     from qeft_tpu_torch.models.api import get_model_api
 
@@ -825,6 +829,108 @@ def test_graph_generate_holds_no_memory_from_request_to_request(gen):
         torch.cuda.synchronize()
         held.append(torch.cuda.memory_allocated())
     assert held[1] == held[2] == held[3], held
+
+
+# (prompt length, tokens) of a run of requests on one cache: a kept step
+# replayed at other positions, for more tokens than the request that
+# captured it and for two tokens (one replay)
+KEPT_RUN = [(9, 3), (30, 30), (5, 2), (9, 40)]
+
+
+@pytest.mark.parametrize("family", ["opt", "falcon"])
+def test_graph_generate_keeps_its_step_across_requests(gen, family):
+    """Requests on one cache replay one captured step: call by call the
+    greedy tokens and launch counts of the eager loop (``graph=False``),
+    one capture for the run and no memory added from the second call on; a
+    request on another cache captures again and releases the kept step."""
+    import gc
+    import weakref
+
+    from qeft_tpu_torch import generate as gen_mod
+    from qeft_tpu_torch.models.api import get_model_api
+
+    cfg, params = _tiny_family(family, hidden_size=256, num_heads=4)
+    api = get_model_api(family)
+    prompts = {s: torch.randint(0, cfg.vocab_size, (2, s), generator=gen, device="cuda")
+               for s, _ in KEPT_RUN}
+
+    def run(graph, cache):
+        out, held = [], []
+        for s, n in KEPT_RUN:
+            cuda_lib.reset_launches()
+            tokens, _ = gen_mod.generate(params, prompts[s], cache, cfg, n, api=api, graph=graph)
+            torch.cuda.synchronize()
+            out.append((tokens.cpu(), dict(cuda_lib.launches)))
+            del tokens
+            held.append(torch.cuda.memory_allocated())
+        return out, held
+
+    eager, _ = run(False, api.init_cache(cfg, 2, 64, dtype=torch.bfloat16, device="cuda"))
+    gen_mod._release(torch.cuda.current_device())
+    gen_mod.graph_counts.clear()
+    cache = api.init_cache(cfg, 2, 64, dtype=torch.bfloat16, device="cuda")
+    kept, held = run(True, cache)
+    for (s, n), (want, want_n), (got, got_n) in zip(KEPT_RUN, eager, kept):
+        assert torch.equal(got, want), (s, n)
+        assert got_n == want_n, (s, n)
+    assert gen_mod.graph_counts == {"captured": 1, "reused": len(KEPT_RUN) - 1}
+    assert held[1:] == [held[1]] * (len(held) - 1), held
+    old = weakref.ref(gen_mod._kept[torch.cuda.current_device()].graph)
+    other = api.init_cache(cfg, 2, 64, dtype=torch.bfloat16, device="cuda")
+    tokens, _ = gen_mod.generate(params, prompts[9], other, cfg, 3, api=api)
+    gc.collect()
+    assert gen_mod.graph_counts["captured"] == 2
+    assert old() is None
+    assert torch.equal(tokens.cpu(), eager[0][0])
+
+
+_PROFILED_REPLAY = """
+import dataclasses, json
+import torch
+from qeft_tpu_torch.generate import generate, graph_counts
+from qeft_tpu_torch.models.api import get_model_api
+from qeft_tpu_torch.models.opt import OPT_PRESETS
+from qeft_tpu_torch.ops import cuda_lib
+from qeft_tpu_torch.testing import build_packed_model
+
+cfg = dataclasses.replace(OPT_PRESETS["opt-tiny"], hidden_size=256, num_heads=4)
+params = build_packed_model(cfg, seed=0, g=64, r=16, device="cuda", family="opt")
+api = get_model_api("opt")
+cache = api.init_cache(cfg, 2, 64, dtype=torch.bfloat16, device="cuda")
+prompt = torch.randint(0, cfg.vocab_size, (2, 9), device="cuda")
+generate(params, prompt, cache, cfg, 8, api=api)
+torch.cuda.synchronize()
+before = cuda_lib.launches["qgemv"]
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    generate(params, prompt, cache, cfg, 8, api=api)
+    torch.cuda.synchronize()
+seen = sum(e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and "qgemv_mma_kernel" in e.key)
+print(json.dumps({"launched": cuda_lib.launches["qgemv"] - before, "seen": seen,
+                  "graphs": dict(graph_counts)}))
+"""
+
+
+def test_profiler_started_after_the_capture_sees_the_kept_steps_kernels(gen):
+    """A ``torch.profiler`` session that a process starts after its decode
+    step was captured (as a benchmark traces requests after its warm-up)
+    records every K5 launch of a ``generate`` that replays the kept step on
+    the same cache.  Its own process: the first profiler session of a
+    process is the case."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _PROFILED_REPLAY], capture_output=True,
+                         text=True, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["graphs"] == {"captured": 1, "reused": 1}, got
+    assert got["launched"] > 0 and got["seen"] == got["launched"], got
 
 
 def _graph_models():

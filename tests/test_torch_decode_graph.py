@@ -9,6 +9,12 @@ decode loop replays (``qeft_tpu_torch/generate.py``), on the CPU.
 - `DecodeLoop.step`, the function the graph captures, run eagerly as the
   replay loop calls it, gives greedy tokens identical to the JAX package's
   ``generate`` on the tiny models ``tests/torch_parity.py`` builds.
+- `DecodeLoop.reset` starts the same loop again at a request's first token
+  and position, and the steps after it give the same tokens again.
+- `step_key`, which decides whether a kept captured step serves a call,
+  hits for the same tensors and for an api with another prefill, and
+  misses for a replaced leaf, another cache, batch, sampling, generator or
+  kernel-path selector, and a leaf whose weak reference has died.
 - Sampling draws as ``torch.multinomial`` draws, from the same generator.
 
 Bit-identical (``rtol=0, atol=0``) throughout: a tensor position changes
@@ -16,6 +22,7 @@ where the position is read, not the arithmetic.
 """
 
 import dataclasses
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +31,8 @@ import torch
 
 from qeft_tpu.generate import generate as jax_generate
 from qeft_tpu.models import llama as jl
-from qeft_tpu_torch.generate import DecodeLoop, SampleConfig, generate, sample_from
+from qeft_tpu_torch import env
+from qeft_tpu_torch.generate import DecodeLoop, SampleConfig, generate, sample_from, step_key
 from qeft_tpu_torch.models import bloom, falcon, opt, phi
 from qeft_tpu_torch.models.api import get_model_api
 from qeft_tpu_torch.models.llama import LLAMA_PRESETS
@@ -124,6 +132,91 @@ def test_graph_step_run_eagerly_gives_jax_greedy_tokens(models, name):
                                                                           dtype=torch.float32),
                         tcfg, n, device="cpu", api=api)
     torch.testing.assert_close(eager, tokens, **EXACT)
+
+
+def test_reset_loop_gives_the_same_tokens_again(models):
+    """A loop reset to the request's first token and position over the same
+    cache steps through the same positions again: what a replay of a kept
+    step does for a request that reuses the cache."""
+    _, tparams, _, tcfg, family = models["tiny"]
+    api = get_model_api(family)
+    prompt = torch.from_numpy(random_tokens(tcfg.vocab_size, (2, 8), 5))
+    cache = api.init_cache(tcfg, 2, 24, dtype=torch.float32)
+    logits, cache = api.prefill(tparams, prompt, cache, tcfg)
+    out = torch.full((2, 24), -1, dtype=torch.int64)
+    out[:, 0] = logits[:, -1].argmax(-1)
+    loop = DecodeLoop(api, tparams, cache, tcfg, out, 8, SampleConfig(), None)
+    for _ in range(9):
+        loop.step()
+    first = out[:, :10].clone()
+    out[:, 1:] = -1
+    loop.reset(first, 8)
+    for _ in range(9):
+        loop.step()
+    torch.testing.assert_close(out[:, :10], first, **EXACT)
+    assert int(loop.pos) == 17 and int(loop.idx) == 10
+
+
+def _key_case(family="opt", b=2, slots=16):
+    cfg, params = _model(family)
+    api = get_model_api(family)
+    return api, params, api.init_cache(cfg, b, slots, dtype=torch.float32), cfg
+
+
+def test_step_key_hits_what_the_captured_step_reads(monkeypatch):
+    """The hit test of the kept decode graph, on CPU tensors: the same
+    leaves hit, and so does the api with another prefill (as a caller
+    that times its prefill passes it); every change of what the step reads
+    misses, and so does a leaf that has died."""
+    cpu = torch.device("cpu")
+    api, params, cache, cfg = _key_case()
+    sc, gen = SampleConfig(), torch.Generator()
+    kept = step_key(api, params, cache, cfg, 2, sc, gen, cpu).kept_form()
+
+    def hits(**change):
+        args = dict(api=api, params=params, cache=cache, cfg=cfg, batch=2, sc=sc,
+                    generator=gen, device=cpu)
+        args.update(change)
+        return step_key(**args).hits(kept)
+
+    assert hits()
+    assert hits(api=dataclasses.replace(api, prefill=lambda *a: api.prefill(*a)))
+    _, prefilled = api.prefill(params, torch.zeros(2, 3, dtype=torch.int64), cache, cfg)
+    assert hits(cache=prefilled)  # the prefill writes the cache in place
+    swapped = dict(params, final_ln=params["final_ln"].clone())
+    assert not hits(params=swapped)
+    layers = dict(params["layers"])
+    name = next(k for k, v in layers.items() if isinstance(v, torch.Tensor))
+    layers[name] = layers[name].clone()
+    assert not hits(params=dict(params, layers=layers))
+    assert not hits(cache=api.init_cache(cfg, 2, 16, dtype=torch.float32))
+    assert not hits(cache=api.init_cache(cfg, 2, 24, dtype=torch.float32))
+    assert not hits(batch=3, cache=api.init_cache(cfg, 3, 16, dtype=torch.float32))
+    assert not hits(sc=SampleConfig(greedy=False, temperature=0.7))
+    assert not hits(generator=torch.Generator())
+    assert not hits(generator=None)
+    assert not hits(cfg=dataclasses.replace(cfg, num_layers=cfg.num_layers + 1))
+    assert not hits(api=get_model_api("falcon"))
+    with env.setting(QEFT_STACKED_GEMV="0"):
+        assert not hits()
+    monkeypatch.setenv("QEFT_ATTN_STACKED", "1")
+    assert not hits()
+    monkeypatch.delenv("QEFT_ATTN_STACKED")
+    assert hits()
+
+
+def test_step_key_misses_once_a_leaf_has_died():
+    """The kept form holds every leaf weakly: it keeps no cache alive, and
+    a cache built in the same place after the old one died misses."""
+    cpu = torch.device("cpu")
+    api, params, cache, cfg = _key_case()
+    kept = step_key(api, params, cache, cfg, 2, SampleConfig(), None, cpu).kept_form()
+    probe = [r for r in kept[1] if r() is cache["k"]]
+    del cache
+    gc.collect()
+    assert probe and probe[0]() is None
+    again = api.init_cache(cfg, 2, 16, dtype=torch.float32)
+    assert not step_key(api, params, again, cfg, 2, SampleConfig(), None, cpu).hits(kept)
 
 
 def test_sampling_draws_as_multinomial_draws():
